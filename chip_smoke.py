@@ -14,10 +14,20 @@ Phases, each fatal on failure:
      T 78) serving three requests of 64 RIRs and two of 512 through
      render_waveforms (the first request pays the cold start), with the
      kernel launch counter read around the run;
-  5. the tiny slice in float32 on the card against the same slice on the CPU.
+  5. the tiny slice in float32 on the card against the same slice on the CPU;
+  6. the fused PE+MLP kernel against pe_mlp_plain on the card, in bf16 and
+     f32, at the proposal-0 shape (8,388,608 rows, 39 -> 128 -> 128 -> 1)
+     and the main field's (1,572,864 rows, 63 -> 256 x 4 -> 16);
+  7. the full-width vision slice: a 512 x 512 synthetic SoundSpaces view
+     (hfov 90 degrees, 8 chunks of 32,768 rays) through render_image three
+     times (the first pays the cold start) and a second view once, then
+     evaluate_vision over both views, with the launch counters read around
+     the run; then a per-chunk breakdown of one more image;
+  8. the tiny vision slice in float32 on the card against the CPU.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their launch counts, errors and times.
+is the card's name and power limit, and the one before that lists the
+kernels with their launch counts, errors and times.
 """
 
 from __future__ import annotations
@@ -40,6 +50,20 @@ import numpy as np
 GL_REL_TOL = 1e-3
 SC_ABS_TOL = 1e-4
 LOG_ABS_TOL = 1e-3  # card vs CPU f32 log-magnitudes (in [-10, 10])
+
+# Fused PE+MLP, relative to the output's peak. bf16: the plain chain rounds
+# every layer's product and bias add to bf16, the kernel adds the bias in
+# f32 before one cast, so the two differ by bf16 rounding (9.2e-3 of the
+# peak at most, measured on an H100 at both field shapes); a wrong product
+# is O(1). The kernel must also be no further from the float64 chain than
+# 1.5 times the plain bf16 chain is. f32: against the plain chain in float64
+# (the f32 chain itself is 3e-5 of the peak off, from rounding angles of up
+# to 2^8 turns, which the kernel reduces exactly), rtol 2e-4 plus atol 2e-5
+# of the peak, the JAX package's bound for its kernel.
+PE_BF16_REL_TOL, PE_BF16_VS_PLAIN = 1.5e-2, 1.5
+PE_F32_RTOL, PE_F32_ATOL = 2e-4, 2e-5
+RGB_ABS_TOL = 1e-4  # tiny vision slice, f32, card vs CPU
+EVAL_NOISE, EVAL_MIN_PSNR = 0.02, 30.0  # evaluate_vision against render + noise
 
 
 def fail(msg: str) -> None:
@@ -90,6 +114,114 @@ def spectral_convergence(wav, mag, n_fft, hop, win) -> float:
     return float((rebuilt - mag).norm() / mag.norm())
 
 
+def pe_mlp_check(torch, dev, name, layers, F, n, seed):
+    """Phase 6 at one shape: the kernel against the plain version, bf16
+    and f32, and both timed (plain, kernel, kernel, plain)."""
+    from neraf_tpu_torch.ops.cuda.pe_mlp import pe_mlp_cuda
+    from neraf_tpu_torch.ops.pe_mlp import pe_mlp_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    # the model's weights, with seeded biases so that the bias add is held
+    layers = [(w.detach(), 0.1 * torch.randn(b.shape, generator=gen, device=dev))
+              for w, b in layers]
+    ref = pe_mlp_plain(x.double(), [(w.double(), b.double())
+                                    for w, b in layers], F, 0.0, 8.0,
+                       torch.float64)
+    peak = float(ref.abs().max())
+    row = {"rows": n}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        out = pe_mlp_cuda(x, layers, F, 0.0, 8.0, dtype)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+            fail(f"pe_mlp {name} {tag}: shape {tuple(out.shape)} or not finite")
+        diff64 = (out.double() - ref).abs()
+        if dtype == torch.bfloat16:
+            plain = pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype)
+            err = float((out - plain).abs().max())
+            err64 = float(diff64.max())
+            plain64 = float((plain.double() - ref).abs().max())
+            ok = (err <= PE_BF16_REL_TOL * peak
+                  and err64 <= PE_BF16_VS_PLAIN * plain64)
+            bound = (f"{PE_BF16_REL_TOL} of the peak; against float64 "
+                     f"{err64 / peak:.3e} vs plain bf16 {plain64 / peak:.3e}")
+            del plain
+        else:
+            err = float(diff64.max())
+            excess = float((diff64 - PE_F32_RTOL * ref.abs()).max())
+            ok = excess <= PE_F32_ATOL * peak
+            bound = (f"against float64, rtol {PE_F32_RTOL} + atol "
+                     f"{PE_F32_ATOL} of the peak")
+        del diff64
+        reps = 5
+        p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
+            lambda: pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype),
+            lambda: pe_mlp_cuda(x, layers, F, 0.0, 8.0, dtype),
+            lambda: pe_mlp_cuda(x, layers, F, 0.0, 8.0, dtype),
+            lambda: pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype)))
+        ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+        print(f"pe_mlp {name} {n} rows {tag}: max_abs_err {err:.3e}, "
+              f"rel {err / peak:.3e} (bound {bound}); kernel {ms_k:.3f} ms "
+              f"[{k1:.3f}, {k2:.3f}] plain {ms_p:.3f} ms [{p1:.3f}, "
+              f"{p2:.3f}]", flush=True)
+        if not ok:
+            fail(f"pe_mlp kernel disagrees with plain at {name} {tag}: "
+                 f"max_abs_err {err}, peak {peak}")
+        row[tag] = {"max_abs_err": err, "rel_err": err / peak, "ms": ms_k,
+                    "plain_ms": ms_p}
+        torch.cuda.empty_cache()
+    return row
+
+
+def check_image(torch, out, H, W, what):
+    if tuple(out["rgb"].shape) != (H, W, 3) or tuple(
+            out["depth"].shape) != (H, W) or tuple(
+            out["accumulation"].shape) != (H, W):
+        fail(f"{what}: shapes {[tuple(v.shape) for v in out.values()]}")
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        fail(f"{what}: not finite")
+    if not (float(out["rgb"].min()) >= 0.0 and float(out["rgb"].max()) <= 1.0):
+        fail(f"{what}: rgb outside [0, 1]")
+    acc = out["accumulation"]
+    if not (float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-3):
+        fail(f"{what}: accumulation outside [0, 1]")
+
+
+def chunk_breakdown(torch, pipe, arrays, H, W):
+    """Per-chunk device time of one image (CUDA events from forward hooks):
+    proposal 0, proposal 1, the main field, and the rest of the chunk."""
+    model = pipe.vision_model
+    parts = {"proposal_0": model.proposal_networks[0],
+             "proposal_1": model.proposal_networks[1],
+             "main_field": model.field, "chunk": model}
+    events = {k: [] for k in parts}
+    handles = []
+    for k, mod in parts.items():
+        def pre(_m, _a, k=k):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[k].append([ev])
+
+        def post(_m, _a, _o, k=k):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[k][-1].append(ev)
+
+        handles += [mod.register_forward_pre_hook(pre),
+                    mod.register_forward_hook(post)]
+    try:
+        pipe.render_image(arrays, 0, H, W)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {k: float(np.mean([a.elapsed_time(b) for a, b in v]))
+          for k, v in events.items()}
+    ms["rest"] = ms["chunk"] - ms["proposal_0"] - ms["proposal_1"] - ms[
+        "main_field"]
+    return ms, len(events["chunk"])
+
+
 def main() -> int:
     import torch
 
@@ -102,10 +234,15 @@ def main() -> int:
         griffin_lim_plain,
         random_angles,
     )
+    from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
     from neraf_tpu_torch.dsp.stft import log_to_magnitude
-    from neraf_tpu_torch.engine.factory import build_render_pipeline
+    from neraf_tpu_torch.engine.factory import (
+        build_render_pipeline,
+        build_vision_pipeline,
+    )
     from neraf_tpu_torch.ops.cuda import build
     from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
+    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
 
     dev = torch.device("cuda")
     # phase 1: the card
@@ -178,7 +315,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gl_cuda.LAUNCHES = 0
+    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = 0
     times = []
     for mic, src, rot in requests:
         t0 = time.perf_counter()
@@ -192,10 +329,11 @@ def main() -> int:
             fail("slice output not finite")
         if not float(wav.abs().max()) > 0:
             fail("slice output is all zero")
-    launches = gl_cuda.LAUNCHES
+    launches, rir_pe_launches = gl_cuda.LAUNCHES, pe_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    if launches != len(requests):
-        fail(f"GL kernel launched {launches} times for {len(requests)} requests")
+    if launches != len(requests) or rir_pe_launches != 0:
+        fail(f"RIR path: GL kernel launched {launches} times for "
+             f"{len(requests)} requests, pe_mlp {rir_pe_launches} times")
     for (mic, _, _), dt in zip(requests, times):
         print(f"slice request {mic.shape[0]} RIRs: {dt * 1e3:.2f} ms, "
               f"{mic.shape[0] / dt:.2f} RIRs/s")
@@ -244,14 +382,112 @@ def main() -> int:
     if not (wav_rel <= GL_REL_TOL and abs(sc_gpu - sc_cpu) <= SC_ABS_TOL):
         fail(f"tiny slice waveforms differ card vs CPU: {wav_rel}, "
              f"{sc_gpu} vs {sc_cpu}")
+    del pipe, on
+    torch.cuda.empty_cache()
+
+    # phase 6: the fused PE+MLP kernel against the plain version, at the
+    # shapes one 32,768-ray chunk of the full-width vision model gives it
+    vpipe = build_vision_pipeline(tiny=False, device=dev, seed=0)
+    vmodel = vpipe.vision_model
+    vcfg = vmodel.config
+    chunk = vcfg.eval_num_rays_per_chunk
+    prop0 = vmodel.proposal(0)
+    pe_rows = {
+        "proposal_0": pe_mlp_check(
+            torch, dev, "proposal_0", [(l.weight, l.bias) for l in prop0.mlp],
+            prop0.num_frequencies, chunk * vcfg.num_proposal_samples[0], 1),
+        "main_field": pe_mlp_check(
+            torch, dev, "main_field", vmodel.field.base_layers(),
+            vcfg.num_frequencies, chunk * vcfg.num_nerf_samples, 2),
+    }
+
+    # phase 7: the full-width vision slice through render_image and
+    # evaluate_vision
+    H = W = 512
+    cams = synthetic_cameras(8, H, W, hfov_deg=90.0, seed=0)
+    arrays = camera_arrays(cams, dev)
+    n_chunks = -(-H * W // chunk)
+    print(f"vision: full-width model (fourier F {vcfg.num_frequencies}, base "
+          f"{vcfg.base_mlp_layers} x {vcfg.base_mlp_width}, samples "
+          f"{vcfg.num_proposal_samples} -> {vcfg.num_nerf_samples}, "
+          f"{vmodel.field.dtype}), {H} x {W} view, fx {float(cams.fx[0])}, "
+          f"{n_chunks} chunks of {chunk} rays", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = 0
+    renders, img_times = [], []
+    for cam in (0, 0, 0, 1):
+        t0 = time.perf_counter()
+        out = vpipe.render_image(arrays, cam, H, W)
+        torch.cuda.synchronize()
+        img_times.append(time.perf_counter() - t0)
+        check_image(torch, out, H, W, f"render_image view {cam}")
+        renders.append(out)
+    noise = np.random.default_rng(3).normal(0.0, EVAL_NOISE, (2, H, W, 3))
+    gt = np.clip(np.stack([renders[0]["rgb"].cpu().numpy(),
+                           renders[3]["rgb"].cpu().numpy()]) + noise,
+                 0.0, 1.0).astype(np.float32)
+    ev = vpipe.evaluate_vision(arrays, gt)
+    vis_launches, vis_gl_launches = pe_cuda.LAUNCHES, gl_cuda.LAUNCHES
+    vis_peak = torch.cuda.max_memory_allocated()
+    n_images = len(renders) + 2
+    for cam, dt in zip((0, 0, 0, 1), img_times):
+        print(f"vision render_image view {cam}: {dt * 1e3:.2f} ms, "
+              f"{H * W / dt:.1f} rays/s")
+    print(f"vision evaluate_vision (2 views): {json.dumps(ev)}")
+    print(f"vision: pe_mlp launches {vis_launches} for {n_images} images of "
+          f"{n_chunks} chunks, GL launches {vis_gl_launches}, peak memory "
+          f"{vis_peak / 2**30:.3f} GiB", flush=True)
+    if vis_launches != 3 * n_chunks * n_images or vis_gl_launches != 0:
+        fail(f"vision path: pe_mlp launched {vis_launches} times, expected "
+             f"{3 * n_chunks * n_images}; GL {vis_gl_launches} times")
+    if not (np.isfinite(ev["psnr"]) and ev["psnr"] >= EVAL_MIN_PSNR
+            and 0.0 < ev["ssim"] <= 1.0 and ev["lpips"] is None):
+        fail(f"evaluate_vision against the renders plus noise: {ev}")
+    repeat_err = max(float((a["rgb"] - renders[0]["rgb"]).abs().max())
+                     for a in renders[1:3])
+    print(f"vision: view 0 rendered three times, rgb max_abs_err between "
+          f"renders {repeat_err:.3e}")
+    if not repeat_err <= 1e-6:
+        fail(f"render_image of one view differs between calls: {repeat_err}")
+    parts, n_timed = chunk_breakdown(torch, vpipe, arrays, H, W)
+    print(f"vision breakdown, mean of {n_timed} chunks (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del vpipe, vmodel, renders
+    torch.cuda.empty_cache()
+
+    # phase 8: tiny vision slice, f32 without TF32, card against CPU
+    tiny = {d: build_vision_pipeline(tiny=True, device=d, seed=0,
+                                     mixed_precision=False)
+            for d in ("cpu", "cuda")}
+    tcams = synthetic_cameras(8, 24, 20, seed=1)
+    timg = {d: {k: v.cpu() for k, v in p.render_image(
+        camera_arrays(tcams, d), 2, 24, 20).items()} for d, p in tiny.items()}
+    rgb_err = float((timg["cuda"]["rgb"] - timg["cpu"]["rgb"]).abs().max())
+    acc_err = float((timg["cuda"]["accumulation"]
+                     - timg["cpu"]["accumulation"]).abs().max())
+    print(f"tiny vision card vs cpu: rgb max_abs_err {rgb_err:.3e}, "
+          f"accumulation {acc_err:.3e} (tol {RGB_ABS_TOL})")
+    if not (rgb_err <= RGB_ABS_TOL and acc_err <= RGB_ABS_TOL):
+        fail(f"tiny vision slice differs card vs CPU: rgb {rgb_err}, "
+             f"accumulation {acc_err}")
 
     err, err32, ms_k, ms_p = gl_rows[("soundspaces", 1024)]
+    main_bf16 = pe_rows["main_field"]["bf16"]
     print(json.dumps({"kernels": [{
         "name": "griffin_lim", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "neraf_tpu/ops/pallas/griffin_lim_kernel.py:148",
         "launches": launches, "max_abs_err": err, "ms": ms_k,
-        "plain_ms": ms_p, "max_abs_err_32_iter": err32}]}))
+        "plain_ms": ms_p, "max_abs_err_32_iter": err32}, {
+        "name": "pe_mlp_fwd", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/pe_mlp.cu",
+        "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:373",
+        "launches": vis_launches, "max_abs_err": main_bf16["max_abs_err"],
+        "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],
+        "shapes": pe_rows}]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

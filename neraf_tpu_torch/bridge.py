@@ -2,12 +2,15 @@
 
 Takes the trees JointPipeline.init_state builds: params["audio"]["field"]
 (the AcousticSoundField variables, {"params": {...}}), params["audio"]["resnet"]
-and the ResNet's batch_stats. Layouts:
+and the ResNet's batch_stats; and the vision half, params["proposal_networks"]
+["level_0" / "level_1"] and params["fields"] (flax variables each).
+Layouts:
 
 - Dense kernel (in, out) -> Linear weight (out, in); bias as is;
 - Conv kernel DHWIO -> Conv3d weight OIDHW;
 - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
-  running_mean/running_var.
+  running_mean/running_var;
+- Embed embedding (num_cameras, dim) -> Embedding weight as is.
 
 Every flax leaf must map to a torch key and every torch parameter or running
 statistic must be filled; anything else raises KeyError.
@@ -27,8 +30,16 @@ _SCOPE = [
     (re.compile(r"^(layer\d+)_(\d+)$"), r"\1.\2"),
     (re.compile(r"^(conv\d|bn\d|down_conv|down_bn)$"), r"\1"),
 ]
+# vision fields: proposal Dense_i, main field base_i / base_out / head_i /
+# head_out / appearance
+_VISION_SCOPE = [
+    (re.compile(r"^Dense_(\d+)$"), r"mlp.\1"),
+    (re.compile(r"^base_(\d+)$"), r"mlp_base.\1"),
+    (re.compile(r"^head_(\d+)$"), r"mlp_head.\1"),
+    (re.compile(r"^(base_out|head_out|appearance)$"), r"\1"),
+]
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-         "var": "running_var"}
+         "var": "running_var", "embedding": "weight"}
 
 
 def _leaves(tree, path=()):
@@ -39,10 +50,10 @@ def _leaves(tree, path=()):
         yield path, np.asarray(tree, dtype=np.float32)
 
 
-def _torch_key(path: tuple) -> str:
+def _torch_key(path: tuple, scopes=_SCOPE) -> str:
     parts = []
     for scope in path[:-1]:
-        for pat, repl in _SCOPE:
+        for pat, repl in scopes:
             if pat.match(scope):
                 parts.append(pat.sub(repl, scope))
                 break
@@ -69,12 +80,12 @@ def _to_torch(path: tuple, arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
 
-def tree_to_state_dict(*trees) -> dict:
+def tree_to_state_dict(*trees, scopes=_SCOPE) -> dict:
     """Flatten flax trees into one torch state_dict (keys may not repeat)."""
     out = {}
     for tree in trees:
         for path, arr in _leaves(tree):
-            key = _torch_key(path)
+            key = _torch_key(path, scopes)
             if key in out:
                 raise KeyError(f"flax leaves collide on torch key {key}")
             out[key] = _to_torch(path, arr)
@@ -113,3 +124,14 @@ def load_render_params(resnet: nn.Module, field: nn.Module, params: dict,
     audio = params["audio"]
     load_state_dict(field, field_state_dict(audio["field"]))
     load_state_dict(resnet, resnet_state_dict(audio["resnet"], batch_stats))
+
+
+def load_vision_params(vision_model: nn.Module, params: dict) -> None:
+    """Fill the port's VisionModel (proposal fields and main field) from a
+    JAX train state's params, or VisionModel.init's tree."""
+    props = params["proposal_networks"]
+    for level, prop in enumerate(vision_model.proposal_networks):
+        load_state_dict(prop, tree_to_state_dict(
+            props[f"level_{level}"]["params"], scopes=_VISION_SCOPE))
+    load_state_dict(vision_model.field, tree_to_state_dict(
+        params["fields"]["params"], scopes=_VISION_SCOPE))

@@ -1,24 +1,45 @@
-"""Build the render pipeline at the repo's two sizes.
+"""Build the render pipelines at the repo's two sizes.
 
-The configurations are the ones __graft_entry__._build_pipeline uses:
+The RIR configurations are the ones __graft_entry__._build_pipeline uses:
 - full: SoundSpaces, max_len 78, 257 bins, w_field 512, resnet50 with
   n_features 1024, a 7 x grid_res^3 grid, audio AABB +-3;
 - tiny: resnet18, w_field 32, max_len 12 (grid_res is the caller's, 16 in
   the tests).
+The vision model, with 8 cameras, near 0.05 and far 1000 as there:
+- full: VisionModelConfig() defaults (fourier F 10, base MLP 4 x 256, geo
+  15, head 3 x 64, appearance 32, proposals F 6 at 2 x 128, samples
+  (256, 96) -> 48);
+- tiny: F 4, base 2 x 32, geo 7, head 16, appearance 4, samples
+  (16, 12) -> 8 (the proposals keep their fixed F 6 at 2 x 128).
 """
 
 from __future__ import annotations
 
 import torch
 
-from neraf_tpu.configs.config import AudioModelConfig, ExperimentConfig
-from neraf_tpu_torch.bridge import load_render_params
-from neraf_tpu_torch.engine.pipeline import RenderPipeline
+from neraf_tpu.configs.config import (
+    AudioModelConfig,
+    ExperimentConfig,
+    VisionModelConfig,
+)
+from neraf_tpu_torch.bridge import load_render_params, load_vision_params
+from neraf_tpu_torch.engine.pipeline import RenderPipeline, VisionPipeline
 from neraf_tpu_torch.models.audio import AudioModel
 from neraf_tpu_torch.models.grid import init_grid
 from neraf_tpu_torch.models.resnet3d import ResNet3D
+from neraf_tpu_torch.models.vision import VisionModel
 
 AUDIO_AABB = ((-3.0, -3.0, -3.0), (3.0, 3.0, 3.0))
+NUM_CAMERAS, NEAR, FAR = 8, 0.05, 1000.0
+
+
+def vision_model_config(tiny: bool = False) -> VisionModelConfig:
+    if not tiny:
+        return VisionModelConfig()
+    return VisionModelConfig(
+        num_frequencies=4, base_mlp_width=32, base_mlp_layers=2,
+        geo_feat_dim=7, hidden_dim_color=16, appearance_embed_dim=4,
+        num_nerf_samples=8, num_proposal_samples=(16, 12))
 
 
 def build_render_pipeline(grid_res: int = 128, tiny: bool = False,
@@ -53,3 +74,24 @@ def build_render_pipeline(grid_res: int = 128, tiny: bool = False,
     return RenderPipeline(
         cfg, resnet, audio_model, torch.tensor(AUDIO_AABB),
         init_grid(grid_res) if grid is None else grid, grid_res, device)
+
+
+def build_vision_pipeline(tiny: bool = False, device="cpu", seed: int = 0,
+                          mixed_precision: bool | None = None,
+                          params: dict | None = None) -> VisionPipeline:
+    """A VisionPipeline with weights from `seed` (flax's initialisers from a
+    CPU torch.Generator), or bridged from a JAX train state's `params`
+    (proposal_networks and fields). mixed_precision None keeps the config's
+    default (bf16)."""
+    cfg = ExperimentConfig(dataset="SoundSpaces")
+    cfg.vision_model = vision_model_config(tiny)
+    if mixed_precision is not None:
+        cfg.trainer.mixed_precision = mixed_precision
+    dtype = torch.bfloat16 if cfg.trainer.mixed_precision else torch.float32
+    model = VisionModel(cfg.vision_model, num_cameras=NUM_CAMERAS, near=NEAR,
+                        far=FAR, dtype=dtype)
+    if params is None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        load_vision_params(model, params)
+    return VisionPipeline(cfg, model, device)

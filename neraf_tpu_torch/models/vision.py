@@ -1,0 +1,112 @@
+"""Nerfacto-class vision model, eval half (counterpart of
+neraf_tpu/models/vision.py):
+
+  1. uniform spacing bins (256) -> proposal net 0 -> weights -> PDF (96)
+  2. -> proposal net 1 -> weights -> PDF resample (48)
+  3. -> Nerfacto field -> density/rgb -> transmittance weights
+  4. renderers: rgb (clipped to [0, 1]), accumulation, median and
+     expected depth.
+
+Eval runs deterministic sampling and no camera optimisation; the train-mode
+jitter, proposal annealing, camera optimisation and losses come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from neraf_tpu.configs.config import VisionModelConfig
+from neraf_tpu_torch.fields.nerfacto import NerfactoField, ProposalDensityField
+from neraf_tpu_torch.ops.render import (
+    render_accumulation,
+    render_depth,
+    render_rgb,
+    render_weights,
+)
+from neraf_tpu_torch.ops.samplers import (
+    bins_to_samples,
+    pdf_spacing_bins,
+    uniform_spacing_bins,
+)
+
+
+class VisionModel(nn.Module):
+    """The two proposal fields and the main field, with the ray marcher."""
+
+    def __init__(self, config: VisionModelConfig, num_cameras: int = 1,
+                 near: float = 0.05, far: float = 1000.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if config.proposal_encoding != "fourier":
+            raise NotImplementedError(
+                f"proposal_encoding={config.proposal_encoding!r}: only the "
+                "fourier encoding is ported")
+        self.config = config
+        self.near, self.far = near, far
+        self.field = NerfactoField(config, num_cameras, dtype)
+        self.proposal_networks = nn.ModuleList(
+            ProposalDensityField(average_init_density=config.average_init_density,
+                                 dtype=dtype) for _ in range(2))
+
+    def proposal(self, level: int) -> ProposalDensityField:
+        return self.proposal_networks[level]
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        self.field.reset_parameters(generator)
+        for prop in self.proposal_networks:
+            prop.reset_parameters(generator)
+
+    def forward(self, rays: dict, train: bool = False,
+                use_average_appearance: bool = True) -> dict:
+        """Render a ray batch: origins (R, 3), directions (R, 3),
+        camera_indices (R,) -> rgb (R, 3), accumulation, depth,
+        expected_depth (R,), and the per-level weights and spacing bins."""
+        if train:
+            raise NotImplementedError("train mode comes with the training slice")
+        cfg = self.config
+        origins, directions = rays["origins"], rays["directions"]
+        cam_idx = rays["camera_indices"]
+        R = origins.shape[0]
+        near = torch.full((R,), self.near, device=origins.device)
+        far = torch.full((R,), self.far, device=origins.device)
+
+        num_p0, num_p1 = cfg.num_proposal_samples
+        bins = uniform_spacing_bins(R, num_p0, origins.device)
+        weights_list, spacing_list = [], []
+        for level, n_next in ((0, num_p1), (1, cfg.num_nerf_samples)):
+            s = bins_to_samples(bins, origins, directions, near, far)
+            w = render_weights(self.proposal(level)(s["positions"]), s["deltas"])
+            weights_list.append(w)
+            spacing_list.append((s["spacing_starts"], s["spacing_ends"]))
+            bins = pdf_spacing_bins(bins, w, n_next)
+
+        sf = bins_to_samples(bins, origins, directions, near, far)
+        dirs_b = directions[:, None, :].expand(sf["positions"].shape)
+        cam_b = cam_idx[:, None].expand(sf["positions"].shape[:-1])
+        out = self.field(sf["positions"], dirs_b, cam_b,
+                         use_average_appearance=use_average_appearance)
+        w = render_weights(out["density"], sf["deltas"])
+        weights_list.append(w)
+        spacing_list.append((sf["spacing_starts"], sf["spacing_ends"]))
+
+        rgb = render_rgb(out["rgb"], w, background_color=cfg.background_color)
+        return {
+            "rgb": rgb.clamp(0.0, 1.0),  # reference NeRAF_model.py:67
+            "accumulation": render_accumulation(w),
+            "depth": render_depth(w, sf["mids"]),
+            "expected_depth": render_depth(w, sf["mids"], method="expected"),
+            "weights_list": weights_list,
+            "spacing_list": spacing_list,
+        }
+
+    def query_density_rgb(self, positions: torch.Tensor,
+                          directions: torch.Tensor):
+        """Point queries for the scene-grid bake: no scene contraction, the
+        average appearance embedding. (B, 3) each -> rgb (B, 3), density (B,)."""
+        cam = torch.zeros(positions.shape[:-1], dtype=torch.long,
+                          device=positions.device)
+        out = self.field(positions, directions, cam, contract=False,
+                         use_average_appearance=True)
+        return out["rgb"], out["density"]

@@ -2,10 +2,12 @@
 
 The sources under ``neraf_tpu_torch/csrc`` expose a plain C interface and are
 loaded with ``ctypes``: compiling them with nvcc alone takes seconds, where a
-PyTorch C++ extension (``torch.utils.cpp_extension.load``) takes minutes. The
-library is built at first use into ``build/neraf_tpu_torch/`` beside the
-package, named by a hash of the sources and flags, so an unchanged tree reuses
-it and a changed one rebuilds. Nothing is built when this module is imported.
+PyTorch C++ extension (``torch.utils.cpp_extension.load``) takes minutes. Each
+source is compiled by its own nvcc process, all started together, and the
+objects are linked into one library, built at first use into
+``build/neraf_tpu_torch/`` beside the package and named by a hash of the
+sources and flags, so an unchanged tree reuses it and a changed one
+rebuilds. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "neraf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -55,21 +57,44 @@ def load() -> ctypes.CDLL:
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
         t0 = time.perf_counter()
+        # one nvcc per source, all at once, then one link
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = tmp.with_suffix(f".{src.stem}.o")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = []
+        try:
+            for cmd, _, proc in jobs:
+                _, err = proc.communicate()
+                logs.append(f"{' '.join(cmd)}\n{err}")
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                       f"{logs[-1]}")
+        finally:
+            for _, _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cmd = [_nvcc(), "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
+        for _, obj, _ in jobs:
+            obj.unlink()
         os.replace(tmp, lib_path)
         lib_path.with_suffix(".log").write_text(
-            f"{' '.join(cmd)}\nbuild_seconds={time.perf_counter() - t0:.2f}\n"
-            f"{proc.stderr}")
+            f"build_seconds={time.perf_counter() - t0:.2f}\n" + "".join(logs))
     lib = ctypes.CDLL(str(lib_path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.neraf_gl_launch.argtypes = [vp] * 8 + [ci] * 6 + [cf, vp]
     lib.neraf_gl_launch.restype = ci
+    lib.neraf_pe_mlp_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.neraf_pe_mlp_launch.restype = ci
     lib.neraf_cuda_error_string.argtypes = [ci]
     lib.neraf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -18,6 +18,13 @@ def nerf_encoding_dim(in_dim: int, num_frequencies: int = 10,
     return in_dim * (2 * num_frequencies + (1 if include_input else 0))
 
 
+def nerf_frequencies(num_frequencies: int, min_freq_exp: float,
+                     max_freq_exp: float, device=None) -> torch.Tensor:
+    """The encoding's frequencies in turns: 2^linspace(min, max, F), f32."""
+    return 2.0 ** torch.linspace(min_freq_exp, max_freq_exp, num_frequencies,
+                                 dtype=torch.float32, device=device)
+
+
 def nerf_encoding(x: torch.Tensor, num_frequencies: int = 10,
                   min_freq_exp: float = 0.0, max_freq_exp: float = 8.0,
                   include_input: bool = True) -> torch.Tensor:
@@ -25,8 +32,8 @@ def nerf_encoding(x: torch.Tensor, num_frequencies: int = 10,
 
     Layout [sin over D*F (d-major), cos over D*F, x]; cos is sin(ang + pi/2).
     """
-    freqs = 2.0 ** torch.linspace(min_freq_exp, max_freq_exp, num_frequencies,
-                                  dtype=torch.float32, device=x.device)
+    freqs = nerf_frequencies(num_frequencies, min_freq_exp, max_freq_exp,
+                             x.device)
     ang = (2.0 * math.pi * x)[..., None] * freqs  # (..., D, F)
     ang = ang.reshape(*x.shape[:-1], -1)
     enc = torch.sin(torch.cat([ang, ang + math.pi / 2.0], dim=-1))

@@ -1,0 +1,113 @@
+"""Fourier PE + ReLU MLP: the plain version and the kernel dispatch
+(counterpart of neraf_tpu/ops/pallas/fused_pe_mlp.py::pe_mlp, forward).
+
+`layers` is a list of (weight (out, in), bias (out,)) pairs, PyTorch's
+layout: layer 0 consumes the (6F + 3)-wide nerf_encoding [sin | cos | x],
+the hidden layers are ReLU, the last is linear. ``pe_mlp`` runs the plain
+version for a CPU tensor and the hand-written CUDA kernel
+(csrc/pe_mlp.cu through ops/cuda/pe_mlp.py) for a CUDA tensor, with no
+fallback between them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neraf_tpu_torch.ops.encodings import nerf_encoding
+
+# hidden widths the kernel is compiled for; a layer is zero-padded up to one
+KERNEL_HIDDEN_WIDTHS = (16, 32, 64, 128, 256)
+
+
+def dense(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """A flax Dense layer in `dtype` on PyTorch's (out, in) weight: cast the
+    input and the parameters, matmul, bias add."""
+    return h.to(dtype) @ w.to(dtype).T + b.to(dtype)
+
+
+def pe_mlp_plain(x: torch.Tensor, layers, num_frequencies: int = 6,
+                 min_exp: float = 0.0, max_exp: float = 8.0,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (N, 3) -> (N, O) pre-activation, the JAX fields' layer chain off
+    the TPU: nerf_encoding, then each layer in `dtype` as DenseParams
+    computes it (`dense`). Returned in float32, or float64
+    when `dtype` is float64."""
+    h = nerf_encoding(x, num_frequencies, min_exp, max_exp)
+    for i, (w, b) in enumerate(layers):
+        h = dense(h, w, b, dtype)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h.to(torch.promote_types(dtype, torch.float32))
+
+
+def pe_mlp(x: torch.Tensor, layers, num_frequencies: int = 6,
+           min_exp: float = 0.0, max_exp: float = 8.0,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused nerf_encoding + ReLU MLP: the plain version for a CPU tensor,
+    the CUDA kernel for a CUDA tensor (or it raises)."""
+    from neraf_tpu_torch.ops.cuda.pe_mlp import pe_mlp_cuda
+
+    return pe_mlp_cuda(x, layers, num_frequencies, min_exp, max_exp, dtype)
+
+
+def split_first_layer(w0: torch.Tensor, num_frequencies: int):
+    """Layer 0's (H, 6F + 3) weight -> its sin, cos and x blocks (H, 3F),
+    (H, 3F), (H, 3): the column blocks that meet the encoding's parts."""
+    df = 3 * num_frequencies
+    if w0.shape[-1] != 2 * df + 3:
+        raise ValueError(f"layer 0 takes {w0.shape[-1]} inputs, the encoding "
+                         f"of F={num_frequencies} has {2 * df + 3}")
+    return w0[:, :df], w0[:, df:2 * df], w0[:, 2 * df:]
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _padded(t: torch.Tensor, shape) -> torch.Tensor:
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, s) for s in t.shape)] = t
+    return out
+
+
+def pack_layers(layers, num_frequencies: int, dtype: torch.dtype):
+    """The kernel's form of `layers` (the counterpart of the Pallas
+    kernel's _prep): every weight zero-padded, the hidden width to one of
+    KERNEL_HIDDEN_WIDTHS (hp), layer 0's input to a multiple of 16 (k0p),
+    the output to a multiple of 8 (op); layer 0's columns interleaved as
+    [sin_0, cos_0, sin_1, cos_1, ..., x0, x1, x2, 0...] so that a pair of
+    adjacent columns is one angle's sincos. Returns the weights flattened
+    into one `dtype` buffer, the biases into one float32 buffer, and the
+    dims (k0p, hp, op, n_hidden, out_dim)."""
+    if len(layers) < 2:
+        raise ValueError("pe_mlp needs at least one hidden layer")
+    F = num_frequencies
+    w0, b0 = layers[0]
+    hidden = w0.shape[0]
+    for w, _ in layers[1:-1]:
+        if tuple(w.shape) != (hidden, hidden):
+            raise ValueError(f"hidden layer {tuple(w.shape)} is not "
+                             f"({hidden}, {hidden})")
+    wo, bo = layers[-1]
+    if wo.shape[1] != hidden:
+        raise ValueError(f"output layer takes {wo.shape[1]}, not {hidden}")
+    fits = [h for h in KERNEL_HIDDEN_WIDTHS if h >= hidden]
+    if not fits:
+        raise ValueError(f"hidden width {hidden} > {KERNEL_HIDDEN_WIDTHS[-1]}")
+    hp, k0p, op = fits[0], _ceil(6 * F + 3, 16), _ceil(wo.shape[0], 8)
+
+    w_sin, w_cos, w_x = split_first_layer(w0, F)
+    first = w0.new_zeros((hp, k0p))
+    first[:hidden, 0:6 * F:2] = w_sin
+    first[:hidden, 1:6 * F:2] = w_cos
+    first[:hidden, 6 * F:6 * F + 3] = w_x
+    weights = [first] + [_padded(w, (hp, hp)) for w, _ in layers[1:-1]]
+    weights.append(_padded(wo, (op, hp)))
+    biases = ([_padded(b0, (hp,))] + [_padded(b, (hp,)) for _, b in layers[1:-1]]
+              + [_padded(bo, (op,))])
+    w_flat = torch.cat([w.reshape(-1) for w in weights]).to(dtype).contiguous()
+    b_flat = torch.cat(biases).to(torch.float32).contiguous()
+    dims = dict(k0p=k0p, hp=hp, op=op, n_hidden=len(layers) - 1,
+                out_dim=wo.shape[0])
+    return w_flat, b_flat, dims
