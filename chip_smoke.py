@@ -23,7 +23,25 @@ Phases, each fatal on failure:
      times (the first pays the cold start) and a second view once, then
      evaluate_vision over both views, with the launch counters read around
      the run; then a per-chunk breakdown of one more image;
-  8. the tiny vision slice in float32 on the card against the CPU.
+  8. the tiny vision slice in float32 on the card against the CPU;
+  9. the PE+MLP forward and backward kernels against pe_mlp_plain and its
+     autograd on the card, bf16 and f32, at the four shapes one joint train
+     step gives them (proposal 0: 1,048,576 rows, proposal 1: 393,216, main
+     field: 196,608, grid bake: 73,728 without dx), with the training
+     model's weights and seeded biases; the backward alone and forward +
+     backward timed;
+ 10. the full-width joint train step (JointPipeline.train_step: 4096 rays,
+     2048 STFT slices, 4096 grid cells, resnet50 over 7x128^3, bf16) on the
+     bench.py inputs with the audio branch live: one cold step, two more
+     while the allocator settles, then ten warm ones, finite metrics,
+     cursor, step and grid advanced as the JAX step does them, exactly 4
+     forward and 4 backward pe_mlp launches a step and no GL launch, ms per
+     step, rays/s, peak memory and a per-stage breakdown by CUDA events;
+     then 3 steps under torch.profiler (device busy time, idle share, the
+     PE+MLP wrappers' device kernels a step) and the ResNet and its stem
+     convolution timed alone;
+ 11. the tiny joint step in float32 on the card against the same step on
+     the CPU with its fields in float64, from the same weights and draws.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -62,7 +80,33 @@ LOG_ABS_TOL = 1e-3  # card vs CPU f32 log-magnitudes (in [-10, 10])
 # of the peak, the JAX package's bound for its kernel.
 PE_BF16_REL_TOL, PE_BF16_VS_PLAIN = 1.5e-2, 1.5
 PE_F32_RTOL, PE_F32_ATOL = 2e-4, 2e-5
+# PE+MLP backward. bf16, by relative L2 error ||a - b|| / ||b|| of each of
+# dx, dW, db: a ReLU mask flips wherever bf16 rounding moves a
+# pre-activation across 0, at different units in the kernel and the plain
+# chain, and a flipped unit's whole gradient moves, so both sit ~5% (about
+# the square root of the flipped fraction) from the float64 backward, and
+# ~5-9% from each other (measured on an H100); a wrong product is O(1).
+# Against the plain bf16 backward to 0.15, and no further from the float64
+# backward than 1.5 times the plain bf16 backward is (the sharp test: the
+# kernel was the closer one for every tensor but a few, by at most 1.25x).
+# f32: even f32 rounding flips masks against float64 at 2^20 rows (measured
+# 1.6e-2 of the peak elementwise on dx, 1.3e-3 in L2 at the bake), so the
+# cotangent is zeroed on rows with a float64 pre-activation within 1e-4 of
+# its layer's peak (as tests/test_fused_pe_mlp.py filters rows), and on the
+# rest every output is held to float64 at 1e-4 of its peak (f32 sums over
+# up to 2^20 rows).
+PE_BWD_BF16_REL_L2, PE_BWD_F32_REL, PE_BWD_CLEAR = 0.15, 1e-4, 1e-4
 RGB_ABS_TOL = 1e-4  # tiny vision slice, f32, card vs CPU
+# Tiny joint step, f32, card (f32 kernels) against the CPU (plain chains,
+# the fields in float64), each step from the same state. Losses 1e-4
+# relative, the interlevel and distortion terms also 1e-4 of the total
+# (differences of f32 cumulative sums). Every gradient to TRAIN_GRAD_TOL of
+# its tensor's peak (measured on an H100: 1.6e-4 at most). The CPU's fields
+# run in float64 because positions enter the encoding at up to 2^8 turns,
+# which the card's kernels reduce exactly and a float32 chain rounds by
+# ~1e-4 rad. The grid and the BatchNorm statistics to 1e-4 of their peak.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12  # per second
 EVAL_NOISE, EVAL_MIN_PSNR = 0.02, 30.0  # evaluate_vision against render + noise
 
 
@@ -114,6 +158,37 @@ def spectral_convergence(wav, mag, n_fft, hop, win) -> float:
     return float((rebuilt - mag).norm() / mag.norm())
 
 
+def pe_fwd_errors(torch, out, x, layers, F, dtype, ref, what):
+    """A PE+MLP forward kernel's output against the plain chain: bf16 to
+    PE_BF16_REL_TOL of the peak and no further from float64 (`ref`) than
+    PE_BF16_VS_PLAIN times the plain bf16 chain; f32 to float64 at rtol
+    PE_F32_RTOL + atol PE_F32_ATOL of the peak -> (max_abs_err, peak, ok,
+    the bound as text)."""
+    from neraf_tpu_torch.ops.pe_mlp import pe_mlp_plain
+
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        fail(f"{what}: shape {tuple(out.shape)} or not finite")
+    peak = float(ref.abs().max())
+    diff64 = (out.double() - ref).abs()
+    if dtype == torch.bfloat16:
+        plain = pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype)
+        err = float((out - plain).abs().max())
+        err64 = float(diff64.max())
+        plain64 = float((plain.double() - ref).abs().max())
+        ok = (err <= PE_BF16_REL_TOL * peak
+              and err64 <= PE_BF16_VS_PLAIN * plain64)
+        bound = (f"{PE_BF16_REL_TOL} of the peak; against float64 "
+                 f"{err64 / peak:.3e} vs plain bf16 {plain64 / peak:.3e}")
+    else:
+        err = float(diff64.max())
+        excess = float((diff64 - PE_F32_RTOL * ref.abs()).max())
+        ok = excess <= PE_F32_ATOL * peak
+        bound = (f"against float64, rtol {PE_F32_RTOL} + atol "
+                 f"{PE_F32_ATOL} of the peak")
+    return err, peak, ok, bound
+
+
 def pe_mlp_check(torch, dev, name, layers, F, n, seed):
     """Phase 6 at one shape: the kernel against the plain version, bf16
     and f32, and both timed (plain, kernel, kernel, plain)."""
@@ -128,31 +203,12 @@ def pe_mlp_check(torch, dev, name, layers, F, n, seed):
     ref = pe_mlp_plain(x.double(), [(w.double(), b.double())
                                     for w, b in layers], F, 0.0, 8.0,
                        torch.float64)
-    peak = float(ref.abs().max())
     row = {"rows": n}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         out = pe_mlp_cuda(x, layers, F, 0.0, 8.0, dtype)
-        torch.cuda.synchronize()
-        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
-            fail(f"pe_mlp {name} {tag}: shape {tuple(out.shape)} or not finite")
-        diff64 = (out.double() - ref).abs()
-        if dtype == torch.bfloat16:
-            plain = pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype)
-            err = float((out - plain).abs().max())
-            err64 = float(diff64.max())
-            plain64 = float((plain.double() - ref).abs().max())
-            ok = (err <= PE_BF16_REL_TOL * peak
-                  and err64 <= PE_BF16_VS_PLAIN * plain64)
-            bound = (f"{PE_BF16_REL_TOL} of the peak; against float64 "
-                     f"{err64 / peak:.3e} vs plain bf16 {plain64 / peak:.3e}")
-            del plain
-        else:
-            err = float(diff64.max())
-            excess = float((diff64 - PE_F32_RTOL * ref.abs()).max())
-            ok = excess <= PE_F32_ATOL * peak
-            bound = (f"against float64, rtol {PE_F32_RTOL} + atol "
-                     f"{PE_F32_ATOL} of the peak")
-        del diff64
+        err, peak, ok, bound = pe_fwd_errors(torch, out, x, layers, F, dtype,
+                                             ref, f"pe_mlp {name} {tag}")
+        del out
         reps = 5
         p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
             lambda: pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype),
@@ -171,6 +227,458 @@ def pe_mlp_check(torch, dev, name, layers, F, n, seed):
                     "plain_ms": ms_p}
         torch.cuda.empty_cache()
     return row
+
+
+def pe_mlp_flops(dims_in, F, n):
+    """Multiply-adds x 2 of one pe_mlp forward: (K0, H, L, O) layer chain."""
+    k0, h, n_hidden, o = dims_in
+    return 2.0 * n * (k0 * h + (n_hidden - 1) * h * h + h * o)
+
+
+def pe_bwd_check(torch, dev, name, layers, F, n, seed, need_dx):
+    """Phase 9 at one training shape: the forward kernel against
+    pe_mlp_plain (phase 6's bounds) and the backward kernel against
+    autograd of pe_mlp_plain, on the same inputs, bf16 and f32, and the
+    backward alone timed beside the plain chain's backward (plain, kernel,
+    kernel, plain); then forward + backward of both."""
+    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
+    from neraf_tpu_torch.ops.encodings import nerf_encoding
+    from neraf_tpu_torch.ops.pe_mlp import (
+        pe_mlp_plain,
+        pe_mlp_vjp_plain,
+        unpack_layers,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    layers = [(w.detach(), 0.1 * torch.randn(b.shape, generator=gen, device=dev))
+              for w, b in layers]
+    out_dim = layers[-1][0].shape[0]
+    g = torch.randn((n, out_dim), generator=gen, device=dev)
+
+    def flat(dx, grads):
+        return ([dx] if need_dx else []) + [t for wb in grads for t in wb]
+
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    ref_fwd = pe_mlp_plain(x.double(), layers64, F, 0.0, 8.0, torch.float64)
+    ref = flat(*pe_mlp_vjp_plain(x.double(), layers64, g.double(), F, 0.0,
+                                 8.0, torch.float64))
+    # rows clear of every ReLU's kink, for the f32 check
+    h, clear = nerf_encoding(x.double(), F), torch.ones(n, dtype=torch.bool,
+                                                        device=dev)
+    for w, b in layers64[:-1]:
+        pre = h @ w.T + b
+        clear &= (pre.abs() > PE_BWD_CLEAR * pre.abs().max()).all(dim=-1)
+        h = torch.relu(pre)
+    del h, pre
+    g_clear = g * clear[:, None]
+    ref_clear = flat(*pe_mlp_vjp_plain(x.double(), layers64, g_clear.double(),
+                                       F, 0.0, 8.0, torch.float64))
+    rel = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
+    row = {"rows": n}
+    k0, h = layers[0][0].shape[1], layers[0][0].shape[0]
+    shape = (k0, h, len(layers) - 1, out_dim)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        w, b, dims = pe_cuda._pack(layers, F, dtype)
+        # the forward kernel at this shape, as the train step launches it
+        out = pe_cuda._forward(x, w, b, dims, F, 0.0, 8.0, dtype)
+        f_err, f_peak, f_ok, f_bound = pe_fwd_errors(
+            torch, out, x, layers, F, dtype, ref_fwd,
+            f"pe_mlp forward {name} {tag}")
+        del out
+        run_k = lambda: pe_cuda.pe_mlp_bwd_cuda(x, g, w, b, dims, F, 0.0, 8.0,
+                                                dtype, need_dx=need_dx)
+        dx, packed = (run_k() if dtype == torch.bfloat16 else
+                      pe_cuda.pe_mlp_bwd_cuda(x, g_clear, w, b, dims, F, 0.0,
+                                              8.0, dtype, need_dx=need_dx))
+        got = flat(dx, unpack_layers(*packed, dims, F, h))
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            fail(f"pe_mlp backward {name} {tag}: not finite")
+        if dtype == torch.bfloat16:
+            plain = flat(*pe_mlp_vjp_plain(x, layers, g, F, 0.0, 8.0, dtype))
+            errs = [rel(a, p) for a, p in zip(got, plain)]
+            errs64 = [rel(a, r) for a, r in zip(got, ref)]
+            plain64 = [rel(p, r) for p, r in zip(plain, ref)]
+            max_abs = max(float((a - p.float()).abs().max())
+                          for a, p in zip(got, plain))
+            ok = (max(errs) <= PE_BWD_BF16_REL_L2 and all(
+                e <= PE_BF16_VS_PLAIN * p for e, p in zip(errs64, plain64)))
+            detail = (f"rel L2 vs plain bf16 max {max(errs):.3e} (tol "
+                      f"{PE_BWD_BF16_REL_L2}); vs float64 kernel/plain "
+                      + ", ".join(f"{e:.2e}/{p:.2e}" for e, p in
+                                  zip(errs64, plain64)))
+            del plain
+        else:
+            peak_frac = max(float((a.double() - r).abs().max())
+                            / float(r.abs().max())
+                            for a, r in zip(got, ref_clear))
+            max_abs = max(float((a.double() - r).abs().max())
+                          for a, r in zip(got, ref_clear))
+            ok = peak_frac <= PE_BWD_F32_REL
+            detail = (f"on the {int(clear.sum())} rows clear of the kinks, vs "
+                      f"float64 max {peak_frac:.3e} of each tensor's peak (tol "
+                      f"{PE_BWD_F32_REL})")
+        del got, dx, packed
+        # the backward alone: the kernel vs autograd through the plain chain
+        xs = x.clone().requires_grad_(need_dx)
+        ps = [t.clone().requires_grad_() for wb in layers for t in wb]
+        out = pe_mlp_plain(xs, list(zip(ps[::2], ps[1::2])), F, 0.0, 8.0, dtype)
+        ins = ([xs] if need_dx else []) + ps
+        run_p = lambda: torch.autograd.grad(out, ins, g, retain_graph=True)
+        reps = 3
+        p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (run_p, run_k, run_k,
+                                                             run_p))
+        del out, run_p
+        # forward + backward through autograd, as the train step runs them
+        def fb(fn):
+            def step():
+                o = fn(xs, list(zip(ps[::2], ps[1::2])), F, 0.0, 8.0, dtype)
+                torch.autograd.grad(o, ins, g)
+            return step
+        q1, c1, c2, q2 = (cuda_ms(torch, f, reps) for f in (
+            fb(pe_mlp_plain), fb(pe_cuda.pe_mlp_cuda), fb(pe_cuda.pe_mlp_cuda),
+            fb(pe_mlp_plain)))
+        ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+        flops = 2 * pe_mlp_flops(shape, F, n) - (
+            0 if need_dx else 2.0 * n * k0 * h)
+        nbytes = 4.0 * n * (3 + out_dim + (3 if need_dx else 0)) + 4.0 * (
+            w.numel() + b.numel()) * 2
+        peak_rate = H100_BF16 if dtype == torch.bfloat16 else H100_F32
+        bound = max(flops / peak_rate, nbytes / H100_BYTES) * 1e3
+        print(f"pe_mlp forward {name} {n} rows {tag}: max_abs_err "
+              f"{f_err:.3e}, rel {f_err / f_peak:.3e} (bound {f_bound}); "
+              f"backward: {detail}; max_abs_err "
+              f"{max_abs:.3e}; backward kernel {ms_k:.3f} ms [{k1:.3f}, "
+              f"{k2:.3f}] plain {ms_p:.3f} ms [{p1:.3f}, {p2:.3f}] bound "
+              f"{bound:.3f} ms ({flops / 1e9:.1f} GFLOP); forward+backward "
+              f"kernel {(c1 + c2) / 2:.3f} ms plain {(q1 + q2) / 2:.3f} ms",
+              flush=True)
+        if not f_ok:
+            fail(f"pe_mlp forward kernel disagrees with plain at {name} {tag}: "
+                 f"max_abs_err {f_err}, peak {f_peak}")
+        if not ok:
+            fail(f"pe_mlp backward kernel disagrees with plain at {name} {tag}")
+        if dtype == torch.bfloat16:
+            row["rel_l2_vs_plain"] = max(errs)
+        row[tag] = {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
+                    "bound_ms": bound, "fwd_bwd_ms": (c1 + c2) / 2,
+                    "plain_fwd_bwd_ms": (q1 + q2) / 2,
+                    "fwd_max_abs_err": f_err, "fwd_rel_err": f_err / f_peak}
+        del xs, ps, ins
+        torch.cuda.empty_cache()
+    return row
+
+
+def gl_bound_ms(M, n_fft, T, n_iter=32) -> float:
+    """The least time of n_iter GL iterations on M channels: each iteration
+    a real FFT and an inverse real FFT of n_fft per frame (2.5 N log2 N
+    flops each) and ~20 flops per bin of projection and momentum, in f32
+    on the CUDA cores; against the bytes of mag, the initial phasors and
+    the waveform."""
+    F = n_fft // 2 + 1
+    flops = n_iter * M * T * (2 * 2.5 * n_fft * np.log2(n_fft) + 20 * F)
+    nbytes = M * F * T * (4 + 8) + M * (T - 1) * (n_fft // 4) * 4
+    return max(flops / H100_F32, nbytes / H100_BYTES) * 1e3, (
+        "operations" if flops / H100_F32 > nbytes / H100_BYTES else "bytes")
+
+
+def pe_fwd_bound_ms(shape, F, n) -> tuple:
+    """bf16 products of the forward against x and the output's bytes."""
+    flops = pe_mlp_flops(shape, F, n)
+    nbytes = n * (12 + 4 * shape[3])
+    t_ops, t_bytes = flops / H100_BF16, nbytes / H100_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def stage_ms(torch, marks):
+    """Consecutive (stage, CUDA event) marks -> ms per stage."""
+    torch.cuda.synchronize()
+    return {name: a.elapsed_time(b) for (_, a), (name, b)
+            in zip(marks[:-1], marks[1:])}
+
+
+def bench_inputs(torch, dev):
+    """bench.py:186-201: 8 cameras at 512 x 512, fx = fy = 400, identity
+    c2w; seeded images; 100 recordings of (2, 257, 78) log-STFTs."""
+    n_cams, H, W, n_rec = 8, 512, 512, 100
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c2w = torch.zeros((n_cams, 3, 4), device=dev)
+    c2w[:, :, :3] = torch.eye(3, device=dev)
+    full = lambda v: torch.full((n_cams,), float(v), device=dev)
+    cams = {"c2w": c2w, "fx": full(400.0), "fy": full(400.0),
+            "cx": full(W / 2), "cy": full(H / 2)}
+    images = {"images": torch.rand((n_cams, H, W, 3), generator=gen, device=dev)}
+    audio = {"mic_pose": torch.rand((n_rec, 3), generator=gen, device=dev) * 4 - 2,
+             "source_pose": torch.zeros((n_rec, 3), device=dev),
+             "rot": torch.full((n_rec, 3), 0.5, device=dev),
+             "log_stft": torch.randn((n_rec, 2, 257, 78), generator=gen,
+                                     device=dev) * 0.5 - 3}
+    return cams, audio, images
+
+
+def check_metrics(metrics, what):
+    keys = {"rgb_loss", "interlevel_loss", "distortion_loss", "audio_sc_loss",
+            "audio_mag_loss", "total_loss", "lr_fields", "lr_audio_fields"}
+    if set(metrics) != keys or not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"{what}: metrics {metrics}")
+
+
+def joint_step_phase(torch, pipe):
+    """Phase 10: the full-width joint step on the bench.py inputs."""
+    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
+    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
+
+    cams, audio, images = bench_inputs(torch, pipe.device)
+    pipe.step = 3000  # past start_step_audio: the audio branch is live
+    bake = pipe.config.trainer.grid_bake_cells_per_step
+    rays = pipe.config.vision_data.train_rays_per_batch
+    n_settle, n_warm = 2, 10  # the caching allocator grows over the first steps
+    torch.cuda.synchronize()
+    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = pe_cuda.BWD_LAUNCHES = 0
+    times, metrics = [], []
+    for i in range(1 + n_settle + n_warm):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        grid0, cursor0, step0 = pipe.grid.clone(), pipe.cursor, pipe.step
+        t0 = time.perf_counter()
+        m = pipe.train_step(cams, audio, images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_metrics(m, f"joint step {i}")
+        metrics.append(m)
+        if pipe.cursor != (cursor0 + bake) % pipe.grid.shape[0] or (
+                pipe.step != step0 + 1):
+            fail(f"joint step {i}: cursor {cursor0} -> {pipe.cursor}, step "
+                 f"{step0} -> {pipe.step}")
+        changed = (pipe.grid != grid0).any(dim=1).nonzero()[:, 0]
+        if not (changed.numel() == bake and int(changed[0]) == cursor0
+                and int(changed[-1]) == cursor0 + bake - 1):
+            fail(f"joint step {i}: the grid changed at {changed.numel()} "
+                 f"cells, not the {bake} at cursor {cursor0}")
+    fwd, bwd, gl = pe_cuda.LAUNCHES, pe_cuda.BWD_LAUNCHES, gl_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + n_settle + n_warm
+    if fwd != 4 * steps or bwd != 4 * steps or gl != 0:
+        fail(f"joint step: pe_mlp launched {fwd} forward and {bwd} backward "
+             f"times in {steps} steps (4 + 4 a step), GL {gl} times")
+    if not metrics[-1]["audio_mag_loss"] > 0:
+        fail("joint step: the audio branch is not live")
+    warm = times[1 + n_settle:]
+    ms = 1e3 * float(np.median(warm))
+    print(f"joint step: cold {times[0] * 1e3:.2f} ms, then "
+          f"{[round(1e3 * t, 2) for t in times[1:1 + n_settle]]} ms; warm "
+          f"median {ms:.2f} ms/step (mean {1e3 * float(np.mean(warm)):.2f}, "
+          f"each {[round(1e3 * t, 2) for t in warm]}), "
+          f"{1e3 / ms:.3f} steps/s, {rays * 1e3 / ms:.1f} rays/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; pe_mlp launches {fwd} forward, {bwd} "
+          f"backward in {steps} steps; last metrics {json.dumps(metrics[-1])}",
+          flush=True)
+    pipe.profile = []
+    for _ in range(3):
+        pipe.train_step(cams, audio, images)
+    marks, pipe.profile = pipe.profile, None
+    per_step = [stage_ms(torch, marks[i:i + 7]) for i in range(0, len(marks), 7)]
+    parts = {k: float(np.mean([d[k] for d in per_step])) for k in per_step[0]}
+    print("joint step breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}",
+        flush=True)
+    pe_kernels = profile_steps(torch, pipe, cams, audio, images)
+    stem_timings(torch, pipe)
+    return {"ms_per_step": ms, "cold_ms": times[0] * 1e3, "fwd": fwd,
+            "bwd": bwd, "peak_gib": peak / 2**30, "parts": parts,
+            "pe_kernels": pe_kernels}
+
+
+# the device kernels of the PE+MLP wrappers, by the prefix of their names:
+# one forward call launches pe_mlp_bf16_kernel; one backward call launches
+# the row-tile kernel, one dW kernel per layer and the reduction
+PE_DEVICE_KERNELS = {"pe_mlp_bf16_kernel": "forward",
+                     "pe_mlp_bwd_bf16_kernel": "backward row tiles",
+                     "pe_mlp_dw_kernel": "backward dW",
+                     "pe_mlp_reduce_kernel": "backward reduction"}
+
+
+def busy_ms(events) -> float:
+    """Union of the device kernels' time intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type.name == "CUDA" and e.time_range.end > 0)
+    total, end = 0.0, -1.0
+    for a, b in spans:
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3
+
+
+def profile_steps(torch, pipe, cams, audio, images, n: int = 3) -> dict:
+    """torch.profiler over n joint steps: the device's busy time (union of
+    its kernels' intervals) against the host clock, the kernels with the
+    most device time, and the launches and device ms a step of each PE+MLP
+    device kernel -> {kernel: {"launches": per step, "ms": per step}}."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pipe.train_step(cams, audio, images)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = busy_ms(events)
+    pe = {k: {"launches": 0, "ms": 0.0} for k in PE_DEVICE_KERNELS}
+    for e in events:
+        if e.device_type.name != "CUDA":
+            continue
+        for k in PE_DEVICE_KERNELS:
+            if f"::{k}<" in e.name or f"::{k}(" in e.name:
+                pe[k]["launches"] += 1
+                pe[k]["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    pe = {k: {"launches": v["launches"] / n, "ms": v["ms"] / n}
+          for k, v in pe.items()}
+    print(f"joint step profile, {n} steps under torch.profiler: host "
+          f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / n:.2f} a step), "
+          f"idle share {1 - busy / wall:.3f} (the profiler slows the host); "
+          "PE+MLP device kernels a step: " + ", ".join(
+              f"{PE_DEVICE_KERNELS[k]} ({k}) {v['launches']:g} launches "
+              f"{v['ms']:.3f} ms" for k, v in pe.items()), flush=True)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=15, max_name_column_width=70))
+    return pe
+
+
+def stem_timings(torch, pipe) -> None:
+    """The ResNet3D forward and forward + backward in train mode over the
+    grid alone, then its stem convolution's forward, input gradient and
+    weight gradient (CUDA events): what a slab-local stem VJP could save."""
+    import torch.nn.functional as F
+
+    from neraf_tpu_torch.models.grid import grid_to_volume
+
+    vol = grid_to_volume(pipe.grid, pipe.grid_res)
+    pipe.resnet.set_update_stats(False)
+
+    def resnet_step():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            feat = pipe.resnet(vol)
+        feat.sum().backward()
+
+    def resnet_fwd():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            pipe.resnet(vol)
+
+    res = {}
+    for k, f in (("forward", resnet_fwd), ("forward + backward", resnet_step)):
+        cuda_ms(torch, f, 2)
+        res[k] = cuda_ms(torch, f, 5)
+    pipe.resnet.zero_grad(set_to_none=True)
+    x = vol.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
+    w = pipe.resnet.conv1.weight.detach().to(torch.bfloat16)
+    gy = torch.randn_like(F.conv3d(x, w, stride=2, padding=2))
+    conv_bwd = lambda mask: torch.ops.aten.convolution_backward(
+        gy, x, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False, (0, 0, 0), 1,
+        mask)
+    stem = {}
+    for k, f in (("forward", lambda: F.conv3d(x, w, stride=2, padding=2)),
+                 ("input gradient", lambda: conv_bwd((True, False, False))),
+                 ("weight gradient", lambda: conv_bwd((False, True, False)))):
+        cuda_ms(torch, f, 2)
+        stem[k] = cuda_ms(torch, f, 10)
+    print(f"{pipe.resnet.backbone} train mode over {vol.shape[-1]} x "
+          f"{pipe.grid_res}^3, bf16 (ms, CUDA events): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in res.items())
+          + "; stem conv k5/s2: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stem.items()), flush=True)
+
+
+def tiny_joint_card_vs_cpu(torch):
+    """Phase 11: three tiny f32 steps on the card and on the CPU from the
+    same weights and draws, each step from the CPU pipeline's state. The
+    CPU reference computes the fields (proposals and main field) in
+    float64, so that their encoding's angles, up to 2^8 turns, are exact
+    as the card's kernels reduce them; a plain float32 CPU pipeline is
+    run beside them and its distance to the card printed, ungated."""
+    from neraf_tpu_torch.data.loader import audio_arrays
+    from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+
+    dev = {"cpu": "cpu", "cuda": "cuda", "cpu_f32": "cpu"}
+    on = {d: build_joint_pipeline(grid_res=32, tiny=True, device=v, seed=0,
+                                  mixed_precision=False)
+          for d, v in dev.items()}
+    vm = on["cpu"].vision_model
+    for field in (vm.field, *vm.proposal_networks):
+        field.dtype = torch.float64
+    rng = np.random.default_rng(5)
+    H, W, n_rec = 12, 10, 5
+    cams = synthetic_cameras(8, H, W, seed=3)
+    images = rng.uniform(0.0, 1.0, (8, H, W, 3)).astype(np.float32)
+    split = {"mic_pose": rng.uniform(-2, 2, (n_rec, 3)),
+             "source_pose": rng.uniform(-2, 2, (n_rec, 3)),
+             "rot": rng.uniform(0, 1, (n_rec, 3)),
+             "log_stft": rng.normal(-3, 0.5, (n_rec, 2, 257, 12))}
+    data = {d: (camera_arrays(cams, d), audio_arrays(split, d),
+                {"images": torch.as_tensor(images, device=d)})
+            for d in ("cpu", "cuda")}
+    cfg = on["cpu"].config
+    R, B = cfg.vision_data.train_rays_per_batch, cfg.audio_data.batch_size
+    worst = {"cpu": {}, "cpu_f32": {}}
+
+    def grads(p):
+        named = {**{f"field.{k}": t for k, t in
+                    p.vision_model.field.named_parameters()},
+                 **{f"proposal_networks.{k}": t for k, t in
+                    p.vision_model.proposal_networks.named_parameters()},
+                 "camera_opt": p.vision_model.camera_opt,
+                 **{f"audio.{k}": t for k, t in p.audio_model.named_parameters()},
+                 **{f"resnet.{k}": t for k, t in p.resnet.named_parameters()}}
+        return {k: t.grad.cpu() for k, t in named.items()}
+
+    for step in range(3):
+        ref = on["cpu"]
+        for d in ("cuda", "cpu_f32"):
+            on[d].vision_model.load_state_dict(ref.vision_model.state_dict())
+            on[d].resnet.load_state_dict(ref.resnet.state_dict())
+            on[d].audio_model.load_state_dict(ref.audio_model.state_dict())
+            on[d].grid = ref.grid.to(dev[d])
+        draws = {"cam": rng.integers(0, 8, R), "py": rng.integers(0, H, R),
+                 "px": rng.integers(0, W, R), "rec": rng.integers(0, n_rec, B),
+                 "t": rng.integers(0, 12, B)}
+        draws.update({k: rng.uniform(0, 1, (R, 1)).astype(np.float32)
+                      for k in ("u_init", "u_pdf0", "u_pdf1")})
+        m = {d: p.train_step(*data[dev[d]], draws=draws) for d, p in on.items()}
+        for k, v in m["cpu"].items():
+            atol = (TRAIN_LOSS_RTOL * m["cpu"]["total_loss"]
+                    if k in ("interlevel_loss", "distortion_loss") else 0.0)
+            if not abs(m["cuda"][k] - v) <= TRAIN_LOSS_RTOL * abs(v) + atol:
+                fail(f"tiny joint step {step}: {k} card {m['cuda'][k]} vs "
+                     f"cpu {v}")
+        g = {d: grads(p) for d, p in on.items()}
+        for d in worst:
+            for k, r in g[d].items():
+                err = float((g["cuda"][k] - r).abs().max()
+                            / r.abs().max().clamp_min(1e-30))
+                worst[d][k] = max(worst[d].get(k, 0.0), err)
+        stats = {d: {k: v.cpu() for k, v in p.resnet.state_dict().items()
+                     if "running" in k} for d, p in on.items()}
+        state_err = max([float((on["cuda"].grid.cpu() - ref.grid).abs().max()
+                               / ref.grid.abs().max())] + [
+            float((stats["cuda"][k] - v).abs().max() / v.abs().max())
+            for k, v in stats["cpu"].items()])
+        if state_err > 1e-4:
+            fail(f"tiny joint step {step}: grid or BN statistics {state_err}")
+    top = {d: sorted(w.items(), key=lambda kv: -kv[1])[:3]
+           for d, w in worst.items()}
+    fmt = lambda kvs: ", ".join(f"{k} {v:.3e}" for k, v in kvs)
+    print(f"tiny joint card vs cpu (fields in float64), 3 steps: losses "
+          f"within {TRAIN_LOSS_RTOL}; gradients of each tensor's peak, "
+          f"largest {fmt(top['cpu'])} (tol {TRAIN_GRAD_TOL}); grid and BN "
+          f"statistics within 1e-4. Beside it, card vs a float32 CPU "
+          f"pipeline: largest {fmt(top['cpu_f32'])}", flush=True)
+    if top["cpu"][0][1] > TRAIN_GRAD_TOL:
+        fail("tiny joint step gradients differ card vs CPU: " + fmt(top["cpu"]))
 
 
 def check_image(torch, out, H, W, what):
@@ -237,6 +745,7 @@ def main() -> int:
     from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
     from neraf_tpu_torch.dsp.stft import log_to_magnitude
     from neraf_tpu_torch.engine.factory import (
+        build_joint_pipeline,
         build_render_pipeline,
         build_vision_pipeline,
     )
@@ -474,20 +983,83 @@ def main() -> int:
         fail(f"tiny vision slice differs card vs CPU: rgb {rgb_err}, "
              f"accumulation {acc_err}")
 
+    del tiny
+    torch.cuda.empty_cache()
+
+    # phase 9: the PE+MLP backward kernel against the plain backward, at the
+    # shapes one joint step gives it, with the training model's weights
+    jpipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0)
+    jv = jpipe.vision_model
+    tcfg = jpipe.config
+    R = tcfg.vision_data.train_rays_per_batch
+    bake = tcfg.trainer.grid_bake_cells_per_step
+    props = [[(l.weight, l.bias) for l in jv.proposal(i).mlp] for i in (0, 1)]
+    p0, p1 = tcfg.vision_model.num_proposal_samples
+    bwd_rows = {
+        "proposal_0": pe_bwd_check(torch, dev, "proposal_0", props[0], 6,
+                                   R * p0, 4, True),
+        "proposal_1": pe_bwd_check(torch, dev, "proposal_1", props[1], 6,
+                                   R * p1, 5, True),
+        "main_field": pe_bwd_check(torch, dev, "main_field",
+                                   jv.field.base_layers(), 10,
+                                   R * tcfg.vision_model.num_nerf_samples, 6,
+                                   True),
+        "grid_bake": pe_bwd_check(torch, dev, "grid_bake",
+                                  jv.field.base_layers(), 10,
+                                  bake * len(jpipe.view_dirs), 7, False),
+    }
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # phase 10: the full-width joint train step
+    print(f"joint: full-width pipeline ({jpipe.resnet.backbone}, grid 128^3, "
+          f"w_field {jpipe.audio_model.config.w_field}, {R} rays, "
+          f"{tcfg.audio_data.batch_size} STFT slices, {bake} cells a step, "
+          f"mixed precision {jpipe.mixed})", flush=True)
+    joint = joint_step_phase(torch, jpipe)
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del jpipe, jv, props
+    torch.cuda.empty_cache()
+
+    # phase 11: the tiny joint step, f32, card against CPU
+    tiny_joint_card_vs_cpu(torch)
+
     err, err32, ms_k, ms_p = gl_rows[("soundspaces", 1024)]
+    gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
     main_bf16 = pe_rows["main_field"]["bf16"]
+    fwd_bound, fwd_by = pe_fwd_bound_ms(
+        (63, 256, 4, 16), 10, pe_rows["main_field"]["rows"])
+    bwd_main = bwd_rows["main_field"]["bf16"]
     print(json.dumps({"kernels": [{
         "name": "griffin_lim", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "neraf_tpu/ops/pallas/griffin_lim_kernel.py:148",
         "launches": launches, "max_abs_err": err, "ms": ms_k,
-        "plain_ms": ms_p, "max_abs_err_32_iter": err32}, {
+        "plain_ms": ms_p, "bound_ms": gl_bound, "bound_by": gl_by,
+        "library_ms": None, "max_abs_err_32_iter": err32}, {
         "name": "pe_mlp_fwd", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/pe_mlp.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:373",
         "launches": vis_launches, "max_abs_err": main_bf16["max_abs_err"],
         "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],
-        "shapes": pe_rows}]}))
+        "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
+        "train_step_launches": joint["fwd"], "shapes": pe_rows,
+        "train_step_device_kernels": {"pe_mlp_bf16_kernel":
+                                      joint["pe_kernels"]["pe_mlp_bf16_kernel"]}}, {
+        "name": "pe_mlp_bwd", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/pe_mlp_bwd.cu",
+        "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:298",
+        "launches": joint["bwd"], "max_abs_err": bwd_main["max_abs_err"],
+        "rel_l2_vs_plain": bwd_rows["main_field"]["rel_l2_vs_plain"],
+        "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"], "bound_by": "operations",
+        "library_ms": None, "shapes": bwd_rows,
+        # "launches" counts wrapper calls; each launches the row-tile kernel,
+        # one dW kernel per layer and the reduction, a step's counts here
+        "train_step_device_kernels": {
+            k: v for k, v in joint["pe_kernels"].items()
+            if k != "pe_mlp_bf16_kernel"}}]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,7 +3,10 @@
 Takes the trees JointPipeline.init_state builds: params["audio"]["field"]
 (the AcousticSoundField variables, {"params": {...}}), params["audio"]["resnet"]
 and the ResNet's batch_stats; and the vision half, params["proposal_networks"]
-["level_0" / "level_1"] and params["fields"] (flax variables each).
+["level_0" / "level_1"] and params["fields"] (flax variables each), and
+params["camera_opt"], the (num_cameras, 6) SO3xR3 corrections; and a whole
+JointTrainState's weights, BatchNorm statistics, grid, cursor and step
+(load_joint_state). The four Adam states are not bridged yet.
 Layouts:
 
 - Dense kernel (in, out) -> Linear weight (out, in); bias as is;
@@ -127,11 +130,31 @@ def load_render_params(resnet: nn.Module, field: nn.Module, params: dict,
 
 
 def load_vision_params(vision_model: nn.Module, params: dict) -> None:
-    """Fill the port's VisionModel (proposal fields and main field) from a
-    JAX train state's params, or VisionModel.init's tree."""
+    """Fill the port's VisionModel (proposal fields, main field and camera
+    corrections) from a JAX train state's params, or VisionModel.init's
+    tree."""
+    cam = torch.from_numpy(np.array(params["camera_opt"], dtype=np.float32))
+    if cam.shape != vision_model.camera_opt.shape:
+        raise KeyError(f"camera_opt {tuple(cam.shape)} != "
+                       f"{tuple(vision_model.camera_opt.shape)}")
+    with torch.no_grad():
+        vision_model.camera_opt.copy_(cam)
     props = params["proposal_networks"]
     for level, prop in enumerate(vision_model.proposal_networks):
         load_state_dict(prop, tree_to_state_dict(
             props[f"level_{level}"]["params"], scopes=_VISION_SCOPE))
     load_state_dict(vision_model.field, tree_to_state_dict(
         params["fields"]["params"], scopes=_VISION_SCOPE))
+
+
+def load_joint_state(pipeline, state) -> None:
+    """Fill a JointPipeline from a JAX JointTrainState (or anything with its
+    params, batch_stats, grid, cursor and step): every weight in place (the
+    optimizers keep their parameters and moments), the BatchNorm running
+    statistics, the grid, the cursor and the step."""
+    load_vision_params(pipeline.vision_model, state.params)
+    load_render_params(pipeline.resnet, pipeline.audio_model.field,
+                       state.params, state.batch_stats)
+    pipeline.grid = torch.as_tensor(np.array(state.grid, dtype=np.float32),
+                                    device=pipeline.device)
+    pipeline.cursor, pipeline.step = int(state.cursor), int(state.step)

@@ -1,0 +1,222 @@
+"""Experiment configuration (the port's copy of neraf_tpu/configs/config.py).
+
+The same plain-dataclass tree with the same defaults, so one configuration
+means the same model in both packages (tests/test_torch_train.py compares
+the two field by field):
+
+1. dataclass defaults (per-component configs below),
+2. the experiment header resolved by `default_config(dataset, scene)`:
+   per-dataset fs / STFT geometry / per-scene max_len, and the
+   `audio_fields` warmup set to `start_step_audio`,
+3. the environment variables ``NeRAF_dataset`` and ``NeRAF_scene``.
+
+YAML round-tripping (``save_config`` / ``load_config``) and the dotted-path
+overrides of the CLI are not ported yet: they come with the CLI slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
+
+# Per-scene STFT frame counts (reference NeRAF_config.py:43)
+SOUNDSPACES_MAX_LEN = {
+    "office_4": 78,
+    "room_2": 84,
+    "frl_apartment_2": 107,
+    "frl_apartment_4": 103,
+    "apartment_2": 86,
+    "apartment_1": 101,
+}
+
+
+@dataclass
+class AudioModelConfig:
+    """Acoustic field model (reference NeRAFAudioModelConfig)."""
+
+    dataset: str = "SoundSpaces"
+    use_grid: bool = True
+    grid_step: float = 1.0 / 128.0
+    n_features: int = 1024
+    use_multiple_viewing_directions: bool = True
+    loss_factor: float = 1e-3
+    max_len: int = 76
+    w_field: int = 512
+    fs: int = 22050
+    criterion: str = "SC+SLMSE"
+    n_freq_stft: int = 257
+    hop_len: int = 128
+    win_len: int = 512
+    resnet_backbone: str = "resnet50"
+
+    def resolve(self) -> "AudioModelConfig":
+        """Apply the per-dataset derivations (RAF: 48 kHz, 513 bins, mono)."""
+        cfg = dataclasses.replace(self)
+        if cfg.dataset == "RAF":
+            cfg.fs = 48000
+            cfg.n_freq_stft = 513
+            cfg.hop_len = 256
+            cfg.win_len = 512
+            cfg.max_len = int(0.32 * cfg.fs) // cfg.hop_len
+            cfg.mic_ch = 1
+        else:
+            cfg.mic_ch = 2
+        return cfg
+
+    # populated by resolve()
+    mic_ch: int = 2
+
+    @property
+    def n_fft(self) -> int:
+        return (self.n_freq_stft - 1) * 2
+
+
+@dataclass
+class VisionModelConfig:
+    """Nerfacto-class radiance model. The port runs the "fourier" encoding
+    only; the hash-grid fields are kept so configurations compare equal."""
+
+    encoding: str = "fourier"  # "fourier" | "hash"
+    num_frequencies: int = 10
+    base_mlp_width: int = 256
+    base_mlp_layers: int = 4
+    num_levels: int = 8
+    features_per_level: int = 4
+    log2_hashmap_size: int = 19
+    base_res: int = 16
+    max_res: int = 2048
+    hash_grad_mode: str = "auto"
+    proposal_encoding: str = "fourier"
+    pe_mlp_impl: str = "auto"
+    hidden_dim: int = 64
+    hidden_dim_color: int = 64
+    geo_feat_dim: int = 15
+    appearance_embed_dim: int = 32
+    average_init_density: float = 0.01
+    num_nerf_samples: int = 48
+    num_proposal_samples: tuple = (256, 96)
+    proposal_update_every: int = 5
+    proposal_warmup: int = 5000
+    use_single_jitter: bool = True
+    interlevel_loss_mult: float = 1.0
+    distortion_loss_mult: float = 0.002
+    eval_num_rays_per_chunk: int = 1 << 15
+    background_color: str = "last_sample"
+    camera_opt_mode: str = "SO3xR3"
+
+
+@dataclass
+class AudioDataConfig:
+    data_dir: str = ""
+    dataset: str = "SoundSpaces"
+    batch_size: int = 2048  # STFT slices per step
+    fs: int = 22050
+    max_len: int = 78
+    hop_len: int = 128
+    streaming: str = "auto"
+    stream_threshold_gb: float = 8.0
+    stream_transfer_dtype: str = "bfloat16"
+
+
+@dataclass
+class VisionDataConfig:
+    data_dir: str = ""
+    train_rays_per_batch: int = 4096
+    eval_rays_per_batch: int = 4096
+    eval_mode: str = "filename"
+    train_split_fraction: float = 0.9
+    downscale_factor: int = 1
+
+
+@dataclass
+class OptimizerGroupConfig:
+    lr: float = 1e-2
+    eps: float = 1e-15
+    lr_final: float = 1e-4
+    max_steps: int = 200000
+    warmup_steps: int = 0
+
+
+@dataclass
+class OptimizersConfig:
+    """The four named Adam groups of the reference (NeRAF_config.py:115-132)."""
+
+    proposal_networks: OptimizerGroupConfig = field(
+        default_factory=lambda: OptimizerGroupConfig(lr=1e-2, lr_final=1e-4, max_steps=200000))
+    fields: OptimizerGroupConfig = field(
+        default_factory=lambda: OptimizerGroupConfig(lr=1e-2, lr_final=1e-4, max_steps=200000))
+    audio_fields: OptimizerGroupConfig = field(
+        default_factory=lambda: OptimizerGroupConfig(
+            lr=1e-4, lr_final=1e-8, max_steps=1002000, warmup_steps=2000))
+    camera_opt: OptimizerGroupConfig = field(
+        default_factory=lambda: OptimizerGroupConfig(lr=1e-3, lr_final=1e-4, max_steps=5000))
+
+
+@dataclass
+class MeshConfig:
+    data_axis: int = -1
+    model_axis: int = 1
+
+
+@dataclass
+class TrainerConfig:
+    max_num_iterations: int = 400001
+    start_step_audio: int = 2000
+    steps_per_eval_batch: int = 10000
+    steps_per_eval_image: int = 10000
+    steps_per_eval_all_images: int = 10000
+    steps_per_save: int = 20000
+    save_only_latest_checkpoint: bool = False
+    mixed_precision: bool = True  # bf16 compute, f32 parameters
+    grid_bake_cells_per_step: int = 4096
+    steps_per_log: int = 100
+
+
+@dataclass
+class ExperimentConfig:
+    method_name: str = "NeRAF"
+    experiment_name: str = "experiment"
+    dataset: str = "SoundSpaces"
+    scene: str = "office_4"
+    output_dir: str = "./outputs"
+    eval_save_dir: str | None = None
+    seed: int = 42
+
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    audio_model: AudioModelConfig = field(default_factory=AudioModelConfig)
+    vision_model: VisionModelConfig = field(default_factory=VisionModelConfig)
+    audio_data: AudioDataConfig = field(default_factory=AudioDataConfig)
+    vision_data: VisionDataConfig = field(default_factory=VisionDataConfig)
+    optimizers: OptimizersConfig = field(default_factory=OptimizersConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+
+def default_config(dataset: str | None = None, scene: str | None = None,
+                   data_root: str | None = None) -> ExperimentConfig:
+    """The experiment config of a dataset/scene pair, with the env-var
+    overrides NeRAF_dataset / NeRAF_scene."""
+    dataset = os.environ.get("NeRAF_dataset", dataset or "RAF")
+    scene = os.environ.get("NeRAF_scene", scene or ("FurnishedRoom" if dataset == "RAF" else "office_4"))
+
+    cfg = ExperimentConfig(dataset=dataset, scene=scene,
+                           experiment_name=f"{scene}_NeRAF")
+    if dataset == "SoundSpaces":
+        fs = 22050
+        max_len = SOUNDSPACES_MAX_LEN.get(scene, 78)
+        cfg.audio_model = AudioModelConfig(dataset=dataset, fs=fs, max_len=max_len).resolve()
+        cfg.audio_data = AudioDataConfig(dataset=dataset, fs=fs, max_len=max_len, hop_len=128)
+        cfg.vision_data.eval_mode = "filename"
+    else:
+        cfg.audio_model = AudioModelConfig(dataset="RAF").resolve()
+        cfg.audio_data = AudioDataConfig(dataset="RAF", fs=48000,
+                                         max_len=cfg.audio_model.max_len, hop_len=256)
+        cfg.vision_data.eval_mode = "fraction"
+    cfg.optimizers.audio_fields.warmup_steps = cfg.trainer.start_step_audio
+
+    if data_root is not None:
+        base = Path(data_root) / scene
+        cfg.audio_data.data_dir = str(base)
+        cfg.vision_data.data_dir = str(base)
+    return cfg

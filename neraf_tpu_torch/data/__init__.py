@@ -1,1 +1,1 @@
-"""Data: camera arrays and ray generation."""
+"""Data: camera arrays, rays, pixel and STFT-slice batches."""

@@ -1,5 +1,5 @@
-"""Camera arrays and ray generation (counterpart of
-neraf_tpu/data/vision_data.py:168-230). Loading transforms.json comes with
+"""Camera arrays, ray generation and pixel sampling (counterpart of
+neraf_tpu/data/vision_data.py:168-240). Loading transforms.json comes with
 the data slice; `camera_arrays` takes any object with the CameraSet fields
 (c2w (N, 3, 4), fx, fy, cx, cy (N,), distortion (N, 6), numpy arrays).
 """
@@ -34,7 +34,7 @@ def synthetic_cameras(n: int, height: int, width: int, hfov_deg: float = 90.0,
                            distortion=np.zeros((n, 6), np.float32))
 
 
-def camera_arrays(cams, device="cpu") -> dict:
+def camera_arrays(cams, device="cuda") -> dict:
     """Cameras as float32 tensors on `device`; the OPENCV distortion is
     included only when some camera has a nonzero coefficient."""
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -80,3 +80,12 @@ def generate_rays(cam_arrays: dict, cam_idx: torch.Tensor, px: torch.Tensor,
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
     return {"origins": c2w[:, :3, 3], "directions": dirs,
             "camera_indices": cam_idx}
+
+
+def sample_pixel_batch(num_cams: int, height: int, width: int,
+                       batch_size: int, generator: torch.Generator,
+                       device=None):
+    """Uniform random (camera, y, x) pixel batch, each (B,) int64."""
+    draw = lambda hi: torch.randint(0, hi, (batch_size,), generator=generator,
+                                    device=device)
+    return draw(num_cams), draw(height), draw(width)

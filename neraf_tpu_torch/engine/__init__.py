@@ -1,1 +1,1 @@
-"""Render pipeline and its factory."""
+"""Joint train step, render pipelines, optimizers and their factory."""

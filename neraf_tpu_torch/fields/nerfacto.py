@@ -20,7 +20,7 @@ import math
 import torch
 from torch import nn
 
-from neraf_tpu.configs.config import VisionModelConfig
+from neraf_tpu_torch.configs.config import VisionModelConfig
 from neraf_tpu_torch.fields.acoustic import lecun_normal_
 from neraf_tpu_torch.ops.contraction import contract_to_unit
 from neraf_tpu_torch.ops.encodings import SH_DIM, sh_encoding

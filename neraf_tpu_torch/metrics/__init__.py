@@ -1,1 +1,1 @@
-"""Metrics: PSNR and SSIM."""
+"""Metrics: PSNR, SSIM and the spectral losses."""

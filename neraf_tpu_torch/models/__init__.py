@@ -1,1 +1,1 @@
-"""Models: acoustic model, scene grid, 3D ResNet."""
+"""Models: vision, acoustic, camera correction, scene grid, 3D ResNet."""

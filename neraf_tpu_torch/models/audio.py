@@ -1,9 +1,9 @@
 """Acoustic-field model: query encoding, forward, full-RIR sweep.
 
-Counterpart of neraf_tpu/models/audio.py (inference half): poses normalised
-into the audio AABB with out-of-box zeroing, NeRF PE of time and positions,
-SH-4 of the orientation, the scene-grid descriptor concatenated first, and the
-all-time-bins sweep of N RIRs as one flat (N*T) query batch.
+Counterpart of neraf_tpu/models/audio.py: poses normalised into the audio
+AABB with out-of-box zeroing, NeRF PE of time and positions, SH-4 of the
+orientation, the scene-grid descriptor concatenated first, the all-time-bins
+sweep of N RIRs as one flat (N*T) query batch, and the training loss.
 """
 
 from __future__ import annotations
@@ -11,8 +11,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from neraf_tpu.configs.config import AudioModelConfig
+from neraf_tpu_torch.configs.config import AudioModelConfig
 from neraf_tpu_torch.fields.acoustic import AcousticSoundField
+from neraf_tpu_torch.metrics.losses import stft_loss
 from neraf_tpu_torch.ops.encodings import (
     SH_DIM,
     nerf_encoding,
@@ -72,6 +73,20 @@ class AudioModel(nn.Module):
             feat = grid_feature.to(h.dtype)[None, :].expand(h.shape[0], -1)
             h = torch.cat([feat, h], dim=-1)
         return self.field(h)
+
+    def loss(self, predicted: torch.Tensor, gt: torch.Tensor) -> dict:
+        """The training loss dict with the reference's weighting: SC at
+        1e-1 and the log-magnitude term at 1, both times loss_factor."""
+        cfg = self.config
+        if cfg.criterion == "MSE":
+            return {"audio_mse": torch.mean((predicted - gt) ** 2)
+                    * cfg.loss_factor}
+        parts = stft_loss(predicted, gt,
+                          loss_type="mse" if "MSE" in cfg.criterion else "l1")
+        return {
+            "audio_sc_loss": parts["audio_sc_loss"] * 1e-1 * cfg.loss_factor,
+            "audio_mag_loss": parts["audio_mag_loss"] * 1.0 * cfg.loss_factor,
+        }
 
     def render_rirs_batch(self, mic_poses: torch.Tensor,
                           source_poses: torch.Tensor, rots: torch.Tensor,

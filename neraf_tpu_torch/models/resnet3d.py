@@ -1,11 +1,18 @@
-"""3D ResNet scene-grid encoder, eval mode (counterpart of
-neraf_tpu/models/resnet3d.py).
+"""3D ResNet scene-grid encoder (counterpart of neraf_tpu/models/resnet3d.py).
 
 conv5^3/s2 -> BN/ReLU -> maxpool3/s2 -> residual stages [layer1..3(,4)] ->
 average pool over the remaining volume -> one (feature_dim,) descriptor.
 The input is an NDHWC volume, as in the JAX package; it is permuted to NCDHW
-inside. BatchNorm uses eps 1e-5 and its running statistics. Training-mode
-BatchNorm (batch-1 statistics) belongs to the joint train step, not here.
+inside. The stem is the direct k5/s2 convolution and the max pool the joint
+3^3 window (the JAX package's s2d stem and separable pool are TPU layout
+devices with the same forward values; the separable pool routes a gradient
+on an exact tie to another element).
+
+BatchNorm (eps 1e-5) follows flax: in eval mode it uses the running
+statistics; in train mode (the joint step) it normalises with the batch-1
+statistics over D, H and W and, while `update_stats` is set, moves the
+running statistics by momentum 0.1 (flax's 0.9) towards the batch mean and
+the BIASED batch variance, where nn.BatchNorm3d would take the unbiased one.
 """
 
 from __future__ import annotations
@@ -15,8 +22,30 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _bn(ch: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(ch, eps=1e-5, momentum=0.1)
+class BatchNorm3d(nn.BatchNorm3d):
+    """nn.BatchNorm3d with flax's train-mode running-statistics update."""
+
+    update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # native_batch_norm, not F.batch_norm: it returns the batch mean and
+        # inverse std it normalised with (the biased variance, with no second
+        # pass over x), and takes a 1^3 volume (layer3 of a 16^3 grid), one
+        # value per channel, which flax normalises to 0
+        out, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                var = invstd.float().reciprocal().square() - self.eps
+                self.running_mean.lerp_(mean.float(), self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        return out
+
+
+def _bn(ch: int) -> BatchNorm3d:
+    return BatchNorm3d(ch, eps=1e-5, momentum=0.1)
 
 
 class Bottleneck3D(nn.Module):
@@ -77,9 +106,9 @@ _BACKBONES = {
 
 
 class ResNet3D(nn.Module):
-    """(N, D, H, W, C_in) NDHWC -> (N, feature_dim) float32, eval mode.
+    """(N, D, H, W, C_in) NDHWC -> (N, feature_dim) float32.
 
-    layer4 runs only when n_features == 2048.
+    layer4 runs only when n_features == 2048. Built in eval mode.
     """
 
     def __init__(self, backbone: str = "resnet50", n_features: int = 1024,
@@ -120,9 +149,14 @@ class ResNet3D(nn.Module):
             elif isinstance(mod, nn.BatchNorm3d):
                 mod.reset_parameters()
 
+    def set_update_stats(self, on: bool) -> None:
+        """Whether train-mode BatchNorm moves the running statistics (the
+        joint step gates it on the audio branch being live)."""
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm3d):
+                mod.update_stats = on
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise RuntimeError("ResNet3D is ported for eval mode only")
         x = x.permute(0, 4, 1, 2, 3).to(self.conv1.weight.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool3d(x, 3, 2, 1)

@@ -95,6 +95,8 @@ def load() -> ctypes.CDLL:
     lib.neraf_gl_launch.restype = ci
     lib.neraf_pe_mlp_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
     lib.neraf_pe_mlp_launch.restype = ci
+    lib.neraf_pe_mlp_bwd_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    lib.neraf_pe_mlp_bwd_launch.restype = ci
     lib.neraf_cuda_error_string.argtypes = [ci]
     lib.neraf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,12 +1,13 @@
 """Fourier PE + ReLU MLP: the plain version and the kernel dispatch
-(counterpart of neraf_tpu/ops/pallas/fused_pe_mlp.py::pe_mlp, forward).
+(counterpart of neraf_tpu/ops/pallas/fused_pe_mlp.py::pe_mlp, forward and
+backward).
 
 `layers` is a list of (weight (out, in), bias (out,)) pairs, PyTorch's
 layout: layer 0 consumes the (6F + 3)-wide nerf_encoding [sin | cos | x],
 the hidden layers are ReLU, the last is linear. ``pe_mlp`` runs the plain
-version for a CPU tensor and the hand-written CUDA kernel
-(csrc/pe_mlp.cu through ops/cuda/pe_mlp.py) for a CUDA tensor, with no
-fallback between them.
+version for a CPU tensor (differentiated by autograd) and the hand-written
+CUDA kernels for a CUDA tensor (csrc/pe_mlp.cu forward, csrc/pe_mlp_bwd.cu
+backward, through ops/cuda/pe_mlp.py), with no fallback between them.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ def pe_mlp_plain(x: torch.Tensor, layers, num_frequencies: int = 6,
     """x (N, 3) -> (N, O) pre-activation, the JAX fields' layer chain off
     the TPU: nerf_encoding, then each layer in `dtype` as DenseParams
     computes it (`dense`). Returned in float32, or float64
-    when `dtype` is float64."""
-    h = nerf_encoding(x, num_frequencies, min_exp, max_exp)
+    when `dtype` is float64 (the encoding too: its angles reach 2^8 turns,
+    which float32 rounds by ~1e-4 rad)."""
+    wide = torch.promote_types(x.dtype, dtype)
+    h = nerf_encoding(x.to(wide), num_frequencies, min_exp, max_exp)
     for i, (w, b) in enumerate(layers):
         h = dense(h, w, b, dtype)
         if i < len(layers) - 1:
@@ -49,6 +52,20 @@ def pe_mlp(x: torch.Tensor, layers, num_frequencies: int = 6,
     from neraf_tpu_torch.ops.cuda.pe_mlp import pe_mlp_cuda
 
     return pe_mlp_cuda(x, layers, num_frequencies, min_exp, max_exp, dtype)
+
+
+def pe_mlp_vjp_plain(x: torch.Tensor, layers, g: torch.Tensor,
+                     num_frequencies: int = 6, min_exp: float = 0.0,
+                     max_exp: float = 8.0, dtype: torch.dtype = torch.float32):
+    """Autograd of pe_mlp_plain for the output cotangent g (N, O): dx (N, 3)
+    and [(dW, db)] in `layers`' layout and dtypes."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_()
+        params = [t.detach().requires_grad_() for wb in layers for t in wb]
+        out = pe_mlp_plain(xs, list(zip(params[::2], params[1::2])),
+                           num_frequencies, min_exp, max_exp, dtype)
+        grads = torch.autograd.grad(out, [xs, *params], g.to(out.dtype))
+    return grads[0], list(zip(grads[1::2], grads[2::2]))
 
 
 def split_first_layer(w0: torch.Tensor, num_frequencies: int):
@@ -111,3 +128,26 @@ def pack_layers(layers, num_frequencies: int, dtype: torch.dtype):
     dims = dict(k0p=k0p, hp=hp, op=op, n_hidden=len(layers) - 1,
                 out_dim=wo.shape[0])
     return w_flat, b_flat, dims
+
+
+def unpack_layers(w_flat: torch.Tensor, b_flat: torch.Tensor, dims: dict,
+                  num_frequencies: int, hidden: int):
+    """The inverse of pack_layers: packed weights and biases (or their
+    gradients, in the same layout) -> [(W (out, in), b (out,))] in PyTorch's
+    layout, the padding dropped and layer 0's columns back in
+    [sin | cos | x] order."""
+    F = num_frequencies
+    k0p, hp, op = dims["k0p"], dims["hp"], dims["op"]
+    n_hidden, out_dim = dims["n_hidden"], dims["out_dim"]
+    first = w_flat[:hp * k0p].reshape(hp, k0p)[:hidden]
+    w0 = torch.cat([first[:, 0:6 * F:2], first[:, 1:6 * F:2],
+                    first[:, 6 * F:6 * F + 3]], 1)
+    out = [(w0, b_flat[:hidden])]
+    off = hp * k0p
+    for i in range(1, n_hidden):
+        w = w_flat[off:off + hp * hp].reshape(hp, hp)[:hidden, :hidden]
+        out.append((w, b_flat[i * hp:i * hp + hidden]))
+        off += hp * hp
+    wo = w_flat[off:off + op * hp].reshape(op, hp)[:out_dim, :hidden]
+    out.append((wo, b_flat[n_hidden * hp:n_hidden * hp + out_dim]))
+    return out

@@ -1,10 +1,11 @@
 """Ray samplers in the normalised spacing domain (counterpart of
-neraf_tpu/ops/samplers.py, eval half).
+neraf_tpu/ops/samplers.py).
 
 A spacing s in [0, 1] maps linearly in depth over [near, mid] for s < 1/2 and
 linearly in disparity over [mid, far] above. The eval path is deterministic:
-fixed uniform bins, then inverse-CDF resampling at bin-centred quantiles. The
-train-mode jitter comes with the training slice.
+fixed uniform bins, then inverse-CDF resampling at bin-centred quantiles.
+Training jitters both with one uniform per ray (use_single_jitter), passed
+in explicitly: JAX's PRNG and torch's never agree, so the caller draws.
 """
 
 from __future__ import annotations
@@ -32,19 +33,27 @@ def spacing_bins_to_euclidean(bins_s: torch.Tensor, near: torch.Tensor,
     return _spacing_to_euclidean(s)
 
 
-def uniform_spacing_bins(num_rays: int, num_samples: int,
-                         device=None) -> torch.Tensor:
-    """Fixed uniform bins in the spacing domain -> (R, S+1) in [0, 1]."""
+def uniform_spacing_bins(num_rays: int, num_samples: int, device=None,
+                         jitter: torch.Tensor | None = None) -> torch.Tensor:
+    """Uniform bins in the spacing domain -> (R, S+1) in [0, 1]. With
+    `jitter` (R, 1) uniforms in [0, 1), the interior edges move by
+    (u - 1/2) / S and are clipped to [0, 1]; 0 and 1 stay."""
     edges = torch.linspace(0.0, 1.0, num_samples + 1, dtype=torch.float32,
                            device=device)
-    return edges.expand(num_rays, num_samples + 1)
+    bins = edges.expand(num_rays, num_samples + 1)
+    if jitter is None:
+        return bins
+    width = 1.0 / num_samples
+    interior = (bins[..., 1:-1] + jitter * width - width / 2.0).clamp(0.0, 1.0)
+    return torch.cat([bins[..., :1], interior, bins[..., -1:]], dim=-1)
 
 
 def pdf_spacing_bins(bins_s: torch.Tensor, weights: torch.Tensor,
-                     num_samples: int,
-                     histogram_padding: float = 0.01) -> torch.Tensor:
+                     num_samples: int, histogram_padding: float = 0.01,
+                     jitter: torch.Tensor | None = None) -> torch.Tensor:
     """Inverse-CDF resampling of spacing bins (R, S+1) from per-interval
-    weights (R, S) at the quantiles (i + 1/2) / (num_samples + 1) ->
+    weights (R, S) at the quantiles (i + 1/2) / (num_samples + 1), or with
+    `jitter` (R, 1) uniforms at (i + u) / (num_samples + 1) ->
     (R, num_samples + 1) sorted bin edges.
 
     The bracketing edges come from a binary search: cdf is non-decreasing,
@@ -65,9 +74,9 @@ def pdf_spacing_bins(bins_s: torch.Tensor, weights: torch.Tensor,
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
                      torch.ones_like(cdf[..., :1])], dim=-1)  # (R, S+1)
 
-    u = (torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins,
-                        dtype=cdf.dtype, device=cdf.device)
-         + 0.5 / num_bins)
+    u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, dtype=cdf.dtype,
+                       device=cdf.device)
+    u = u + (0.5 / num_bins if jitter is None else jitter / num_bins)
     u = u.expand(*cdf.shape[:-1], num_bins).contiguous()
     above = torch.searchsorted(cdf, u, right=True).clamp(1, cdf.shape[-1] - 1)
     below = above - 1

@@ -6,7 +6,9 @@ it on a card (marked `cuda`, skipped here). JAX is imported inside the
 tests that use it, so the `cuda` tests also run where JAX is not installed.
 Tolerances: rtol 2e-4 and atol 2e-5 against the JAX kernel in f32, the JAX
 package's own bound for its kernel against the layer chain
-(tests/test_fused_pe_mlp.py).
+(tests/test_fused_pe_mlp.py); gradients rtol 2e-3 and atol 1e-4 of each
+tensor's peak, that test's bound, on rows with no pre-activation within
+f32 noise of 0 (such a unit's ReLU subgradient flips between orderings).
 """
 
 import numpy as np
@@ -18,10 +20,14 @@ from neraf_tpu_torch.ops.pe_mlp import (
     pack_layers,
     pe_mlp,
     pe_mlp_plain,
+    pe_mlp_vjp_plain,
     split_first_layer,
+    unpack_layers,
 )
 
 CASES = [(6, 32, 2, 1), (4, 24, 4, 8)]  # (F, H, hidden layers, O)
+# the two field architectures of the training step: proposal, main field
+FIELD_CASES = [(6, 128, 2, 1), (10, 256, 4, 16)]
 
 
 def _rand_params(rng, F, H, L, O):
@@ -38,7 +44,7 @@ def _torch_layers(params, device="cpu", dtype=torch.float32):
              torch.tensor(b, dtype=dtype, device=device)) for w, b in params]
 
 
-def _jax_ref_mlp(x, params, F):
+def _jax_chain(x, params, F):
     import jax.numpy as jnp
 
     from neraf_tpu.ops.encodings import nerf_encoding as jnerf_encoding
@@ -47,7 +53,11 @@ def _jax_ref_mlp(x, params, F):
     for w, b in params[:-1]:
         h = jnp.maximum(h @ w + b, 0.0)
     w, b = params[-1]
-    return np.asarray(h @ w + b)
+    return h @ w + b
+
+
+def _jax_ref_mlp(x, params, F):
+    return np.asarray(_jax_chain(x, params, F))
 
 
 @pytest.mark.parametrize("F,H,L,O", CASES)
@@ -166,3 +176,185 @@ def test_pe_mlp_kernel_matches_plain_on_card(F, H, L, O):
     assert float((out16 - plain16).abs().max()) <= 3e-2 * peak
     err16 = float((out16.double() - ref).abs().max())
     assert err16 <= 1.5 * float((plain16.double() - ref).abs().max())
+
+
+def _clear_rows(x, params, F):
+    """Rows whose every pre-activation is away from 0 (numpy replica of the
+    forward, as tests/test_fused_pe_mlp.py filters them)."""
+    freqs = (2.0 ** np.linspace(0, 8, F)).astype(np.float32)
+    ang = ((2 * np.pi * x)[..., None] * freqs).reshape(x.shape[0], -1)
+    h = np.concatenate([np.sin(ang), np.sin(ang + np.pi / 2), x], -1)
+    keep = np.ones(x.shape[0], bool)
+    for w, b in params[:-1]:
+        pre = h @ w + b
+        keep &= (np.abs(pre) > 1e-4 * np.abs(pre).max()).all(axis=-1)
+        h = np.maximum(pre, 0.0)
+    assert keep.sum() >= x.shape[0] // 2
+    return x[keep]
+
+
+def _assert_grads_close(got, ref):
+    """got, ref: [dx, dW0, db0, ...] as numpy arrays in one layout."""
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=2e-3,
+                                   atol=1e-4 * max(np.abs(b).max(), 1e-3))
+
+
+@pytest.mark.parametrize("F,H,L,O", FIELD_CASES)
+def test_pe_mlp_vjp_matches_jax_interpret_and_reference(F, H, L, O):
+    """The port's backward on the CPU (autograd through pe_mlp's plain
+    version) against jax.vjp of the Pallas kernel in interpret mode and of
+    the JAX layer chain, at both field architectures."""
+    import jax
+    import jax.numpy as jnp
+
+    from neraf_tpu.ops.pallas.fused_pe_mlp import pe_mlp as jpe_mlp
+
+    rng = np.random.RandomState(5)
+    params = _rand_params(rng, F, H, L, O)
+    x = _clear_rows(rng.rand(300, 3).astype(np.float32), params, F)
+    g = rng.randn(x.shape[0], O).astype(np.float32)
+
+    xt = torch.from_numpy(x).requires_grad_()
+    layers = [(w.requires_grad_(), b.requires_grad_())
+              for w, b in _torch_layers(params)]
+    out = pe_mlp(xt, layers, F, 0.0, 8.0, torch.float32)
+    out.backward(torch.from_numpy(g))
+    got = [xt.grad.numpy()] + [t.grad.numpy().T if t.dim() == 2 else
+                               t.grad.numpy() for wb in layers for t in wb]
+
+    jparams = [(jnp.asarray(w), jnp.asarray(b)) for w, b in params]
+    for fn in (lambda x, p: jpe_mlp(x, p, F, 0.0, 8.0, jnp.float32, 256, True),
+               lambda x, p: _jax_chain(x, p, F)):
+        _, vjp = jax.vjp(fn, jnp.asarray(x), jparams)
+        dx, dp = vjp(jnp.asarray(g))
+        ref = [np.asarray(dx)] + [np.asarray(t) for wb in dp for t in wb]
+        _assert_grads_close(got, ref)
+
+
+@pytest.mark.parametrize("F,H,L,O", CASES + FIELD_CASES)
+def test_padded_units_get_zero_gradient(F, H, L, O):
+    """The kernels' packed network (hidden width padded to 16..256, layer
+    0's input to 48 or 64 and interleaved, the output to a multiple of 8):
+    its gradient, taken by autograd here, is exactly 0 on every padded row,
+    column and bias, and unpack_layers gives back the unpadded network's
+    gradient."""
+    rng = np.random.RandomState(6)
+    params = _rand_params(rng, F, H, L, O)
+    layers = _torch_layers(params)
+    x = torch.from_numpy(rng.rand(64, 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(64, O).astype(np.float32))
+    w, b, dims = pack_layers(layers, F, torch.float32)
+    w.requires_grad_()
+    b.requires_grad_()
+    k0p, hp, op = dims["k0p"], dims["hp"], dims["op"]
+    # the encoding in the packed column order: (sin, cos) pairs, x, zeros
+    freqs = 2.0 ** torch.linspace(0.0, 8.0, F)
+    ang = (2.0 * np.pi * x[:, :, None] * freqs).reshape(64, -1)
+    enc = torch.zeros(64, k0p)
+    enc[:, 0:6 * F:2], enc[:, 1:6 * F:2] = torch.sin(ang), torch.cos(ang)
+    enc[:, 6 * F:6 * F + 3] = x
+    h, off = enc, 0
+    for i in range(L + 1):
+        rows, cols = (op if i == L else hp), (k0p if i == 0 else hp)
+        h = h @ w[off:off + rows * cols].reshape(rows, cols).T + b[
+            i * hp:i * hp + rows]
+        h = torch.relu(h) if i < L else h
+        off += rows * cols
+    (h[:, :O] * g).sum().backward()
+    dw, db = w.grad.detach(), b.grad.detach()
+
+    pad_w, pad_b = torch.ones_like(dw, dtype=torch.bool), torch.ones_like(
+        db, dtype=torch.bool)
+    live = unpack_layers(torch.arange(dw.numel()), torch.arange(db.numel()),
+                         dims, F, H)
+    for wi, bi in live:
+        pad_w[wi.reshape(-1)] = False
+        pad_b[bi] = False
+    assert pad_w.any()  # layer 0's odd 6F + 3 is always padded
+    assert not dw[pad_w].any() and not db[pad_b].any()
+
+    _, ref = pe_mlp_vjp_plain(x, layers, g, F)
+    for (gw, gb), (rw, rb) in zip(unpack_layers(dw, db, dims, F, H), ref):
+        torch.testing.assert_close(gw, rw, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(gb, rb, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("F,H,L,O", CASES)
+def test_unpack_layers_inverts_pack_layers(F, H, L, O):
+    layers = _torch_layers(_rand_params(np.random.RandomState(7), F, H, L, O))
+    w, b, dims = pack_layers(layers, F, torch.float32)
+    for (w1, b1), (w0, b0) in zip(unpack_layers(w, b, dims, F, H), layers):
+        torch.testing.assert_close(w1, w0, rtol=0, atol=0)
+        torch.testing.assert_close(b1, b0, rtol=0, atol=0)
+
+
+def test_pe_mlp_vjp_plain_matches_autograd():
+    rng = np.random.RandomState(8)
+    params = _rand_params(rng, 4, 24, 2, 3)
+    layers = _torch_layers(params)
+    x = torch.from_numpy(rng.rand(40, 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(40, 3).astype(np.float32))
+    dx, grads = pe_mlp_vjp_plain(x, layers, g, 4)
+    xs = x.clone().requires_grad_()
+    ps = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+          for w, b in layers]
+    (pe_mlp_plain(xs, ps, 4) * g).sum().backward()
+    torch.testing.assert_close(dx, xs.grad, rtol=0, atol=0)
+    for (gw, gb), (w, b) in zip(grads, ps):
+        torch.testing.assert_close(gw, w.grad, rtol=0, atol=0)
+        torch.testing.assert_close(gb, b.grad, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,H,L,O", CASES + FIELD_CASES)
+def test_pe_mlp_backward_kernel_matches_plain_on_card(F, H, L, O):
+    """The backward kernel through autograd on the card against the plain
+    chain's autograd, n = 1000 (ragged row tiles and dW slices). f32:
+    against the float64 backward to 1e-4 of each tensor's peak (f32 sums
+    over the rows and the angles' f32 range reduction). bf16, by relative
+    L2 error ||a - b|| / ||b|| per tensor: a ReLU mask flips wherever bf16
+    rounding moves a pre-activation across 0, in the kernel and the plain
+    chain at different units, which moves single rows of dx by O(peak), so
+    an elementwise bound says nothing, and both sit ~5% from float64
+    (measured on an H100); against the plain bf16 backward to 0.15, and no
+    further from the float64 backward than 1.5 times the plain bf16
+    backward is (a wrong product is O(1) off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    rng = np.random.RandomState(9)
+    n = 1000
+    params = _rand_params(rng, F, H, L, O)
+    x = torch.from_numpy(rng.rand(n, 3).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.randn(n, O).astype(np.float32)).cuda()
+    layers = _torch_layers(params, "cuda")
+
+    def flat(dx, grads):
+        return [dx] + [t for wb in grads for t in wb]
+
+    ref = flat(*pe_mlp_vjp_plain(
+        x.double(), [(w.double(), b.double()) for w, b in layers], g.double(),
+        F, dtype=torch.float64))
+
+    def kernel_grads(dtype):
+        xs = x.clone().requires_grad_()
+        ps = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+              for w, b in layers]
+        before = pe_mlp_cuda_mod.BWD_LAUNCHES
+        pe_mlp(xs, ps, F, dtype=dtype).backward(g)
+        torch.cuda.synchronize()
+        assert pe_mlp_cuda_mod.BWD_LAUNCHES == before + 1
+        return flat(xs.grad, [(w.grad, b.grad) for w, b in ps])
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    for got, want in zip(kernel_grads(torch.float32), ref):
+        peak = float(want.abs().max())
+        assert float((got.double() - want).abs().max()) <= 1e-4 * peak
+    plain16 = flat(*pe_mlp_vjp_plain(x, layers, g, F, dtype=torch.bfloat16))
+    for i, (got, p16, want) in enumerate(zip(kernel_grads(torch.bfloat16),
+                                             plain16, ref)):
+        assert rel(got, p16) <= 0.15, (i, rel(got, p16))
+        assert rel(got, want) <= 1.5 * rel(p16, want), (
+            i, rel(got, want), rel(p16, want))

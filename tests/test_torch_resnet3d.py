@@ -55,11 +55,18 @@ def test_resnet3d_eval_matches_flax(backbone, n_features, rng):
 
 
 def test_resnet3d_is_eval_only():
+    """Built in eval mode (the serving paths use it so); train mode, which
+    the joint step now uses, normalises with the batch's statistics
+    instead (tests/test_torch_train.py holds it against flax)."""
     model = ResNet3D(backbone="resnet18")
     assert not model.training
-    model.train()
-    with pytest.raises(RuntimeError, match="eval mode only"):
-        model(torch.zeros((1, 16, 16, 16, 7)))
+    x = torch.rand((1, 16, 16, 16, 7), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        eval_out = model(x)
+        model.train()
+        model.set_update_stats(False)
+        train_out = model(x)
+    assert not torch.allclose(eval_out, train_out)
 
 
 def test_seeded_init_is_xavier_and_reproducible():

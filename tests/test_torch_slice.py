@@ -71,7 +71,7 @@ def jax_slice():
                           "resnet": resnet_vars["params"]}},
         batch_stats=resnet_vars["batch_stats"], grid=jnp.asarray(grid))
     port = build_render_pipeline(
-        grid_res=GRID_RES, tiny=True, mixed_precision=False,
+        grid_res=GRID_RES, tiny=True, device="cpu", mixed_precision=False,
         params=state.params, batch_stats=state.batch_stats, grid=grid)
     return pipe, state, port
 

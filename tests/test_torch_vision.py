@@ -198,7 +198,7 @@ def test_generate_rays_matches_jax(rng, distorted):
                     else np.zeros((n, 6))).astype(np.float32))
     idx = rng.integers(0, n, 50)
     px, py = rng.integers(0, 32, 50), rng.integers(0, 24, 50)
-    arrays = camera_arrays(cams)
+    arrays = camera_arrays(cams, "cpu")
     assert ("distortion" in arrays) == distorted
     out = generate_rays(arrays, T(idx), T(px), T(py))
     ref = jgenerate_rays(jcamera_arrays(cams), jnp.asarray(idx),

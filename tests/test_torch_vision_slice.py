@@ -58,8 +58,8 @@ def vision_slice():
         grid_res=16)
     # the vision half of JointPipeline.init_state: render_image reads only it
     state = SimpleNamespace(params=jmodel.init(jax.random.PRNGKey(5)))
-    port = build_vision_pipeline(tiny=True, mixed_precision=False,
-                                 params=state.params)
+    port = build_vision_pipeline(tiny=True, device="cpu",
+                                 mixed_precision=False, params=state.params)
     port.config.vision_model.eval_num_rays_per_chunk = CHUNK
     cams = synthetic_cameras(NUM_CAMERAS, 12, 10, seed=4)
     return pipe, state, port, cams
@@ -68,7 +68,7 @@ def vision_slice():
 def test_render_image_matches_jax(vision_slice):
     pipe, state, port, cams = vision_slice
     H, W, cam = 12, 10, 3
-    out = port.render_image(camera_arrays(cams), cam, H, W)
+    out = port.render_image(camera_arrays(cams, "cpu"), cam, H, W)
     ref = pipe.render_image(state, jcamera_arrays(cams), cam, H, W)
     for k, shape in (("rgb", (H, W, 3)), ("depth", (H, W)),
                      ("accumulation", (H, W))):
@@ -99,7 +99,7 @@ def test_evaluate_vision_matches_jax(vision_slice):
     pipe, state, port, cams = vision_slice
     images = np.random.default_rng(6).uniform(0, 1, (2, 16, 12, 3)).astype(
         np.float32)
-    res = port.evaluate_vision(camera_arrays(cams), images)
+    res = port.evaluate_vision(camera_arrays(cams, "cpu"), images)
     ref = pipe.evaluate_vision(state, jcamera_arrays(cams), images)
     for k in ("psnr", "ssim", "psnr_std"):
         np.testing.assert_allclose(res[k], ref[k], rtol=1e-4, atol=1e-6,
@@ -113,7 +113,7 @@ def test_evaluate_vision_matches_jax(vision_slice):
 def test_render_image_is_chunk_invariant(vision_slice):
     """One chunk or many: the same image (rays are independent)."""
     _, _, port, cams = vision_slice
-    arrays = camera_arrays(cams)
+    arrays = camera_arrays(cams, "cpu")
     small = port.render_image(arrays, 1, 12, 10)
     port.config.vision_model.eval_num_rays_per_chunk = 1 << 15
     try:
