@@ -41,7 +41,21 @@ Phases, each fatal on failure:
      PE+MLP wrappers' device kernels a step) and the ResNet and its stem
      convolution timed alone;
  11. the tiny joint step in float32 on the card against the same step on
-     the CPU with its fields in float64, from the same weights and draws.
+     the CPU with its fields in float64, from the same weights and draws;
+ 12. the hash-encoding forward and backward kernels against the plain
+     version and its autograd on the card, at the full-width grid (8 levels
+     x 4 features, 2^19 rows a level) and the three shapes the main path
+     gives them (train step's main field 196,608 rows, grid bake 73,728,
+     a render chunk's main field 1,572,864), and tcnn's 16 x 2 layout at
+     the train step's shape; each timed beside the plain version;
+ 13. the full-width hash render (VisionPipeline with encoding="hash") as
+     phase 7: 1 hash forward and 2 pe_mlp launches a chunk;
+ 14. the full-width hash joint step as phase 10: 2 hash forward + 2 hash
+     backward and 2 + 2 pe_mlp launches a step, the table changed, the
+     hash kernels' device time a step, and the table's zeroed gradient and
+     its two Adam updates timed alone;
+ 15. the tiny hash joint step (4 levels, 2^10 rows, resolutions 4-32) card
+     against CPU as phase 11, at 2 and at 4 features a level.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -50,6 +64,7 @@ kernels with their launch counts, errors and times.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -106,6 +121,13 @@ RGB_ABS_TOL = 1e-4  # tiny vision slice, f32, card vs CPU
 # which the card's kernels reduce exactly and a float32 chain rounds by
 # ~1e-4 rad. The grid and the BatchNorm statistics to 1e-4 of their peak.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# Hash encoding, kernel against the plain version on the same inputs,
+# relative to each output's peak. Forward 1e-6: both sum the weighted
+# corners as the same float32 FMAs in the same order. Table gradient 1e-5:
+# the kernel adds with atomics, in an order that changes from run to run.
+# dx 1e-5, on rows clear of the clip bounds (sums over corners and levels
+# in another order).
+HASH_FWD_TOL, HASH_BWD_TOL = 1e-6, 1e-5
 H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12  # per second
 EVAL_NOISE, EVAL_MIN_PSNR = 0.02, 30.0  # evaluate_vision against render + noise
 
@@ -425,9 +447,14 @@ def check_metrics(metrics, what):
         fail(f"{what}: metrics {metrics}")
 
 
-def joint_step_phase(torch, pipe):
-    """Phase 10: the full-width joint step on the bench.py inputs."""
+def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
+                     stem: bool = True):
+    """Phases 10 and 14: the full-width joint step on the bench.py inputs,
+    with every kernel's launch count set to 0 just before the run and read
+    just after; `per_step` is the launches a step expected of each counter
+    (pe_fwd, pe_bwd, hash_fwd, hash_bwd; GL none)."""
     from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
+    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
     from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
 
     cams, audio, images = bench_inputs(torch, pipe.device)
@@ -437,6 +464,7 @@ def joint_step_phase(torch, pipe):
     n_settle, n_warm = 2, 10  # the caching allocator grows over the first steps
     torch.cuda.synchronize()
     gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = pe_cuda.BWD_LAUNCHES = 0
+    hash_cuda.FWD_LAUNCHES = hash_cuda.BWD_LAUNCHES = 0
     times, metrics = [], []
     for i in range(1 + n_settle + n_warm):
         if i == 1:
@@ -446,58 +474,67 @@ def joint_step_phase(torch, pipe):
         m = pipe.train_step(cams, audio, images)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        check_metrics(m, f"joint step {i}")
+        check_metrics(m, f"{what} {i}")
         metrics.append(m)
         if pipe.cursor != (cursor0 + bake) % pipe.grid.shape[0] or (
                 pipe.step != step0 + 1):
-            fail(f"joint step {i}: cursor {cursor0} -> {pipe.cursor}, step "
+            fail(f"{what} {i}: cursor {cursor0} -> {pipe.cursor}, step "
                  f"{step0} -> {pipe.step}")
         changed = (pipe.grid != grid0).any(dim=1).nonzero()[:, 0]
         if not (changed.numel() == bake and int(changed[0]) == cursor0
                 and int(changed[-1]) == cursor0 + bake - 1):
-            fail(f"joint step {i}: the grid changed at {changed.numel()} "
+            fail(f"{what} {i}: the grid changed at {changed.numel()} "
                  f"cells, not the {bake} at cursor {cursor0}")
-    fwd, bwd, gl = pe_cuda.LAUNCHES, pe_cuda.BWD_LAUNCHES, gl_cuda.LAUNCHES
+    counts = {"pe_fwd": pe_cuda.LAUNCHES, "pe_bwd": pe_cuda.BWD_LAUNCHES,
+              "hash_fwd": hash_cuda.FWD_LAUNCHES,
+              "hash_bwd": hash_cuda.BWD_LAUNCHES}
+    gl = gl_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     steps = 1 + n_settle + n_warm
-    if fwd != 4 * steps or bwd != 4 * steps or gl != 0:
-        fail(f"joint step: pe_mlp launched {fwd} forward and {bwd} backward "
-             f"times in {steps} steps (4 + 4 a step), GL {gl} times")
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want or gl != 0:
+        fail(f"{what}: launches {counts} in {steps} steps, expected {want}; "
+             f"GL {gl} times")
     if not metrics[-1]["audio_mag_loss"] > 0:
-        fail("joint step: the audio branch is not live")
+        fail(f"{what}: the audio branch is not live")
     warm = times[1 + n_settle:]
     ms = 1e3 * float(np.median(warm))
-    print(f"joint step: cold {times[0] * 1e3:.2f} ms, then "
+    print(f"{what}: cold {times[0] * 1e3:.2f} ms, then "
           f"{[round(1e3 * t, 2) for t in times[1:1 + n_settle]]} ms; warm "
           f"median {ms:.2f} ms/step (mean {1e3 * float(np.mean(warm)):.2f}, "
           f"each {[round(1e3 * t, 2) for t in warm]}), "
           f"{1e3 / ms:.3f} steps/s, {rays * 1e3 / ms:.1f} rays/s; peak memory "
-          f"{peak / 2**30:.3f} GiB; pe_mlp launches {fwd} forward, {bwd} "
-          f"backward in {steps} steps; last metrics {json.dumps(metrics[-1])}",
-          flush=True)
+          f"{peak / 2**30:.3f} GiB; launches {counts} in {steps} steps; last "
+          f"metrics {json.dumps(metrics[-1])}", flush=True)
     pipe.profile = []
     for _ in range(3):
         pipe.train_step(cams, audio, images)
     marks, pipe.profile = pipe.profile, None
-    per_step = [stage_ms(torch, marks[i:i + 7]) for i in range(0, len(marks), 7)]
-    parts = {k: float(np.mean([d[k] for d in per_step])) for k in per_step[0]}
-    print("joint step breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
+    per = [stage_ms(torch, marks[i:i + 7]) for i in range(0, len(marks), 7)]
+    parts = {k: float(np.mean([d[k] for d in per])) for k in per[0]}
+    print(f"{what} breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}",
         flush=True)
-    pe_kernels = profile_steps(torch, pipe, cams, audio, images)
-    stem_timings(torch, pipe)
-    return {"ms_per_step": ms, "cold_ms": times[0] * 1e3, "fwd": fwd,
-            "bwd": bwd, "peak_gib": peak / 2**30, "parts": parts,
-            "pe_kernels": pe_kernels}
+    kernels = profile_steps(torch, pipe, cams, audio, images, what)
+    if stem:
+        stem_timings(torch, pipe)
+    return {"ms_per_step": ms, "cold_ms": times[0] * 1e3, **counts,
+            "peak_gib": peak / 2**30, "parts": parts, "kernels": kernels}
 
 
-# the device kernels of the PE+MLP wrappers, by the prefix of their names:
-# one forward call launches pe_mlp_bf16_kernel; one backward call launches
-# the row-tile kernel, one dW kernel per layer and the reduction
-PE_DEVICE_KERNELS = {"pe_mlp_bf16_kernel": "forward",
-                     "pe_mlp_bwd_bf16_kernel": "backward row tiles",
-                     "pe_mlp_dw_kernel": "backward dW",
-                     "pe_mlp_reduce_kernel": "backward reduction"}
+# the device kernels of the wrappers, by the name after "::": one PE+MLP
+# forward call launches pe_mlp_bf16_kernel; one backward call the row-tile
+# kernel, one dW kernel per layer and the reduction; the hash encoding one
+# kernel each way
+DEVICE_KERNELS = {"pe_mlp_bf16_kernel": "PE+MLP forward",
+                  "pe_mlp_bwd_bf16_kernel": "PE+MLP backward row tiles",
+                  "pe_mlp_dw_kernel": "PE+MLP backward dW",
+                  "pe_mlp_reduce_kernel": "PE+MLP backward reduction",
+                  "hash_encoding_fwd_kernel": "hash forward",
+                  "hash_encoding_bwd_kernel": "hash backward"}
+# PyTorch's own kernels a step, by a part of their names
+LIBRARY_KERNELS = {"FillFunctor": "zero fills",
+                   "FusedAdamMathFunctor": "fused Adam"}
 
 
 def busy_ms(events) -> float:
@@ -513,11 +550,13 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def profile_steps(torch, pipe, cams, audio, images, n: int = 3) -> dict:
+def profile_steps(torch, pipe, cams, audio, images, what: str,
+                  n: int = 3) -> dict:
     """torch.profiler over n joint steps: the device's busy time (union of
     its kernels' intervals) against the host clock, the kernels with the
-    most device time, and the launches and device ms a step of each PE+MLP
-    device kernel -> {kernel: {"launches": per step, "ms": per step}}."""
+    most device time, and the launches and device ms a step of each of the
+    wrappers' device kernels and of the zero fills and fused Adam ->
+    {kernel: {"launches": per step, "ms": per step}}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -528,25 +567,29 @@ def profile_steps(torch, pipe, cams, audio, images, n: int = 3) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     busy = busy_ms(events)
-    pe = {k: {"launches": 0, "ms": 0.0} for k in PE_DEVICE_KERNELS}
+    found = {k: {"launches": 0, "ms": 0.0}
+             for k in (*DEVICE_KERNELS, *LIBRARY_KERNELS)}
     for e in events:
         if e.device_type.name != "CUDA":
             continue
-        for k in PE_DEVICE_KERNELS:
-            if f"::{k}<" in e.name or f"::{k}(" in e.name:
-                pe[k]["launches"] += 1
-                pe[k]["ms"] += (e.time_range.end - e.time_range.start) / 1e3
-    pe = {k: {"launches": v["launches"] / n, "ms": v["ms"] / n}
-          for k, v in pe.items()}
-    print(f"joint step profile, {n} steps under torch.profiler: host "
+        keys = [k for k in DEVICE_KERNELS
+                if f"::{k}<" in e.name or f"::{k}(" in e.name]
+        keys += [k for k in LIBRARY_KERNELS if k in e.name]
+        for k in keys:
+            found[k]["launches"] += 1
+            found[k]["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    found = {k: {"launches": v["launches"] / n, "ms": v["ms"] / n}
+             for k, v in found.items()}
+    labels = {**DEVICE_KERNELS, **LIBRARY_KERNELS}
+    print(f"{what} profile, {n} steps under torch.profiler: host "
           f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / n:.2f} a step), "
           f"idle share {1 - busy / wall:.3f} (the profiler slows the host); "
-          "PE+MLP device kernels a step: " + ", ".join(
-              f"{PE_DEVICE_KERNELS[k]} ({k}) {v['launches']:g} launches "
-              f"{v['ms']:.3f} ms" for k, v in pe.items()), flush=True)
+          "device kernels a step: " + ", ".join(
+              f"{labels[k]} ({k}) {v['launches']:g} launches {v['ms']:.3f} ms"
+              for k, v in found.items() if v["launches"]), flush=True)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=15, max_name_column_width=70))
-    return pe
+    return found
 
 
 def stem_timings(torch, pipe) -> None:
@@ -593,20 +636,21 @@ def stem_timings(torch, pipe) -> None:
               f"{k} {v:.3f}" for k, v in stem.items()), flush=True)
 
 
-def tiny_joint_card_vs_cpu(torch):
-    """Phase 11: three tiny f32 steps on the card and on the CPU from the
-    same weights and draws, each step from the CPU pipeline's state. The
-    CPU reference computes the fields (proposals and main field) in
-    float64, so that their encoding's angles, up to 2^8 turns, are exact
-    as the card's kernels reduce them; a plain float32 CPU pipeline is
-    run beside them and its distance to the card printed, ungated."""
+def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
+    """Phases 11 and 15: three tiny f32 steps on the card and on the CPU
+    from the same weights and draws, each step from the CPU pipeline's
+    state, at the tiny configuration or `config`. The CPU reference
+    computes the fields' MLPs (proposals and main field) in float64, so
+    that the fourier encoding's angles, up to 2^8 turns, are exact as the
+    card's kernels reduce them; a plain float32 CPU pipeline is run beside
+    them and its distance to the card printed, ungated."""
     from neraf_tpu_torch.data.loader import audio_arrays
     from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
     from neraf_tpu_torch.engine.factory import build_joint_pipeline
 
     dev = {"cpu": "cpu", "cuda": "cuda", "cpu_f32": "cpu"}
     on = {d: build_joint_pipeline(grid_res=32, tiny=True, device=v, seed=0,
-                                  mixed_precision=False)
+                                  mixed_precision=False, config=config)
           for d, v in dev.items()}
     vm = on["cpu"].vision_model
     for field in (vm.field, *vm.proposal_networks):
@@ -653,7 +697,7 @@ def tiny_joint_card_vs_cpu(torch):
             atol = (TRAIN_LOSS_RTOL * m["cpu"]["total_loss"]
                     if k in ("interlevel_loss", "distortion_loss") else 0.0)
             if not abs(m["cuda"][k] - v) <= TRAIN_LOSS_RTOL * abs(v) + atol:
-                fail(f"tiny joint step {step}: {k} card {m['cuda'][k]} vs "
+                fail(f"{what} step {step}: {k} card {m['cuda'][k]} vs "
                      f"cpu {v}")
         g = {d: grads(p) for d, p in on.items()}
         for d in worst:
@@ -668,17 +712,18 @@ def tiny_joint_card_vs_cpu(torch):
             float((stats["cuda"][k] - v).abs().max() / v.abs().max())
             for k, v in stats["cpu"].items()])
         if state_err > 1e-4:
-            fail(f"tiny joint step {step}: grid or BN statistics {state_err}")
+            fail(f"{what} step {step}: grid or BN statistics {state_err}")
     top = {d: sorted(w.items(), key=lambda kv: -kv[1])[:3]
            for d, w in worst.items()}
     fmt = lambda kvs: ", ".join(f"{k} {v:.3e}" for k, v in kvs)
-    print(f"tiny joint card vs cpu (fields in float64), 3 steps: losses "
+    print(f"{what} card vs cpu (fields in float64), 3 steps: losses "
           f"within {TRAIN_LOSS_RTOL}; gradients of each tensor's peak, "
           f"largest {fmt(top['cpu'])} (tol {TRAIN_GRAD_TOL}); grid and BN "
           f"statistics within 1e-4. Beside it, card vs a float32 CPU "
           f"pipeline: largest {fmt(top['cpu_f32'])}", flush=True)
     if top["cpu"][0][1] > TRAIN_GRAD_TOL:
-        fail("tiny joint step gradients differ card vs CPU: " + fmt(top["cpu"]))
+        fail(f"{what} step gradients differ card vs CPU: " + fmt(top["cpu"]))
+    return worst["cpu"]
 
 
 def check_image(torch, out, H, W, what):
@@ -697,11 +742,14 @@ def check_image(torch, out, H, W, what):
 
 def chunk_breakdown(torch, pipe, arrays, H, W):
     """Per-chunk device time of one image (CUDA events from forward hooks):
-    proposal 0, proposal 1, the main field, and the rest of the chunk."""
+    proposal 0, proposal 1, the main field (and its hash encoding, on the
+    hash grid), and the rest of the chunk."""
     model = pipe.vision_model
     parts = {"proposal_0": model.proposal_networks[0],
              "proposal_1": model.proposal_networks[1],
              "main_field": model.field, "chunk": model}
+    if hasattr(model.field, "hash"):
+        parts["hash_encoding"] = model.field.hash
     events = {k: [] for k in parts}
     handles = []
     for k, mod in parts.items():
@@ -730,6 +778,186 @@ def chunk_breakdown(torch, pipe, arrays, H, W):
     return ms, len(events["chunk"])
 
 
+def hash_bound_ms(spec, n: int, distinct: int, backward: bool,
+                  need_dx: bool = True) -> tuple:
+    """The least time of the hash encoding on n rows: the bytes of x, of
+    the output (forward) or of the cotangent, the whole dense table
+    gradient and dx (backward), and of each distinct table row touched,
+    once each, over 3.35 TB/s; against its float32 operations (per row and
+    level: pos, floor and frac, then per corner the weight products and F
+    FMAs; the backward's atomic adds, dot product and weight derivatives)
+    over 67 TFLOP/s."""
+    L, F = spec.num_levels, spec.features_per_level
+    n_rows = distinct * 4 * F
+    if backward:
+        nbytes = (n * 12 + n * L * F * 4 + L * spec.table_size * F * 4
+                  + (n_rows + n * 12 if need_dx else 0))
+        flops = n * L * (9 + 8 * (2 + F + (2 * F + 8 if need_dx else 0)))
+    else:
+        nbytes = n * 12 + n * L * F * 4 + n_rows
+        flops = n * L * (9 + 8 * (2 + 2 * F))
+    t_ops, t_bytes = flops / H100_F32, nbytes / H100_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def hash_check(torch, dev, name, spec, n, seed, need_dx=True):
+    """Phase 12 at one shape: the forward and backward kernels against the
+    plain version and its autograd (index_add_ into the table) on the same
+    inputs: a uniform(-1, 1) table, x in [-0.1, 1.1]^3 with 256 rows at
+    exactly 0 and 256 at exactly 1, a normal cotangent. Forward to
+    HASH_FWD_TOL of the peak; the table gradient and dx (on rows clear of
+    the clip bounds) to HASH_BWD_TOL. Then each timed beside the plain
+    version (plain, kernel, kernel, plain; the backward as the path runs
+    it, without dx at the bake)."""
+    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
+    from neraf_tpu_torch.ops.hashgrid import (
+        clip_unit,
+        hash_corners,
+        hash_encoding_plain,
+    )
+
+    L, T, F = spec.num_levels, spec.table_size, spec.features_per_level
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.rand((L, T, F), generator=gen, device=dev) * 2.0 - 1.0
+    x = torch.rand((n, 3), generator=gen, device=dev) * 1.2 - 0.1
+    x[:256], x[256:512] = 0.0, 1.0
+    g = torch.randn((n, spec.out_dim), generator=gen, device=dev)
+    tp, xp = table.clone().requires_grad_(), x.clone().requires_grad_()
+    ref = hash_encoding_plain(tp, xp, spec)
+    ref_dt, ref_dx = torch.autograd.grad(ref, [tp, xp], g, retain_graph=True)
+    out = hash_cuda._forward(table, x, spec)
+    d_table, dx = hash_cuda.hash_encoding_bwd_cuda(table, x, g, spec)
+    torch.cuda.synchronize()
+    clear = ((x > 0.0) & (x < 1.0)).all(dim=1)
+    peak = lambda t: float(t.abs().max())
+    err = {"forward": float((out - ref.detach()).abs().max()),
+           "d_table": float((d_table - ref_dt).abs().max()),
+           "dx": float((dx - ref_dx)[clear].abs().max()),
+           "dx_all_rows": float((dx - ref_dx).abs().max())}
+    rel = {"forward": err["forward"] / peak(ref.detach()),
+           "d_table": err["d_table"] / peak(ref_dt),
+           "dx": err["dx"] / peak(ref_dx[clear]),
+           "dx_all_rows": err["dx_all_rows"] / peak(ref_dx)}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, d_table, dx))
+    ok = finite and rel["forward"] <= HASH_FWD_TOL and max(
+        rel["d_table"], rel["dx"]) <= HASH_BWD_TOL
+    rows, _ = hash_corners(clip_unit(x), spec)
+    mark = torch.zeros(L * T, dtype=torch.bool, device=dev)
+    mark[rows.reshape(-1)] = True
+    distinct = int(mark.sum())
+    del rows, mark, out, d_table, dx, ref_dt, ref_dx
+    reps = 5
+    with torch.no_grad():
+        p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
+            lambda: hash_encoding_plain(table, x, spec),
+            lambda: hash_cuda._forward(table, x, spec),
+            lambda: hash_cuda._forward(table, x, spec),
+            lambda: hash_encoding_plain(table, x, spec)))
+    ins = [tp, xp] if need_dx else [tp]
+    run_p = lambda: torch.autograd.grad(ref, ins, g, retain_graph=True)
+    run_k = lambda: hash_cuda.hash_encoding_bwd_cuda(table, x, g, spec,
+                                                     need_dx=need_dx)
+    run_k()
+    q1, b1, b2, q2 = (cuda_ms(torch, f, reps) for f in (run_p, run_k, run_k,
+                                                         run_p))
+    fwd_bound, fwd_by = hash_bound_ms(spec, n, distinct, False)
+    bwd_bound, bwd_by = hash_bound_ms(spec, n, distinct, True, need_dx)
+    row = {"rows": n, "levels": L, "features": F, "distinct_table_rows": distinct,
+           "max_abs_err": err, "rel_err": rel,
+           "fwd_ms": (k1 + k2) / 2, "fwd_plain_ms": (p1 + p2) / 2,
+           "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+           "bwd_ms": (b1 + b2) / 2, "bwd_plain_ms": (q1 + q2) / 2,
+           "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+           "bwd_need_dx": need_dx}
+    print(f"hash {name} L{L} x F{F}, {n} rows ({distinct} distinct table "
+          f"rows): forward max_abs_err {err['forward']:.3e} rel "
+          f"{rel['forward']:.3e} (tol {HASH_FWD_TOL}); d_table "
+          f"{err['d_table']:.3e} rel {rel['d_table']:.3e}, dx on the "
+          f"{int(clear.sum())} rows clear of the bounds {err['dx']:.3e} rel "
+          f"{rel['dx']:.3e} (tol {HASH_BWD_TOL}; all rows rel "
+          f"{rel['dx_all_rows']:.3e}); forward kernel {row['fwd_ms']:.3f} ms "
+          f"[{k1:.3f}, {k2:.3f}] plain {row['fwd_plain_ms']:.3f} ms [{p1:.3f},"
+          f" {p2:.3f}] bound {fwd_bound:.4f} ms ({fwd_by}); backward"
+          f"{'' if need_dx else ' without dx'} kernel {row['bwd_ms']:.3f} ms "
+          f"[{b1:.3f}, {b2:.3f}] plain {row['bwd_plain_ms']:.3f} ms "
+          f"[{q1:.3f}, {q2:.3f}] bound {bwd_bound:.4f} ms ({bwd_by})",
+          flush=True)
+    if not ok:
+        fail(f"hash kernels disagree with plain at {name} L{L} F{F}: {rel}")
+    del ref, tp, xp, table, x, g
+    torch.cuda.empty_cache()
+    return row
+
+
+def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
+    """Phases 7 and 13: view 0 through render_image three times (the first
+    pays the cold start) and view 1 once, then evaluate_vision over both
+    views against those renders plus noise, with every kernel's launch
+    count set to 0 just before and read just after. Fails on shapes, rgb
+    outside [0, 1], renders of one view that differ, or a PSNR below
+    EVAL_MIN_PSNR."""
+    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
+    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
+    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = hash_cuda.FWD_LAUNCHES = 0
+    hash_cuda.BWD_LAUNCHES = 0
+    renders, img_times = [], []
+    for cam in (0, 0, 0, 1):
+        t0 = time.perf_counter()
+        out = vpipe.render_image(arrays, cam, H, W)
+        torch.cuda.synchronize()
+        img_times.append(time.perf_counter() - t0)
+        check_image(torch, out, H, W, f"{what} render_image view {cam}")
+        renders.append(out)
+    noise = np.random.default_rng(3).normal(0.0, EVAL_NOISE, (2, H, W, 3))
+    gt = np.clip(np.stack([renders[0]["rgb"].cpu().numpy(),
+                           renders[3]["rgb"].cpu().numpy()]) + noise,
+                 0.0, 1.0).astype(np.float32)
+    ev = vpipe.evaluate_vision(arrays, gt)
+    launches = {"pe_mlp": pe_cuda.LAUNCHES, "hash_fwd": hash_cuda.FWD_LAUNCHES,
+                "hash_bwd": hash_cuda.BWD_LAUNCHES, "gl": gl_cuda.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    for cam, dt in zip((0, 0, 0, 1), img_times):
+        print(f"{what} render_image view {cam}: {dt * 1e3:.2f} ms, "
+              f"{H * W / dt:.1f} rays/s")
+    print(f"{what} evaluate_vision (2 views): {json.dumps(ev)}")
+    print(f"{what}: launches {launches} for {len(renders) + 2} images, peak "
+          f"memory {peak / 2**30:.3f} GiB", flush=True)
+    if not (np.isfinite(ev["psnr"]) and ev["psnr"] >= EVAL_MIN_PSNR
+            and 0.0 < ev["ssim"] <= 1.0 and ev["lpips"] is None):
+        fail(f"{what} evaluate_vision against the renders plus noise: {ev}")
+    repeat_err = max(float((a["rgb"] - renders[0]["rgb"]).abs().max())
+                     for a in renders[1:3])
+    print(f"{what}: view 0 rendered three times, rgb max_abs_err between "
+          f"renders {repeat_err:.3e}")
+    if not repeat_err <= 1e-6:
+        fail(f"{what} render_image of one view differs between calls: "
+             f"{repeat_err}")
+    return {"launches": launches, "n_images": len(renders) + 2,
+            "ms": img_times, "peak_gib": peak / 2**30, "eval": ev}
+
+
+def table_costs(torch, table) -> dict:
+    """What the hash table costs a step outside the kernels, timed alone
+    (CUDA events): allocating and zeroing its dense gradient, and one fused
+    Adam update of it (each of the two groups that hold it updates all of
+    it)."""
+    zero = cuda_ms(torch, lambda: torch.zeros_like(table), 10)
+    p = table.detach().clone().requires_grad_()
+    p.grad = torch.randn_like(p)
+    opt = torch.optim.Adam([p], lr=1e-3, eps=1e-15, fused=True)
+    opt.step()
+    adam = cuda_ms(torch, opt.step, 10)
+    print(f"hash table {tuple(table.shape)} ({table.numel() * 4 / 2**20:.0f} "
+          f"MiB), alone (ms, CUDA events): zeroed gradient {zero:.3f}, one "
+          f"fused Adam update {adam:.3f} (two a step)", flush=True)
+    return {"zero_grad_ms": zero, "adam_ms": adam}
+
+
 def main() -> int:
     import torch
 
@@ -748,6 +976,7 @@ def main() -> int:
         build_joint_pipeline,
         build_render_pipeline,
         build_vision_pipeline,
+        joint_config,
     )
     from neraf_tpu_torch.ops.cuda import build
     from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
@@ -921,50 +1150,18 @@ def main() -> int:
           f"{vcfg.num_proposal_samples} -> {vcfg.num_nerf_samples}, "
           f"{vmodel.field.dtype}), {H} x {W} view, fx {float(cams.fx[0])}, "
           f"{n_chunks} chunks of {chunk} rays", flush=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = 0
-    renders, img_times = [], []
-    for cam in (0, 0, 0, 1):
-        t0 = time.perf_counter()
-        out = vpipe.render_image(arrays, cam, H, W)
-        torch.cuda.synchronize()
-        img_times.append(time.perf_counter() - t0)
-        check_image(torch, out, H, W, f"render_image view {cam}")
-        renders.append(out)
-    noise = np.random.default_rng(3).normal(0.0, EVAL_NOISE, (2, H, W, 3))
-    gt = np.clip(np.stack([renders[0]["rgb"].cpu().numpy(),
-                           renders[3]["rgb"].cpu().numpy()]) + noise,
-                 0.0, 1.0).astype(np.float32)
-    ev = vpipe.evaluate_vision(arrays, gt)
-    vis_launches, vis_gl_launches = pe_cuda.LAUNCHES, gl_cuda.LAUNCHES
-    vis_peak = torch.cuda.max_memory_allocated()
-    n_images = len(renders) + 2
-    for cam, dt in zip((0, 0, 0, 1), img_times):
-        print(f"vision render_image view {cam}: {dt * 1e3:.2f} ms, "
-              f"{H * W / dt:.1f} rays/s")
-    print(f"vision evaluate_vision (2 views): {json.dumps(ev)}")
-    print(f"vision: pe_mlp launches {vis_launches} for {n_images} images of "
-          f"{n_chunks} chunks, GL launches {vis_gl_launches}, peak memory "
-          f"{vis_peak / 2**30:.3f} GiB", flush=True)
-    if vis_launches != 3 * n_chunks * n_images or vis_gl_launches != 0:
-        fail(f"vision path: pe_mlp launched {vis_launches} times, expected "
-             f"{3 * n_chunks * n_images}; GL {vis_gl_launches} times")
-    if not (np.isfinite(ev["psnr"]) and ev["psnr"] >= EVAL_MIN_PSNR
-            and 0.0 < ev["ssim"] <= 1.0 and ev["lpips"] is None):
-        fail(f"evaluate_vision against the renders plus noise: {ev}")
-    repeat_err = max(float((a["rgb"] - renders[0]["rgb"]).abs().max())
-                     for a in renders[1:3])
-    print(f"vision: view 0 rendered three times, rgb max_abs_err between "
-          f"renders {repeat_err:.3e}")
-    if not repeat_err <= 1e-6:
-        fail(f"render_image of one view differs between calls: {repeat_err}")
+    vis = render_phase(torch, vpipe, arrays, H, W, "vision")
+    vis_launches = vis["launches"]["pe_mlp"]
+    if vis_launches != 3 * n_chunks * vis["n_images"] or any(
+            vis["launches"][k] for k in ("gl", "hash_fwd", "hash_bwd")):
+        fail(f"vision path: launches {vis['launches']}, expected pe_mlp "
+             f"{3 * n_chunks * vis['n_images']} and no other")
     parts, n_timed = chunk_breakdown(torch, vpipe, arrays, H, W)
     print(f"vision breakdown, mean of {n_timed} chunks (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    del vpipe, vmodel, renders
+    del vpipe, vmodel
     torch.cuda.empty_cache()
 
     # phase 8: tiny vision slice, f32 without TF32, card against CPU
@@ -1016,7 +1213,7 @@ def main() -> int:
           f"w_field {jpipe.audio_model.config.w_field}, {R} rays, "
           f"{tcfg.audio_data.batch_size} STFT slices, {bake} cells a step, "
           f"mixed precision {jpipe.mixed})", flush=True)
-    joint = joint_step_phase(torch, jpipe)
+    joint = joint_step_phase(torch, jpipe, {"pe_fwd": 4, "pe_bwd": 4})
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     del jpipe, jv, props
@@ -1025,12 +1222,89 @@ def main() -> int:
     # phase 11: the tiny joint step, f32, card against CPU
     tiny_joint_card_vs_cpu(torch)
 
+    # phase 12: the hash-encoding kernels against the plain version, at the
+    # full-width grid and the shapes the main path gives them
+    hvpipe = build_vision_pipeline(tiny=False, device=dev, seed=0,
+                                   encoding="hash")
+    hmodel = hvpipe.vision_model
+    hcfg = hmodel.config
+    spec = hmodel.field.hash.spec
+    hash_rows = {
+        "train_main": hash_check(torch, dev, "train_main", spec,
+                                 R * hcfg.num_nerf_samples, 8),
+        "bake": hash_check(torch, dev, "bake", spec,
+                           bwd_rows["grid_bake"]["rows"], 9, need_dx=False),
+        "render": hash_check(torch, dev, "render", spec,
+                             chunk * hcfg.num_nerf_samples, 10),
+        "train_main_tcnn_L16xF2": hash_check(
+            torch, dev, "train_main", dataclasses.replace(
+                spec, num_levels=16, features_per_level=2),
+            R * hcfg.num_nerf_samples, 11),
+    }
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # phase 13: the full-width hash render through render_image and
+    # evaluate_vision
+    print(f"hash vision: full-width model (hash L{spec.num_levels} x "
+          f"F{spec.features_per_level}, 2^{spec.log2_hashmap_size} rows a "
+          f"level, resolutions {spec.resolutions().tolist()}, base MLP 2 x "
+          f"{hcfg.hidden_dim}, proposals fourier, samples "
+          f"{hcfg.num_proposal_samples} -> {hcfg.num_nerf_samples}, "
+          f"{hmodel.field.dtype}), {H} x {W} view, {n_chunks} chunks of "
+          f"{chunk} rays", flush=True)
+    hvis = render_phase(torch, hvpipe, arrays, H, W, "hash vision")
+    n_img = hvis["n_images"]
+    want = {"pe_mlp": 2 * n_chunks * n_img, "hash_fwd": n_chunks * n_img,
+            "hash_bwd": 0, "gl": 0}
+    if hvis["launches"] != want:
+        fail(f"hash vision path: launches {hvis['launches']}, expected {want}")
+    parts, n_timed = chunk_breakdown(torch, hvpipe, arrays, H, W)
+    print(f"hash vision breakdown, mean of {n_timed} chunks (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    del hvpipe, hmodel
+    torch.cuda.empty_cache()
+
+    # phase 14: the full-width hash joint step
+    hjpipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev,
+                                  seed=0, encoding="hash")
+    table = hjpipe.vision_model.field.hash.table
+    table0 = table.detach().clone()
+    print(f"hash joint: full-width pipeline (main field on the hash grid, "
+          f"table {tuple(table.shape)}; {R} rays, {bake} cells a step)",
+          flush=True)
+    hjoint = joint_step_phase(
+        torch, hjpipe, {"pe_fwd": 2, "pe_bwd": 2, "hash_fwd": 2, "hash_bwd": 2},
+        what="hash joint step", stem=False)
+    moved = int((table.detach() != table0).any(dim=-1).sum())
+    print(f"hash joint: {moved} of {table.shape[0] * table.shape[1]} table "
+          f"rows changed over the run", flush=True)
+    if moved == 0:
+        fail("hash joint step: the table did not change")
+    costs = table_costs(torch, table)
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del hjpipe, table, table0
+    torch.cuda.empty_cache()
+
+    # phase 15: the tiny hash joint step, f32, card against CPU, F 2 and 4
+    tiny_hash = joint_config(tiny=True, encoding="hash")
+    for F in (2, 4):
+        tiny_hash.vision_model = dataclasses.replace(
+            tiny_hash.vision_model, features_per_level=F)
+        worst = tiny_joint_card_vs_cpu(torch, f"tiny hash joint F{F}",
+                                       config=tiny_hash)
+        print(f"tiny hash joint F{F}: table gradient "
+              f"{worst['field.hash.table']:.3e} of its peak", flush=True)
+
     err, err32, ms_k, ms_p = gl_rows[("soundspaces", 1024)]
     gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
     main_bf16 = pe_rows["main_field"]["bf16"]
     fwd_bound, fwd_by = pe_fwd_bound_ms(
         (63, 256, 4, 16), 10, pe_rows["main_field"]["rows"])
     bwd_main = bwd_rows["main_field"]["bf16"]
+    h_r, h_t = hash_rows["render"], hash_rows["train_main"]
+    kern = joint["kernels"]
     print(json.dumps({"kernels": [{
         "name": "griffin_lim", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/griffin_lim.cu",
@@ -1044,22 +1318,49 @@ def main() -> int:
         "launches": vis_launches, "max_abs_err": main_bf16["max_abs_err"],
         "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],
         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
-        "train_step_launches": joint["fwd"], "shapes": pe_rows,
+        "train_step_launches": joint["pe_fwd"], "shapes": pe_rows,
+        "hash_render_launches": hvis["launches"]["pe_mlp"],
+        "hash_train_step_launches": hjoint["pe_fwd"],
         "train_step_device_kernels": {"pe_mlp_bf16_kernel":
-                                      joint["pe_kernels"]["pe_mlp_bf16_kernel"]}}, {
+                                      kern["pe_mlp_bf16_kernel"]}}, {
         "name": "pe_mlp_bwd", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/pe_mlp_bwd.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:298",
-        "launches": joint["bwd"], "max_abs_err": bwd_main["max_abs_err"],
+        "launches": joint["pe_bwd"], "max_abs_err": bwd_main["max_abs_err"],
         "rel_l2_vs_plain": bwd_rows["main_field"]["rel_l2_vs_plain"],
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": "operations",
         "library_ms": None, "shapes": bwd_rows,
+        "hash_train_step_launches": hjoint["pe_bwd"],
         # "launches" counts wrapper calls; each launches the row-tile kernel,
         # one dW kernel per layer and the reduction, a step's counts here
         "train_step_device_kernels": {
-            k: v for k, v in joint["pe_kernels"].items()
-            if k != "pe_mlp_bf16_kernel"}}]}))
+            k: kern[k] for k in ("pe_mlp_bwd_bf16_kernel", "pe_mlp_dw_kernel",
+                                 "pe_mlp_reduce_kernel")}}, {
+        "name": "hash_encoding_fwd", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/hash_encoding.cu",
+        "replaces": "neraf_tpu/ops/pallas/hash_gather_attempt.py:41",
+        "launches": hvis["launches"]["hash_fwd"],
+        "max_abs_err": h_r["max_abs_err"]["forward"], "ms": h_r["fwd_ms"],
+        "plain_ms": h_r["fwd_plain_ms"], "bound_ms": h_r["fwd_bound_ms"],
+        "bound_by": h_r["fwd_bound_by"], "library_ms": None,
+        "train_step_launches": hjoint["hash_fwd"], "shapes": hash_rows,
+        "train_step_device_kernels": {
+            "hash_encoding_fwd_kernel":
+                hjoint["kernels"]["hash_encoding_fwd_kernel"]}}, {
+        "name": "hash_encoding_bwd", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/hash_encoding.cu",
+        "replaces": "neraf_tpu/ops/pallas/hash_gather_attempt.py:41",
+        "launches": hjoint["hash_bwd"],
+        "max_abs_err": h_t["max_abs_err"]["d_table"],
+        "max_abs_err_dx": h_t["max_abs_err"]["dx"], "ms": h_t["bwd_ms"],
+        "plain_ms": h_t["bwd_plain_ms"], "bound_ms": h_t["bwd_bound_ms"],
+        "bound_by": h_t["bwd_bound_by"], "library_ms": None,
+        "table_costs": costs,
+        "train_step_device_kernels": {
+            k: hjoint["kernels"][k] for k in (
+                "hash_encoding_bwd_kernel", "FillFunctor",
+                "FusedAdamMathFunctor")}}]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

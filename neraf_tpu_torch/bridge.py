@@ -13,7 +13,8 @@ Layouts:
 - Conv kernel DHWIO -> Conv3d weight OIDHW;
 - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var;
-- Embed embedding (num_cameras, dim) -> Embedding weight as is.
+- Embed embedding (num_cameras, dim) -> Embedding weight as is;
+- the hash grid's table (L, T, F) -> HashTable table as is.
 
 Every flax leaf must map to a torch key and every torch parameter or running
 statistic must be filled; anything else raises KeyError.
@@ -34,15 +35,15 @@ _SCOPE = [
     (re.compile(r"^(conv\d|bn\d|down_conv|down_bn)$"), r"\1"),
 ]
 # vision fields: proposal Dense_i, main field base_i / base_out / head_i /
-# head_out / appearance
+# head_out / appearance / hash
 _VISION_SCOPE = [
     (re.compile(r"^Dense_(\d+)$"), r"mlp.\1"),
     (re.compile(r"^base_(\d+)$"), r"mlp_base.\1"),
     (re.compile(r"^head_(\d+)$"), r"mlp_head.\1"),
-    (re.compile(r"^(base_out|head_out|appearance)$"), r"\1"),
+    (re.compile(r"^(base_out|head_out|appearance|hash)$"), r"\1"),
 ]
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-         "var": "running_var", "embedding": "weight"}
+         "var": "running_var", "embedding": "weight", "table": "table"}
 
 
 def _leaves(tree, path=()):

@@ -75,8 +75,10 @@ class AudioModelConfig:
 
 @dataclass
 class VisionModelConfig:
-    """Nerfacto-class radiance model. The port runs the "fourier" encoding
-    only; the hash-grid fields are kept so configurations compare equal."""
+    """Nerfacto-class radiance model. The main field's encoding is
+    "fourier" or "hash" (the multiresolution hash grid, ported with its CUDA
+    kernels); the proposal fields are fourier only. hash_grad_mode is kept
+    so configurations compare equal and has no effect in the port."""
 
     encoding: str = "fourier"  # "fourier" | "hash"
     num_frequencies: int = 10

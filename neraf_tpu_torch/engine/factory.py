@@ -11,12 +11,20 @@ The vision model, with 8 cameras, near 0.05 and far 1000 as there:
   (256, 96) -> 48);
 - tiny: F 4, base 2 x 32, geo 7, head 16, appearance 4, samples
   (16, 12) -> 8 (the proposals keep their fixed F 6 at 2 x 128).
+encoding="hash" puts the main field on the hash grid, as the JAX CLI's
+`--set vision_model.encoding=hash` does: at full width the JAX defaults (8
+levels x 4 features, 2^19 rows a level, resolutions 16-2048, base MLP 2 x
+64); tiny: 4 levels x 2 features, 2^10 rows, resolutions 4-32 (two dense
+levels, two hashed), base MLP 2 x 16. The proposals stay fourier.
 The joint train step trains both: full as __graft_entry__ and bench.py
 (4096 rays, 2048 STFT slices and 4096 grid cells a step, audio from step
 2001); tiny with 64 rays, 32 slices and 256 cells a step, audio from step 2.
 """
 
 from __future__ import annotations
+
+import copy
+import dataclasses
 
 import torch
 
@@ -45,13 +53,21 @@ VISION_AABB = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 NUM_CAMERAS, NEAR, FAR = 8, 0.05, 1000.0
 
 
-def vision_model_config(tiny: bool = False) -> VisionModelConfig:
-    if not tiny:
-        return VisionModelConfig()
-    return VisionModelConfig(
+def vision_model_config(tiny: bool = False,
+                        encoding: str = "fourier") -> VisionModelConfig:
+    cfg = VisionModelConfig() if not tiny else VisionModelConfig(
         num_frequencies=4, base_mlp_width=32, base_mlp_layers=2,
         geo_feat_dim=7, hidden_dim_color=16, appearance_embed_dim=4,
         num_nerf_samples=8, num_proposal_samples=(16, 12))
+    if encoding == "fourier":
+        return cfg
+    if encoding != "hash":
+        raise ValueError(f"encoding={encoding!r}: 'fourier' or 'hash'")
+    if not tiny:
+        return dataclasses.replace(cfg, encoding="hash")
+    return dataclasses.replace(
+        cfg, encoding="hash", num_levels=4, features_per_level=2,
+        log2_hashmap_size=10, base_res=4, max_res=32, hidden_dim=16)
 
 
 def audio_model_config(tiny: bool = False) -> AudioModelConfig:
@@ -64,10 +80,11 @@ def audio_model_config(tiny: bool = False) -> AudioModelConfig:
         n_features=1024, resnet_backbone="resnet50").resolve()
 
 
-def joint_config(tiny: bool = False) -> ExperimentConfig:
+def joint_config(tiny: bool = False,
+                 encoding: str = "fourier") -> ExperimentConfig:
     """The joint step's configuration (module docstring)."""
     cfg = ExperimentConfig(dataset="SoundSpaces")
-    cfg.vision_model = vision_model_config(tiny)
+    cfg.vision_model = vision_model_config(tiny, encoding)
     cfg.audio_model = audio_model_config(tiny)
     if tiny:
         cfg.vision_data.train_rays_per_batch = 64
@@ -106,13 +123,14 @@ def build_render_pipeline(grid_res: int = 128, tiny: bool = False,
 
 def build_vision_pipeline(tiny: bool = False, device="cuda", seed: int = 0,
                           mixed_precision: bool | None = None,
-                          params: dict | None = None) -> VisionPipeline:
+                          params: dict | None = None,
+                          encoding: str = "fourier") -> VisionPipeline:
     """A VisionPipeline with weights from `seed` (flax's initialisers from a
     CPU torch.Generator), or bridged from a JAX train state's `params`
     (proposal_networks and fields). mixed_precision None keeps the config's
-    default (bf16)."""
+    default (bf16); encoding is the main field's, "fourier" or "hash"."""
     cfg = ExperimentConfig(dataset="SoundSpaces")
-    cfg.vision_model = vision_model_config(tiny)
+    cfg.vision_model = vision_model_config(tiny, encoding)
     if mixed_precision is not None:
         cfg.trainer.mixed_precision = mixed_precision
     dtype = torch.bfloat16 if cfg.trainer.mixed_precision else torch.float32
@@ -128,13 +146,16 @@ def build_vision_pipeline(tiny: bool = False, device="cuda", seed: int = 0,
 def build_joint_pipeline(grid_res: int = 128, tiny: bool = False,
                          device="cuda", seed: int = 0,
                          mixed_precision: bool | None = None,
-                         state=None) -> JointPipeline:
+                         state=None, encoding: str = "fourier",
+                         config: ExperimentConfig | None = None) -> JointPipeline:
     """A JointPipeline with weights from `seed` (flax's initialisers from a
     CPU torch.Generator, zero camera corrections, an empty grid at cursor
     and step 0), or from a JAX JointTrainState's arrays: params (all four
     groups), batch_stats, grid, cursor and step (the Adam states start
-    fresh). mixed_precision None keeps the config's default (bf16)."""
-    cfg = joint_config(tiny)
+    fresh). mixed_precision None keeps the config's default (bf16);
+    encoding is the main field's, "fourier" or "hash". `config` replaces
+    joint_config(tiny, encoding) (a configuration with overrides applied)."""
+    cfg = joint_config(tiny, encoding) if config is None else copy.deepcopy(config)
     if mixed_precision is not None:
         cfg.trainer.mixed_precision = mixed_precision
     dtype = torch.bfloat16 if cfg.trainer.mixed_precision else torch.float32

@@ -1,16 +1,19 @@
-"""Nerfacto radiance field and proposal density fields, fourier encoding
-(counterpart of neraf_tpu/fields/nerfacto.py):
+"""Nerfacto radiance field and proposal density fields (counterpart of
+neraf_tpu/fields/nerfacto.py):
 
-  positions --contract--> [0,1]^3 --fourier PE + base MLP (pe_mlp)-->
+  positions --contract--> [0,1]^3 --encoding + base MLP-->
       (density_before_activation, geo_feat)
   density = average_init_density * trunc_exp(density_before_activation)
   rgb = sigmoid(head MLP(SH4(dir), geo_feat, appearance embedding))
 
-The base MLPs of both fields run through ops/pe_mlp.py::pe_mlp, so on a
-card every one is the fused CUDA kernel, on both contraction modes (the JAX
-package keeps its Pallas kernel off the contract=False bake path for a TPU
-layout reason). Parameters are kept in float32 and each layer computes in
-the field's dtype, as flax's Dense does. The hash encoding is not ported.
+The main field's encoding is "fourier" (fourier PE + a deep base MLP, fused
+in ops/pe_mlp.py::pe_mlp) or "hash" (the multiresolution hash grid,
+ops/hashgrid.py::hash_encoding, then a 2 x hidden_dim ReLU chain of `dense`
+layers, as the JAX field runs it with XLA). The proposal fields are fourier
+only. On a card pe_mlp and hash_encoding are the CUDA kernels, on both
+contraction modes (the JAX package keeps its Pallas kernel off the
+contract=False bake path for a TPU layout reason). Parameters are kept in
+float32 and each layer computes in the field's dtype, as flax's Dense does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from neraf_tpu_torch.configs.config import VisionModelConfig
 from neraf_tpu_torch.fields.acoustic import lecun_normal_
 from neraf_tpu_torch.ops.contraction import contract_to_unit
 from neraf_tpu_torch.ops.encodings import SH_DIM, sh_encoding
+from neraf_tpu_torch.ops.hashgrid import HashGridSpec, hash_encoding, init_hash_table
 from neraf_tpu_torch.ops.pe_mlp import dense, pe_mlp
 
 
@@ -60,21 +64,47 @@ def _pe_mlp_nd(x: torch.Tensor, layers, num_frequencies: int,
     return h.reshape(*x.shape[:-1], h.shape[-1])
 
 
+class HashTable(nn.Module):
+    """The hash grid's (L, T, F) float32 feature table as a parameter."""
+
+    def __init__(self, spec: HashGridSpec):
+        super().__init__()
+        self.spec = spec
+        self.table = nn.Parameter(init_hash_table(spec))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.table.copy_(init_hash_table(self.spec, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., 3) points in [0, 1] -> (..., L*F) float32."""
+        return hash_encoding(self.table, x, self.spec)
+
+
 class NerfactoField(nn.Module):
-    """Main radiance field (fourier encoding)."""
+    """Main radiance field, fourier or hash encoding."""
 
     def __init__(self, config: VisionModelConfig, num_cameras: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.encoding != "fourier":
-            raise NotImplementedError(
-                f"encoding={config.encoding!r}: only the fourier encoding is "
-                "ported")
         self.config = config
         self.dtype = dtype
-        width = config.base_mlp_width
-        in_dims = [6 * config.num_frequencies + 3] + [width] * (
-            config.base_mlp_layers - 1)
+        if config.encoding == "hash":
+            self.hash = HashTable(HashGridSpec(
+                num_levels=config.num_levels,
+                features_per_level=config.features_per_level,
+                log2_hashmap_size=config.log2_hashmap_size,
+                base_res=config.base_res, max_res=config.max_res,
+                grad_mode=config.hash_grad_mode))
+            width, layers = config.hidden_dim, 2
+            enc_dim = self.hash.spec.out_dim
+        elif config.encoding == "fourier":
+            width, layers = config.base_mlp_width, config.base_mlp_layers
+            enc_dim = 6 * config.num_frequencies + 3
+        else:
+            raise ValueError(f"encoding={config.encoding!r}: 'fourier' or "
+                             "'hash'")
+        in_dims = [enc_dim] + [width] * (layers - 1)
         self.mlp_base = nn.ModuleList(nn.Linear(d, width) for d in in_dims)
         self.base_out = nn.Linear(width, 1 + config.geo_feat_dim)
         head_in = SH_DIM + config.geo_feat_dim + config.appearance_embed_dim
@@ -85,13 +115,16 @@ class NerfactoField(nn.Module):
         self.appearance = nn.Embedding(num_cameras, config.appearance_embed_dim)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """flax's initialisers: lecun_normal Dense kernels, zero biases, and
-        nn.Embed's normal(0, 1/sqrt(features)) table."""
+        """flax's initialisers: lecun_normal Dense kernels, zero biases,
+        nn.Embed's normal(0, 1/sqrt(features)) table, and the hash table's
+        uniform(-1e-4, 1e-4)."""
         _reset_dense([*self.mlp_base, self.base_out, *self.mlp_head,
                       self.head_out], generator)
         nn.init.normal_(self.appearance.weight, 0.0,
                         1.0 / math.sqrt(self.appearance.embedding_dim),
                         generator=generator)
+        if self.config.encoding == "hash":
+            self.hash.reset_parameters(generator)
 
     def base_layers(self):
         return [(lin.weight, lin.bias) for lin in (*self.mlp_base, self.base_out)]
@@ -108,8 +141,14 @@ class NerfactoField(nn.Module):
         else:
             x = (positions + 1.0) / 2.0
             selector = torch.all((x > 0.0) & (x < 1.0), dim=-1)
-        h = _pe_mlp_nd(x, self.base_layers(), self.config.num_frequencies,
-                       self.dtype).to(self.dtype)
+        if self.config.encoding == "hash":
+            h = self.hash(x)
+            for lin in self.mlp_base:
+                h = torch.relu(dense(h, lin.weight, lin.bias, self.dtype))
+            h = dense(h, self.base_out.weight, self.base_out.bias, self.dtype)
+        else:
+            h = _pe_mlp_nd(x, self.base_layers(), self.config.num_frequencies,
+                           self.dtype).to(self.dtype)
         density = self.config.average_init_density * trunc_exp(
             h[..., :1].to(torch.float32))
         if selector is not None:

@@ -46,8 +46,10 @@ class VisionModel(nn.Module):
         super().__init__()
         if config.proposal_encoding != "fourier":
             raise NotImplementedError(
-                f"proposal_encoding={config.proposal_encoding!r}: only the "
-                "fourier encoding is ported")
+                f"proposal_encoding={config.proposal_encoding!r}: the "
+                "proposal fields are fourier only, as the JAX package's "
+                "hash proposal field raises AttributeError "
+                "('ProposalFieldSpec' has no 'hash_grad_mode')")
         self.config = config
         self.near, self.far = near, far
         self.field = NerfactoField(config, num_cameras, dtype)

@@ -97,6 +97,12 @@ def load() -> ctypes.CDLL:
     lib.neraf_pe_mlp_launch.restype = ci
     lib.neraf_pe_mlp_bwd_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
     lib.neraf_pe_mlp_bwd_launch.restype = ci
+    ip = ctypes.POINTER(ci)
+    lib.neraf_hash_encoding_launch.argtypes = [vp] * 3 + [ci] * 4 + [ip] * 2 + [vp]
+    lib.neraf_hash_encoding_launch.restype = ci
+    lib.neraf_hash_encoding_bwd_launch.argtypes = (
+        [vp] * 5 + [ci] * 4 + [ip] * 2 + [vp])
+    lib.neraf_hash_encoding_bwd_launch.restype = ci
     lib.neraf_cuda_error_string.argtypes = [ci]
     lib.neraf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -85,6 +85,8 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                     bad.append(f"{f.relative_to(REPO)}: {name}")
     assert not bad, bad
     assert len(files) > 30
+    names = {str(f.relative_to(REPO / "neraf_tpu_torch")) for f in files[:-1]}
+    assert {"ops/hashgrid.py", "ops/cuda/hash_encoding.py"} <= names
     for fn in (factory.build_render_pipeline, factory.build_vision_pipeline,
                factory.build_joint_pipeline, pipeline.RenderPipeline,
                pipeline.VisionPipeline, pipeline.JointPipeline,

@@ -6,8 +6,10 @@ random draws: the port is handed the draws that _train_step_impl makes from
 state.rng (pipeline.py:287-299, vision.py:121, samplers.py:50,97,
 vision_data.py:236-239, loader.py:31-33). Three steps with
 start_step_audio=1 cover the masked audio phase (steps 0, 1) and the live
-one (step 2). f32 on the CPU, tiny fourier vision, resnet18, w_field 32,
-T 12, 64 rays, 32 STFT slices and 256 grid cells a step.
+one (step 2). f32 on the CPU, tiny vision with the main field on each
+encoding (fourier; hash: 4 levels x 2 features, 2^10 rows, resolutions
+4-32, so the fresh cells' gradient also reaches the table), resnet18,
+w_field 32, T 12, 64 rays, 32 STFT slices and 256 grid cells a step.
 
 The grid is 32^3, not 16^3: at 16^3 resnet18's layer3 sees a 1^3 volume,
 which batch-1 BatchNorm normalises to its bias, so no gradient reaches the
@@ -85,9 +87,9 @@ def _recording(inner):
     return optax.GradientTransformation(init, update)
 
 
-def _jax_config():
+def _jax_config(encoding):
     cfg = ExperimentConfig(dataset="SoundSpaces")
-    cfg.vision_model = vision_model_config(tiny=True)
+    cfg.vision_model = vision_model_config(tiny=True, encoding=encoding)
     cfg.audio_model = AudioModelConfig(
         dataset="SoundSpaces", max_len=12, n_freq_stft=257, w_field=32,
         n_features=1024, resnet_backbone="resnet18").resolve()
@@ -153,9 +155,10 @@ def _bn_stats(port):
             if k.endswith(("running_mean", "running_var"))}
 
 
-@pytest.fixture(scope="module")
-def runs():
-    cfg = _jax_config()
+@pytest.fixture(scope="module", params=["fourier", "hash"])
+def runs(request):
+    encoding = request.param
+    cfg = _jax_config(encoding)
     feat_dim = JResNet3D(backbone="resnet18", n_features=1024).feature_dim
     jpipe = JJointPipeline(
         config=cfg,
@@ -170,7 +173,8 @@ def runs():
         setattr(jpipe, attr, _recording(getattr(jpipe, attr)))
     state = jpipe.init_state(seed=3)
     port = build_joint_pipeline(grid_res=GRID_RES, tiny=True, device="cpu",
-                                mixed_precision=False, state=state)
+                                mixed_precision=False, state=state,
+                                encoding=encoding)
 
     rng = np.random.default_rng(12)
     cams = synthetic_cameras(NUM_CAMERAS, H, W, seed=2)
