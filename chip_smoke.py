@@ -55,7 +55,23 @@ Phases, each fatal on failure:
      hash kernels' device time a step, and the table's zeroed gradient and
      its two Adam updates timed alone;
  15. the tiny hash joint step (4 levels, 2^10 rows, resolutions 4-32) card
-     against CPU as phase 11, at 2 and at 4 features a level.
+     against CPU as phase 11, at 2 and at 4 features a level;
+ 16. the stem weight-gradient kernel against stem_wgrad_plain in float64 on
+     the same inputs, bf16 and f32, at the step's shape (x 7 x 128^3, g 64
+     x 64^3), a small cube and a D != H != W volume, timed at each beside
+     the plain version and cuDNN's weight gradient;
+ 17. the full-width fourier joint step as phase 10 with
+     NERAF_STEM_WGRAD_PALLAS=1: exactly one stem-kernel launch a step (and
+     none in phases 10 and 14), its ms per step, device busy time and the
+     stem kernel's device time a step beside cuDNN's weight-gradient
+     kernels, against phase 10's run with the gate off in the same call;
+     then steps of a gate-off and the gate-on pipeline in turns;
+ 18. the tiny f32 joint step with the gate on, card against CPU, as phase
+     11 (the card's stem weight gradient from the f32 kernel, the CPU's
+     from the plain version);
+ 19. the shifted-slice concat kernel against torch.cat, bitwise, at (8, 19,
+     128) t 16, (8, 19, 256) t 16 and (1024, 79, 128) t 78, timed at the
+     last beside torch.cat.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -66,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -128,8 +145,14 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # dx 1e-5, on rows clear of the clip bounds (sums over corners and levels
 # in another order).
 HASH_FWD_TOL, HASH_BWD_TOL = 1e-6, 1e-5
+# Stem weight gradient, kernel against the plain version in float64 on the
+# same inputs, relative to the peak: the bf16 products are exact in f32, so
+# both types differ from float64 only by the kernel's f32 sums over up to
+# 262,144 products a slice and 66 slices (a wrong tap or axis is O(1)).
+STEM_REL_TOL = 1e-4
 H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12  # per second
 EVAL_NOISE, EVAL_MIN_PSNR = 0.02, 30.0  # evaluate_vision against render + noise
+GATE = "NERAF_STEM_WGRAD_PALLAS"
 
 
 def fail(msg: str) -> None:
@@ -447,15 +470,54 @@ def check_metrics(metrics, what):
         fail(f"{what}: metrics {metrics}")
 
 
-def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
-                     stem: bool = True):
-    """Phases 10 and 14: the full-width joint step on the bench.py inputs,
-    with every kernel's launch count set to 0 just before the run and read
-    just after; `per_step` is the launches a step expected of each counter
-    (pe_fwd, pe_bwd, hash_fwd, hash_bwd; GL none)."""
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
     from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
     from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
     from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
+    from neraf_tpu_torch.ops.cuda import shifted_concat as sc_cuda
+    from neraf_tpu_torch.ops.cuda import stem_wgrad as stem_cuda
+
+    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = pe_cuda.BWD_LAUNCHES = 0
+    hash_cuda.FWD_LAUNCHES = hash_cuda.BWD_LAUNCHES = 0
+    stem_cuda.LAUNCHES = sc_cuda.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
+    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
+    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
+    from neraf_tpu_torch.ops.cuda import shifted_concat as sc_cuda
+    from neraf_tpu_torch.ops.cuda import stem_wgrad as stem_cuda
+
+    return {"pe_fwd": pe_cuda.LAUNCHES, "pe_bwd": pe_cuda.BWD_LAUNCHES,
+            "hash_fwd": hash_cuda.FWD_LAUNCHES,
+            "hash_bwd": hash_cuda.BWD_LAUNCHES, "stem": stem_cuda.LAUNCHES,
+            "concat": sc_cuda.LAUNCHES, "gl": gl_cuda.LAUNCHES}
+
+
+class stem_gate:
+    """NERAF_STEM_WGRAD_PALLAS=1 while pipelines are built (they read it
+    once), then the environment as it was."""
+
+    def __enter__(self):
+        self.old = os.environ.get(GATE)
+        os.environ[GATE] = "1"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(GATE)
+        else:
+            os.environ[GATE] = self.old
+
+
+def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
+                     stem: bool = True):
+    """Phases 10, 14 and 17: the full-width joint step on the bench.py
+    inputs, with every kernel's launch count set to 0 just before the run
+    and read just after; `per_step` is the launches a step expected of each
+    counter (pe_fwd, pe_bwd, hash_fwd, hash_bwd, stem; the others none)."""
 
     cams, audio, images = bench_inputs(torch, pipe.device)
     pipe.step = 3000  # past start_step_audio: the audio branch is live
@@ -463,8 +525,7 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
     rays = pipe.config.vision_data.train_rays_per_batch
     n_settle, n_warm = 2, 10  # the caching allocator grows over the first steps
     torch.cuda.synchronize()
-    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = pe_cuda.BWD_LAUNCHES = 0
-    hash_cuda.FWD_LAUNCHES = hash_cuda.BWD_LAUNCHES = 0
+    reset_counts()
     times, metrics = [], []
     for i in range(1 + n_settle + n_warm):
         if i == 1:
@@ -485,16 +546,12 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
                 and int(changed[-1]) == cursor0 + bake - 1):
             fail(f"{what} {i}: the grid changed at {changed.numel()} "
                  f"cells, not the {bake} at cursor {cursor0}")
-    counts = {"pe_fwd": pe_cuda.LAUNCHES, "pe_bwd": pe_cuda.BWD_LAUNCHES,
-              "hash_fwd": hash_cuda.FWD_LAUNCHES,
-              "hash_bwd": hash_cuda.BWD_LAUNCHES}
-    gl = gl_cuda.LAUNCHES
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = 1 + n_settle + n_warm
     want = {k: per_step.get(k, 0) * steps for k in counts}
-    if counts != want or gl != 0:
-        fail(f"{what}: launches {counts} in {steps} steps, expected {want}; "
-             f"GL {gl} times")
+    if counts != want:
+        fail(f"{what}: launches {counts} in {steps} steps, expected {want}")
     if not metrics[-1]["audio_mag_loss"] > 0:
         fail(f"{what}: the audio branch is not live")
     warm = times[1 + n_settle:]
@@ -515,11 +572,11 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
     print(f"{what} breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}",
         flush=True)
-    kernels = profile_steps(torch, pipe, cams, audio, images, what)
-    if stem:
-        stem_timings(torch, pipe)
+    kernels, busy = profile_steps(torch, pipe, cams, audio, images, what)
     return {"ms_per_step": ms, "cold_ms": times[0] * 1e3, **counts,
-            "peak_gib": peak / 2**30, "parts": parts, "kernels": kernels}
+            "peak_gib": peak / 2**30, "parts": parts, "kernels": kernels,
+            "busy_ms_per_step": busy,
+            "stem_ms": stem_timings(torch, pipe) if stem else None}
 
 
 # the device kernels of the wrappers, by the name after "::": one PE+MLP
@@ -531,10 +588,15 @@ DEVICE_KERNELS = {"pe_mlp_bf16_kernel": "PE+MLP forward",
                   "pe_mlp_dw_kernel": "PE+MLP backward dW",
                   "pe_mlp_reduce_kernel": "PE+MLP backward reduction",
                   "hash_encoding_fwd_kernel": "hash forward",
-                  "hash_encoding_bwd_kernel": "hash backward"}
-# PyTorch's own kernels a step, by a part of their names
+                  "hash_encoding_bwd_kernel": "hash backward",
+                  "stem_pack_kernel": "stem wgrad channel pad",
+                  "stem_wgrad_bf16_kernel": "stem wgrad",
+                  "stem_reduce_kernel": "stem wgrad reduction"}
+# PyTorch's and cuDNN's own kernels a step, by a part of their names (not
+# counted again for a wrapper's kernel)
 LIBRARY_KERNELS = {"FillFunctor": "zero fills",
-                   "FusedAdamMathFunctor": "fused Adam"}
+                   "FusedAdamMathFunctor": "fused Adam",
+                   "wgrad": "cuDNN weight gradients"}
 
 
 def busy_ms(events) -> float:
@@ -574,7 +636,7 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
             continue
         keys = [k for k in DEVICE_KERNELS
                 if f"::{k}<" in e.name or f"::{k}(" in e.name]
-        keys += [k for k in LIBRARY_KERNELS if k in e.name]
+        keys = keys or [k for k in LIBRARY_KERNELS if k in e.name]
         for k in keys:
             found[k]["launches"] += 1
             found[k]["ms"] += (e.time_range.end - e.time_range.start) / 1e3
@@ -589,13 +651,14 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
               for k, v in found.items() if v["launches"]), flush=True)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=15, max_name_column_width=70))
-    return found
+    return found, busy / n
 
 
-def stem_timings(torch, pipe) -> None:
+def stem_timings(torch, pipe) -> dict:
     """The ResNet3D forward and forward + backward in train mode over the
-    grid alone, then its stem convolution's forward, input gradient and
-    weight gradient (CUDA events): what a slab-local stem VJP could save."""
+    grid alone (through the stem kernel when the pipeline's gate is on),
+    then cuDNN's stem convolution forward, input gradient and weight
+    gradient (CUDA events)."""
     import torch.nn.functional as F
 
     from neraf_tpu_torch.models.grid import grid_to_volume
@@ -630,10 +693,12 @@ def stem_timings(torch, pipe) -> None:
         cuda_ms(torch, f, 2)
         stem[k] = cuda_ms(torch, f, 10)
     print(f"{pipe.resnet.backbone} train mode over {vol.shape[-1]} x "
-          f"{pipe.grid_res}^3, bf16 (ms, CUDA events): " + ", ".join(
+          f"{pipe.grid_res}^3, bf16, stem kernel "
+          f"{pipe.resnet.stem_wgrad_kernel} (ms, CUDA events): " + ", ".join(
               f"{k} {v:.3f}" for k, v in res.items())
-          + "; stem conv k5/s2: " + ", ".join(
+          + "; cuDNN stem conv k5/s2: " + ", ".join(
               f"{k} {v:.3f}" for k, v in stem.items()), flush=True)
+    return {**{f"resnet {k}": v for k, v in res.items()}, **stem}
 
 
 def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
@@ -897,14 +962,9 @@ def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
     count set to 0 just before and read just after. Fails on shapes, rgb
     outside [0, 1], renders of one view that differ, or a PSNR below
     EVAL_MIN_PSNR."""
-    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
-    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
-    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = hash_cuda.FWD_LAUNCHES = 0
-    hash_cuda.BWD_LAUNCHES = 0
+    reset_counts()
     renders, img_times = [], []
     for cam in (0, 0, 0, 1):
         t0 = time.perf_counter()
@@ -918,8 +978,8 @@ def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
                            renders[3]["rgb"].cpu().numpy()]) + noise,
                  0.0, 1.0).astype(np.float32)
     ev = vpipe.evaluate_vision(arrays, gt)
-    launches = {"pe_mlp": pe_cuda.LAUNCHES, "hash_fwd": hash_cuda.FWD_LAUNCHES,
-                "hash_bwd": hash_cuda.BWD_LAUNCHES, "gl": gl_cuda.LAUNCHES}
+    launches = read_counts()
+    launches["pe_mlp"] = launches.pop("pe_fwd")
     peak = torch.cuda.max_memory_allocated()
     for cam, dt in zip((0, 0, 0, 1), img_times):
         print(f"{what} render_image view {cam}: {dt * 1e3:.2f} ms, "
@@ -939,6 +999,149 @@ def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
              f"{repeat_err}")
     return {"launches": launches, "n_images": len(renders) + 2,
             "ms": img_times, "peak_gib": peak / 2**30, "eval": ev}
+
+
+def stem_bound_ms(x, g) -> tuple:
+    """The least time of the stem weight gradient: its products (2 cout cin
+    125 per output voxel) at the peak rate of x's type, against the bytes
+    of x, g and the f32 dW."""
+    cin, cout = x.shape[-1], g.shape[1]
+    flops = 2.0 * cout * cin * 125 * g[0, 0].numel()
+    nbytes = (x.numel() + g.numel()) * x.element_size() + cout * cin * 125 * 4
+    rate = H100_BF16 if x.element_size() == 2 else H100_F32
+    t_ops, t_bytes = flops / rate, nbytes / H100_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def stem_check(torch, dev, name, shape, seed) -> dict:
+    """Phase 16 at one shape: the stem weight-gradient kernel against the
+    plain version in float64 on the same inputs (x (1, D, H, W, 7), g (1,
+    64, Do, Ho, Wo) in channels_last_3d, as the conv's output cotangent
+    arrives), bf16 and f32, to STEM_REL_TOL of the peak; then the kernel,
+    the plain version (float32 sums) and cuDNN's weight gradient of the same
+    conv on the same inputs timed (plain, kernel, kernel, plain, cuDNN)."""
+    from neraf_tpu_torch.ops.cuda.stem_wgrad import stem_wgrad_cuda
+    from neraf_tpu_torch.ops.stem_wgrad import stem_wgrad_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out_shape = tuple((n - 1) // 2 + 1 for n in shape)
+    x0 = torch.randn((1, *shape, 7), generator=gen, device=dev)
+    g0 = torch.randn((1, 64, *out_shape), generator=gen, device=dev)
+    row = {"shape": list(shape)}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = x0.to(dtype)
+        g = g0.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+        got = stem_wgrad_cuda(x, g)
+        ref = stem_wgrad_plain(x.double(), g.double())
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            fail(f"stem wgrad {name} {tag}: shape {tuple(got.shape)} or not "
+                 "finite")
+        err = float((got.double() - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        w = torch.zeros((64, 7, 5, 5, 5), dtype=dtype, device=dev)
+        xc = x.permute(0, 4, 1, 2, 3)
+        cudnn = lambda: torch.ops.aten.convolution_backward(
+            g, xc, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False, (0, 0, 0),
+            1, (False, True, False))
+        reps = 10
+        run_k = lambda: stem_wgrad_cuda(x, g)
+        run_p = lambda: stem_wgrad_plain(x, g)
+        for f in (run_k, run_p, cudnn):
+            f()
+        p1, k1, k2, p2, c1 = (cuda_ms(torch, f, reps) for f in (
+            run_p, run_k, run_k, run_p, cudnn))
+        bound, by = stem_bound_ms(x, g)
+        ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+        print(f"stem wgrad {name} x {tuple(x.shape)} g {tuple(g.shape)} {tag}: "
+              f"max_abs_err {err:.3e}, rel {rel:.3e} vs float64 (tol "
+              f"{STEM_REL_TOL}); kernel {ms_k:.4f} ms [{k1:.4f}, {k2:.4f}] "
+              f"plain {ms_p:.3f} ms [{p1:.3f}, {p2:.3f}] cuDNN wgrad "
+              f"{c1:.4f} ms; bound {bound:.4f} ms ({by})", flush=True)
+        if not rel <= STEM_REL_TOL:
+            fail(f"stem wgrad kernel disagrees with float64 at {name} {tag}: "
+                 f"rel {rel}")
+        row[tag] = {"max_abs_err": err, "rel_err": rel, "ms": ms_k,
+                    "plain_ms": ms_p, "library_ms": c1, "bound_ms": bound,
+                    "bound_by": by}
+        del got, ref, x, g, xc
+        torch.cuda.empty_cache()
+    return row
+
+
+def concat_check(torch, dev) -> dict:
+    """Phase 19: the shifted-slice concat kernel against torch.cat of the
+    two slices (its plain version and its library call), bitwise, at the
+    canary's shape, at hop 256 and at (1024, 79, 128) t 78, the launches
+    counted; then at the last shape the kernel and torch.cat timed
+    (cat, kernel, kernel, cat) beside the bound: x read and the output
+    written once, over 3.35 TB/s."""
+    from neraf_tpu_torch.ops.shifted_concat import (
+        shifted_value_concat,
+        shifted_value_concat_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    shapes = ((8, 19, 128, 16), (8, 19, 256, 16), (1024, 79, 128, 78))
+    reset_counts()
+    xs = []
+    for m, rows, hop, t in shapes:
+        x = torch.randn((m, rows, hop), generator=gen, device=dev)
+        if not torch.equal(shifted_value_concat(x, t),
+                           shifted_value_concat_plain(x, t)):
+            fail(f"shifted concat differs from torch.cat at {(m, rows, hop)} "
+                 f"t {t}")
+        xs.append(x)
+    launches = read_counts()["concat"]
+    if launches != len(shapes):
+        fail(f"shifted concat: {launches} launches for {len(shapes)} calls")
+    x, t = xs[-1], shapes[-1][3]
+    reps = 20
+    p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
+        lambda: shifted_value_concat_plain(x, t),
+        lambda: shifted_value_concat(x, t),
+        lambda: shifted_value_concat(x, t),
+        lambda: shifted_value_concat_plain(x, t)))
+    nbytes = (x.numel() + x.shape[0] * t * 2 * x.shape[2]) * 4
+    bound = nbytes / H100_BYTES * 1e3
+    ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"shifted concat: bitwise equal to torch.cat at {shapes}; at "
+          f"{tuple(x.shape)} t {t}: kernel {ms_k:.4f} ms [{k1:.4f}, {k2:.4f}] "
+          f"torch.cat {ms_p:.4f} ms [{p1:.4f}, {p2:.4f}] bound {bound:.4f} ms "
+          f"(bytes, {nbytes / 1e6:.1f} MB)", flush=True)
+    return {"launches": launches, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": bound}
+
+
+def step_turns(torch, off, on, rounds: int = 8) -> dict:
+    """Phase 17's comparison of the joint step with the stem kernel off and
+    on, in turns (off, on, on, off) on the bench.py inputs with the audio
+    branch live, after one step each: ms per step on the host clock up to
+    torch.cuda.synchronize()."""
+    cams, audio, images = bench_inputs(torch, off.device)
+    times = {"off": [], "on": []}
+    for pipe in (off, on):
+        pipe.step = 3000
+        pipe.train_step(cams, audio, images)
+    for _ in range(rounds):
+        for name in ("off", "on", "on", "off"):
+            pipe = on if name == "on" else off
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.train_step(cams, audio, images)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    wins = sum(b < a for a, b in zip(times["off"], times["on"]))
+    q = {k: np.percentile(v, [25, 50, 75]) for k, v in times.items()}
+    print(f"joint step, stem kernel off and on in turns ({rounds} rounds of "
+          f"off, on, on, off; host clock): median (quartiles) off "
+          f"{q['off'][1]:.2f} ({q['off'][0]:.2f}-{q['off'][2]:.2f}) ms, on "
+          f"{q['on'][1]:.2f} ({q['on'][0]:.2f}-{q['on'][2]:.2f}) ms; on "
+          f"faster in {wins} of {len(times['on'])} pairs", flush=True)
+    return {"off_ms": float(q["off"][1]), "on_ms": float(q["on"][1]),
+            "on_wins": wins, "pairs": len(times["on"]), "ms": times}
 
 
 def table_costs(torch, table) -> dict:
@@ -1153,7 +1356,7 @@ def main() -> int:
     vis = render_phase(torch, vpipe, arrays, H, W, "vision")
     vis_launches = vis["launches"]["pe_mlp"]
     if vis_launches != 3 * n_chunks * vis["n_images"] or any(
-            vis["launches"][k] for k in ("gl", "hash_fwd", "hash_bwd")):
+            v for k, v in vis["launches"].items() if k != "pe_mlp"):
         fail(f"vision path: launches {vis['launches']}, expected pe_mlp "
              f"{3 * n_chunks * vis['n_images']} and no other")
     parts, n_timed = chunk_breakdown(torch, vpipe, arrays, H, W)
@@ -1255,8 +1458,8 @@ def main() -> int:
           f"{chunk} rays", flush=True)
     hvis = render_phase(torch, hvpipe, arrays, H, W, "hash vision")
     n_img = hvis["n_images"]
-    want = {"pe_mlp": 2 * n_chunks * n_img, "hash_fwd": n_chunks * n_img,
-            "hash_bwd": 0, "gl": 0}
+    want = {k: 0 for k in hvis["launches"]}
+    want.update({"pe_mlp": 2 * n_chunks * n_img, "hash_fwd": n_chunks * n_img})
     if hvis["launches"] != want:
         fail(f"hash vision path: launches {hvis['launches']}, expected {want}")
     parts, n_timed = chunk_breakdown(torch, hvpipe, arrays, H, W)
@@ -1296,6 +1499,55 @@ def main() -> int:
                                        config=tiny_hash)
         print(f"tiny hash joint F{F}: table gradient "
               f"{worst['field.hash.table']:.3e} of its peak", flush=True)
+
+    # phase 16: the stem weight-gradient kernel against the plain version
+    stem_rows = {name: stem_check(torch, dev, name, shape, seed)
+                 for name, shape, seed in (("step", (128, 128, 128), 16),
+                                           ("cube", (16, 16, 16), 17),
+                                           ("asymmetric", (10, 34, 18), 18))}
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # phase 17: the full-width joint step with the stem kernel, against
+    # phase 10's run with the gate off
+    with stem_gate():
+        sjpipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev,
+                                      seed=0)
+    if not sjpipe.resnet.stem_wgrad_kernel:
+        fail(f"{GATE}=1 did not put the joint step's stem on the kernel")
+    sjoint = joint_step_phase(torch, sjpipe, {"pe_fwd": 4, "pe_bwd": 4,
+                                              "stem": 1},
+                              what="joint step, stem kernel")
+    kern_on = sjoint["kernels"]
+    stem_kernels = ("stem_pack_kernel", "stem_wgrad_bf16_kernel",
+                    "stem_reduce_kernel")
+    stem_dev = sum(kern_on[k]["ms"] for k in stem_kernels)
+    wg_on, wg_off = kern_on["wgrad"], joint["kernels"]["wgrad"]
+    print(f"joint step, stem kernel against the gate off (phase 10): "
+          f"median {sjoint['ms_per_step']:.2f} vs {joint['ms_per_step']:.2f} "
+          f"ms/step, device busy {sjoint['busy_ms_per_step']:.3f} vs "
+          f"{joint['busy_ms_per_step']:.3f} ms a step; the stem kernel's "
+          f"three device kernels {stem_dev:.4f} ms a step; cuDNN weight "
+          f"gradients {wg_on['ms']:.3f} ms a step in {wg_on['launches']:g} "
+          f"kernels vs {wg_off['ms']:.3f} in {wg_off['launches']:g}",
+          flush=True)
+    opipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0)
+    turns = step_turns(torch, opipe, sjpipe)
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del sjpipe, opipe
+    torch.cuda.empty_cache()
+
+    # phase 18: the tiny f32 joint step with the gate on, card against CPU
+    reset_counts()
+    with stem_gate():
+        tiny_joint_card_vs_cpu(torch, "tiny joint, stem kernel")
+    tiny_stem = read_counts()["stem"]
+    if tiny_stem != 3:
+        fail(f"tiny joint, stem kernel: {tiny_stem} launches in 3 steps")
+
+    # phase 19: the shifted-slice concat against torch.cat
+    concat = concat_check(torch, dev)
 
     err, err32, ms_k, ms_p = gl_rows[("soundspaces", 1024)]
     gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
@@ -1360,7 +1612,36 @@ def main() -> int:
         "train_step_device_kernels": {
             k: hjoint["kernels"][k] for k in (
                 "hash_encoding_bwd_kernel", "FillFunctor",
-                "FusedAdamMathFunctor")}}]}))
+                "FusedAdamMathFunctor")}}, {
+        "name": "stem_wgrad", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/stem_wgrad.cu",
+        "replaces": "neraf_tpu/ops/pallas/stem_wgrad_kernel.py:62",
+        "launches": sjoint["stem"],
+        "max_abs_err": stem_rows["step"]["bf16"]["max_abs_err"],
+        "ms": stem_rows["step"]["bf16"]["ms"],
+        "plain_ms": stem_rows["step"]["bf16"]["plain_ms"],
+        "bound_ms": stem_rows["step"]["bf16"]["bound_ms"],
+        "bound_by": stem_rows["step"]["bf16"]["bound_by"],
+        "library_ms": stem_rows["step"]["bf16"]["library_ms"],
+        "shapes": stem_rows, "tiny_step_launches": tiny_stem,
+        "train_step_device_kernels": {k: kern_on[k] for k in (*stem_kernels,
+                                                              "wgrad")},
+        "gate_off_train_step_device_kernels": {"wgrad": wg_off},
+        "train_step_ms": {"gate_on": sjoint["ms_per_step"],
+                          "gate_off": joint["ms_per_step"]},
+        "train_step_busy_ms": {"gate_on": sjoint["busy_ms_per_step"],
+                               "gate_off": joint["busy_ms_per_step"]},
+        "train_step_turns": turns,
+        "cudnn_stem_ms": joint["stem_ms"],
+        "gate_on_resnet_ms": sjoint["stem_ms"]}, {
+        "name": "shifted_value_concat", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/shifted_concat.cu",
+        "replaces": "neraf_tpu/ops/pallas/gl_crash_repro.py:48",
+        # on no path: the launches are phase 19's own calls
+        "launches": concat["launches"], "max_abs_err": 0.0,
+        "ms": concat["ms"], "plain_ms": concat["plain_ms"],
+        "bound_ms": concat["bound_ms"], "bound_by": "bytes",
+        "library_ms": concat["plain_ms"]}]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

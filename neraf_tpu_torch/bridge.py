@@ -10,7 +10,9 @@ JointTrainState's weights, BatchNorm statistics, grid, cursor and step
 Layouts:
 
 - Dense kernel (in, out) -> Linear weight (out, in); bias as is;
-- Conv kernel DHWIO -> Conv3d weight OIDHW;
+- Conv kernel DHWIO -> Conv3d weight OIDHW (the stem's conv1/kernel too:
+  its weight gradient from the stem kernel, NERAF_STEM_WGRAD_PALLAS=1,
+  updates the same parameter, so the bridge needs nothing more);
 - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var;
 - Embed embedding (num_cameras, dim) -> Embedding weight as is;

@@ -1,8 +1,9 @@
 // Shared pieces of the fused PE+MLP kernels (pe_mlp.cu: forward,
 // pe_mlp_bwd.cu: backward): the packed-layout constants, the range-reduced
 // encoding, the mma.sync / ldmatrix / cp.async wrappers, the per-layer weight
-// staging and the register-resident ReLU layer. Everything here has internal
-// linkage, so each source gets its own copy.
+// staging and the register-resident ReLU layer; stem_wgrad.cu uses the
+// mma.sync and ldmatrix wrappers. Everything here has internal linkage, so
+// each source gets its own copy.
 
 #pragma once
 

@@ -19,6 +19,7 @@ off for both matmuls and cuDNN convolutions.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -206,6 +207,13 @@ class JointPipeline:
     full float32: TF32 is off for matmuls and cuDNN convolutions. The
     state (weights, Adam moments, grid, cursor, step, generator) lives in
     the pipeline and is updated in place.
+
+    The ResNet stem's weight gradient: with NERAF_STEM_WGRAD_PALLAS=1 in
+    the environment when the pipeline is built (the reference's own gate,
+    neraf_tpu/engine/pipeline.py:88-100, read once here), the stem runs
+    through ops/stem_conv.py and its weight gradient is the CUDA kernel
+    csrc/stem_wgrad.cu on a card (the plain version on the CPU), once a
+    step; otherwise, the default as in the reference, cuDNN's.
     """
 
     def __init__(self, config: ExperimentConfig, vision_model: VisionModel,
@@ -219,6 +227,8 @@ class JointPipeline:
         self.vision_model = vision_model.to(self.device).train()
         self.audio_model = audio_model.to(self.device).train()
         self.resnet = resnet.to(self.device).train()
+        self.resnet.stem_wgrad_kernel = (
+            os.environ.get("NERAF_STEM_WGRAD_PALLAS", "0") == "1")
         as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                            device=self.device)
         self.audio_aabb, self.vision_aabb = as_f32(audio_aabb), as_f32(vision_aabb)

@@ -8,6 +8,14 @@ inside. The stem is the direct k5/s2 convolution and the max pool the joint
 devices with the same forward values; the separable pool routes a gradient
 on an exact tie to another element).
 
+With `stem_wgrad_kernel` set (the joint step sets it from
+NERAF_STEM_WGRAD_PALLAS=1), the stem runs in train mode with gradients
+enabled through ops/stem_conv.py::StemConvFunction, on the NDHWC volume
+itself: the same forward, the input gradient from cuDNN's, and the weight
+gradient from ops/stem_wgrad.py, the CUDA kernel on a card (the counterpart
+of the JAX package's Pallas stem weight gradient). Eval mode, and the
+render path, keep the plain nn.Conv3d.
+
 BatchNorm (eps 1e-5) follows flax: in eval mode it uses the running
 statistics; in train mode (the joint step) it normalises with the batch-1
 statistics over D, H and W and, while `update_stats` is set, moves the
@@ -20,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from neraf_tpu_torch.ops.stem_conv import stem_conv
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -109,7 +119,11 @@ class ResNet3D(nn.Module):
     """(N, D, H, W, C_in) NDHWC -> (N, feature_dim) float32.
 
     layer4 runs only when n_features == 2048. Built in eval mode.
+    stem_wgrad_kernel: the stem's weight gradient from the kernel (module
+    docstring); batch 1 only.
     """
+
+    stem_wgrad_kernel = False
 
     def __init__(self, backbone: str = "resnet50", n_features: int = 1024,
                  in_channels: int = 7):
@@ -157,8 +171,12 @@ class ResNet3D(nn.Module):
                 mod.update_stats = on
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 4, 1, 2, 3).to(self.conv1.weight.dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
+        dtype = self.conv1.weight.dtype
+        if self.stem_wgrad_kernel and self.training and torch.is_grad_enabled():
+            x = stem_conv(x.to(dtype), self.conv1.weight)
+        else:
+            x = self.conv1(x.permute(0, 4, 1, 2, 3).to(dtype))
+        x = F.relu(self.bn1(x))
         x = F.max_pool3d(x, 3, 2, 1)
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)

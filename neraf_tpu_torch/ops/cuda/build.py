@@ -103,6 +103,10 @@ def load() -> ctypes.CDLL:
     lib.neraf_hash_encoding_bwd_launch.argtypes = (
         [vp] * 5 + [ci] * 4 + [ip] * 2 + [vp])
     lib.neraf_hash_encoding_bwd_launch.restype = ci
+    lib.neraf_stem_wgrad_launch.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+    lib.neraf_stem_wgrad_launch.restype = ci
+    lib.neraf_shifted_concat_launch.argtypes = [vp] * 2 + [ci] * 4 + [vp]
+    lib.neraf_shifted_concat_launch.restype = ci
     lib.neraf_cuda_error_string.argtypes = [ci]
     lib.neraf_cuda_error_string.restype = ctypes.c_char_p
     return lib

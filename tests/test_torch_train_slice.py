@@ -23,6 +23,10 @@ BatchNorm statistics, grid, cursor, step; the port's Adam moments and
 counts carry over): Adam's first updates are ~lr sign(g), so float-level
 gradient differences would otherwise become lr-sized weight differences.
 Adam and its schedule are held against optax in tests/test_torch_train.py.
+One more fourier step runs with NERAF_STEM_WGRAD_PALLAS=1 on both sides, from
+step 2 so that the audio branch is live: the port's stem weight gradient is
+then ops/stem_wgrad.py's (plain on the CPU, once a step), held against the
+JAX step's at the same tolerances.
 
 Tolerances: losses 1e-5 relative, the interlevel and distortion terms also
 1e-5 of the total loss (they are ~1e-5 of it here, and differences of f32
@@ -65,6 +69,7 @@ from neraf_tpu_torch.engine.factory import (
     build_joint_pipeline,
     vision_model_config,
 )
+from neraf_tpu_torch.ops import stem_wgrad
 
 GRID_RES, H, W, N_REC, STEPS = 32, 12, 10, 5, 3
 GROUPS = ("proposal_networks", "fields", "camera_opt", "audio_fields")
@@ -155,9 +160,9 @@ def _bn_stats(port):
             if k.endswith(("running_mean", "running_var"))}
 
 
-@pytest.fixture(scope="module", params=["fourier", "hash"])
-def runs(request):
-    encoding = request.param
+def _run_steps(encoding, steps, start_step=0):
+    """`steps` joint steps of both packages from one JAX init_state, its
+    step counter set to `start_step` -> a list of each step's results."""
     cfg = _jax_config(encoding)
     feat_dim = JResNet3D(backbone="resnet18", n_features=1024).feature_dim
     jpipe = JJointPipeline(
@@ -172,6 +177,7 @@ def runs(request):
     for attr in ("opt_prop", "opt_fields", "opt_cam", "opt_audio"):
         setattr(jpipe, attr, _recording(getattr(jpipe, attr)))
     state = jpipe.init_state(seed=3)
+    state = state._replace(step=jnp.asarray(start_step, jnp.int32))
     port = build_joint_pipeline(grid_res=GRID_RES, tiny=True, device="cpu",
                                 mixed_precision=False, state=state,
                                 encoding=encoding)
@@ -190,7 +196,7 @@ def runs(request):
               {"images": torch.from_numpy(images)})
 
     out = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         load_joint_state(port, state)
         draws = _draws(state, cfg)
         state, jm = jpipe.train_step(state, *jarrays)
@@ -208,17 +214,41 @@ def runs(request):
     return out
 
 
+@pytest.fixture(scope="module", params=["fourier", "hash"])
+def runs(request):
+    return _run_steps(request.param, STEPS)
+
+
+@pytest.fixture(scope="module")
+def gate_run():
+    """One fourier step with NERAF_STEM_WGRAD_PALLAS=1 on both sides, from
+    step 2 (the audio branch live, so a gradient reaches the stem): the JAX
+    step takes the folded stem_conv_baked with XLA's weight gradient on the
+    CPU (baked_stem.py:81-93), the port StemConvFunction with the plain
+    stem_wgrad, whose calls are counted."""
+    calls = []
+    plain = stem_wgrad.stem_wgrad_plain
+
+    def counted(x, g):
+        calls.append(tuple(x.shape))
+        return plain(x, g)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NERAF_STEM_WGRAD_PALLAS", "1")
+        mp.setattr(stem_wgrad, "stem_wgrad_plain", counted)
+        (run,) = _run_steps("fourier", 1, start_step=2)
+    return run, calls
+
+
 def _close_to_peak(a, b, what):
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * max(np.abs(b).max(),
                                                             1e-12),
                                err_msg=what)
 
 
-@pytest.mark.parametrize("step", range(STEPS))
-def test_losses_match_jax(runs, step):
-    jm, pm = runs[step]["jax"]["metrics"], runs[step]["port"]["metrics"]
+def _check_losses(run, live):
+    jm, pm = run["jax"]["metrics"], run["port"]["metrics"]
     assert set(pm) == set(jm)
-    live = step > 1
     assert (pm["audio_mag_loss"] != 0.0) == live
     for k in ("rgb_loss", "interlevel_loss", "distortion_loss",
               "audio_sc_loss", "audio_mag_loss", "total_loss"):
@@ -230,10 +260,8 @@ def test_losses_match_jax(runs, step):
         np.testing.assert_allclose(pm[k], jm[k], rtol=1e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("step", range(STEPS))
-def test_gradients_match_jax(runs, step):
-    """Every parameter's gradient before Adam, in all four groups."""
-    jg, pg = runs[step]["jax"]["grads"], runs[step]["port"]["grads"]
+def _check_gradients(run, live):
+    jg, pg = run["jax"]["grads"], run["port"]["grads"]
     assert set(pg) == set(jg)
     errs = {k: float(np.abs(pg[k] - jg[k]).max() / max(np.abs(jg[k]).max(), 1e-30))
             for k in jg}
@@ -242,21 +270,55 @@ def test_gradients_match_jax(runs, step):
     bad = {k: e for k, e in errs.items() if e > tol(k)}
     assert not bad, sorted(bad.items(), key=lambda kv: -kv[1])
     # live audio: the audio loss reaches the field through the fresh cells
-    assert (np.abs(jg["resnet.conv1.weight"]).max() > 0) == (step > 1)
+    assert (np.abs(jg["resnet.conv1.weight"]).max() > 0) == live
+
+
+def _check_state(run, n_steps, step, live):
+    """After n_steps steps from an empty grid, at step counter `step`."""
+    j, p = run["jax"], run["port"]
+    assert p["cursor"] == j["cursor"] == 256 * n_steps
+    assert p["step"] == j["step"] == step
+    _close_to_peak(p["grid"], j["grid"], "grid")
+    baked = np.abs(p["grid"][:, :4]).sum(-1) > 0
+    assert baked.sum() == 256 * n_steps and baked[:256 * n_steps].all()
+    assert set(p["stats"]) == set(j["stats"])
+    for k in j["stats"]:
+        _close_to_peak(p["stats"][k], j["stats"][k], k)
+    # the statistics move only once the audio branch is live
+    moved = any(not np.allclose(p["stats"][k], 0.0 if "mean" in k else 1.0)
+                for k in p["stats"])
+    assert moved == live
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_losses_match_jax(runs, step):
+    _check_losses(runs[step], live=step > 1)
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_gradients_match_jax(runs, step):
+    """Every parameter's gradient before Adam, in all four groups."""
+    _check_gradients(runs[step], live=step > 1)
 
 
 @pytest.mark.parametrize("step", range(STEPS))
 def test_grid_cursor_and_bn_stats_match_jax(runs, step):
-    j, p = runs[step]["jax"], runs[step]["port"]
-    assert p["cursor"] == j["cursor"] == 256 * (step + 1)
-    assert p["step"] == j["step"] == step + 1
-    _close_to_peak(p["grid"], j["grid"], "grid")
-    baked = np.abs(p["grid"][:, :4]).sum(-1) > 0
-    assert baked.sum() == 256 * (step + 1) and baked[:256 * (step + 1)].all()
-    assert set(p["stats"]) == set(j["stats"])
-    for k in j["stats"]:
-        _close_to_peak(p["stats"][k], j["stats"][k], k)
-    # the statistics move only once the audio branch is live (step > 1)
-    moved = any(not np.allclose(p["stats"][k], 0.0 if "mean" in k else 1.0)
-                for k in p["stats"])
-    assert moved == (step > 1)
+    _check_state(runs[step], step + 1, step + 1, live=step > 1)
+
+
+def test_stem_gate_losses_match_jax(gate_run):
+    _check_losses(gate_run[0], live=True)
+
+
+def test_stem_gate_gradients_match_jax(gate_run):
+    """The stem's weight gradient from stem_wgrad_plain against XLA's, and
+    every other gradient, at the same tolerances."""
+    _check_gradients(gate_run[0], live=True)
+
+
+def test_stem_gate_grid_cursor_and_bn_stats_match_jax(gate_run):
+    _check_state(gate_run[0], 1, 3, live=True)
+
+
+def test_stem_gate_runs_the_stem_weight_gradient_once_a_step(gate_run):
+    assert gate_run[1] == [(1, GRID_RES, GRID_RES, GRID_RES, 7)]
