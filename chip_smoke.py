@@ -17,7 +17,8 @@ Phases, each fatal on failure:
   5. the tiny slice in float32 on the card against the same slice on the CPU;
   6. the fused PE+MLP kernel against pe_mlp_plain on the card, in bf16 and
      f32, at the proposal-0 shape (8,388,608 rows, 39 -> 128 -> 128 -> 1)
-     and the main field's (1,572,864 rows, 63 -> 256 x 4 -> 16);
+     and the main field's (1,572,864 rows, 63 -> 256 x 4 -> 16), timed in
+     turns with the plain chain beside its bound and its share of it;
   7. the full-width vision slice: a 512 x 512 synthetic SoundSpaces view
      (hfov 90 degrees, 8 chunks of 32,768 rays) through render_image three
      times (the first pays the cold start) and a second view once, then
@@ -28,8 +29,10 @@ Phases, each fatal on failure:
      autograd on the card, bf16 and f32, at the four shapes one joint train
      step gives them (proposal 0: 1,048,576 rows, proposal 1: 393,216, main
      field: 196,608, grid bake: 73,728 without dx), with the training
-     model's weights and seeded biases; the backward alone and forward +
-     backward timed;
+     model's weights and seeded biases; the forward alone, the backward
+     alone and forward + backward timed in turns with the plain chain, each
+     beside its bound and share, and the backward's device kernels of one
+     call under torch.profiler;
  10. the full-width joint train step (JointPipeline.train_step: 4096 rays,
      2048 STFT slices, 4096 grid cells, resnet50 over 7x128^3, bf16) on the
      bench.py inputs with the audio branch live: one cold step, two more
@@ -236,7 +239,8 @@ def pe_fwd_errors(torch, out, x, layers, F, dtype, ref, what):
 
 def pe_mlp_check(torch, dev, name, layers, F, n, seed):
     """Phase 6 at one shape: the kernel against the plain version, bf16
-    and f32, and both timed (plain, kernel, kernel, plain)."""
+    and f32, and both timed (plain, kernel, kernel, plain), beside the
+    kernel's bound and its share of it."""
     from neraf_tpu_torch.ops.cuda.pe_mlp import pe_mlp_cuda
     from neraf_tpu_torch.ops.pe_mlp import pe_mlp_plain
 
@@ -261,15 +265,17 @@ def pe_mlp_check(torch, dev, name, layers, F, n, seed):
             lambda: pe_mlp_cuda(x, layers, F, 0.0, 8.0, dtype),
             lambda: pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype)))
         ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+        b_ms, b_by = pe_fwd_bound_ms(mlp_shape(layers), F, n, dtype)
         print(f"pe_mlp {name} {n} rows {tag}: max_abs_err {err:.3e}, "
               f"rel {err / peak:.3e} (bound {bound}); kernel {ms_k:.3f} ms "
               f"[{k1:.3f}, {k2:.3f}] plain {ms_p:.3f} ms [{p1:.3f}, "
-              f"{p2:.3f}]", flush=True)
+              f"{p2:.3f}]; bound {b_ms:.3f} ms ({b_by}), kernel at "
+              f"{b_ms / ms_k:.1%} of it", flush=True)
         if not ok:
             fail(f"pe_mlp kernel disagrees with plain at {name} {tag}: "
                  f"max_abs_err {err}, peak {peak}")
         row[tag] = {"max_abs_err": err, "rel_err": err / peak, "ms": ms_k,
-                    "plain_ms": ms_p}
+                    "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by}
         torch.cuda.empty_cache()
     return row
 
@@ -278,6 +284,12 @@ def pe_mlp_flops(dims_in, F, n):
     """Multiply-adds x 2 of one pe_mlp forward: (K0, H, L, O) layer chain."""
     k0, h, n_hidden, o = dims_in
     return 2.0 * n * (k0 * h + (n_hidden - 1) * h * h + h * o)
+
+
+def mlp_shape(layers) -> tuple:
+    """(K0, H, hidden layers, O) of a pe_mlp layer list."""
+    return (layers[0][0].shape[1], layers[0][0].shape[0], len(layers) - 1,
+            layers[-1][0].shape[0])
 
 
 def pe_bwd_check(torch, dev, name, layers, F, n, seed, need_dx):
@@ -331,6 +343,13 @@ def pe_bwd_check(torch, dev, name, layers, F, n, seed, need_dx):
             torch, out, x, layers, F, dtype, ref_fwd,
             f"pe_mlp forward {name} {tag}")
         del out
+        # the forward alone at this shape: plain, kernel, kernel, plain
+        fwd_p = lambda: pe_mlp_plain(x, layers, F, 0.0, 8.0, dtype)
+        fwd_k = lambda: pe_cuda._forward(x, w, b, dims, F, 0.0, 8.0, dtype)
+        f1, e1, e2, f2 = (cuda_ms(torch, f, 3) for f in (fwd_p, fwd_k, fwd_k,
+                                                          fwd_p))
+        fwd_ms, fwd_plain = (e1 + e2) / 2, (f1 + f2) / 2
+        fwd_bound, fwd_by = pe_fwd_bound_ms(shape, F, n, dtype)
         run_k = lambda: pe_cuda.pe_mlp_bwd_cuda(x, g, w, b, dims, F, 0.0, 8.0,
                                                 dtype, need_dx=need_dx)
         dx, packed = (run_k() if dtype == torch.bfloat16 else
@@ -375,6 +394,17 @@ def pe_bwd_check(torch, dev, name, layers, F, n, seed, need_dx):
         p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (run_p, run_k, run_k,
                                                              run_p))
         del out, run_p
+        # the backward's device kernels, one call under the profiler
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run_k()
+            torch.cuda.synchronize()
+        parts = [(e.name.split("::")[-1].split("(")[0],
+                  (e.time_range.end - e.time_range.start) / 1e3)
+                 for e in prof.events() if e.device_type.name == "CUDA"
+                 and "pe_mlp" in e.name]
+        print(f"pe_mlp backward {name} {tag} device kernels (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts), flush=True)
         # forward + backward through autograd, as the train step runs them
         def fb(fn):
             def step():
@@ -385,18 +415,27 @@ def pe_bwd_check(torch, dev, name, layers, F, n, seed, need_dx):
             fb(pe_mlp_plain), fb(pe_cuda.pe_mlp_cuda), fb(pe_cuda.pe_mlp_cuda),
             fb(pe_mlp_plain)))
         ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+        # the backward's products (the forward recomputed, dh and dW; no
+        # dh at layer 0 without dx) against x, g, dx, dW and db once
         flops = 2 * pe_mlp_flops(shape, F, n) - (
             0 if need_dx else 2.0 * n * k0 * h)
+        n_w, n_b = pe_cuda.packed_sizes(dims)
         nbytes = 4.0 * n * (3 + out_dim + (3 if need_dx else 0)) + 4.0 * (
-            w.numel() + b.numel()) * 2
+            n_w + n_b) * 2
         peak_rate = H100_BF16 if dtype == torch.bfloat16 else H100_F32
-        bound = max(flops / peak_rate, nbytes / H100_BYTES) * 1e3
+        t_ops, t_bytes = flops / peak_rate, nbytes / H100_BYTES
+        bound = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops > t_bytes else "bytes"
         print(f"pe_mlp forward {name} {n} rows {tag}: max_abs_err "
               f"{f_err:.3e}, rel {f_err / f_peak:.3e} (bound {f_bound}); "
+              f"forward kernel {fwd_ms:.3f} ms [{e1:.3f}, {e2:.3f}] plain "
+              f"{fwd_plain:.3f} ms [{f1:.3f}, {f2:.3f}] bound {fwd_bound:.3f} "
+              f"ms ({fwd_by}), kernel at {fwd_bound / fwd_ms:.1%} of it; "
               f"backward: {detail}; max_abs_err "
               f"{max_abs:.3e}; backward kernel {ms_k:.3f} ms [{k1:.3f}, "
               f"{k2:.3f}] plain {ms_p:.3f} ms [{p1:.3f}, {p2:.3f}] bound "
-              f"{bound:.3f} ms ({flops / 1e9:.1f} GFLOP); forward+backward "
+              f"{bound:.3f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP), kernel "
+              f"at {bound / ms_k:.1%} of it; forward+backward "
               f"kernel {(c1 + c2) / 2:.3f} ms plain {(q1 + q2) / 2:.3f} ms",
               flush=True)
         if not f_ok:
@@ -407,7 +446,10 @@ def pe_bwd_check(torch, dev, name, layers, F, n, seed, need_dx):
         if dtype == torch.bfloat16:
             row["rel_l2_vs_plain"] = max(errs)
         row[tag] = {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
-                    "bound_ms": bound, "fwd_bwd_ms": (c1 + c2) / 2,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain,
+                    "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+                    "fwd_bwd_ms": (c1 + c2) / 2,
                     "plain_fwd_bwd_ms": (q1 + q2) / 2,
                     "fwd_max_abs_err": f_err, "fwd_rel_err": f_err / f_peak}
         del xs, ps, ins
@@ -428,11 +470,13 @@ def gl_bound_ms(M, n_fft, T, n_iter=32) -> float:
         "operations" if flops / H100_F32 > nbytes / H100_BYTES else "bytes")
 
 
-def pe_fwd_bound_ms(shape, F, n) -> tuple:
-    """bf16 products of the forward against x and the output's bytes."""
+def pe_fwd_bound_ms(shape, F, n, dtype=None) -> tuple:
+    """The forward's products at the peak of their type (bf16 unless dtype
+    is float32) against x and the output's bytes."""
     flops = pe_mlp_flops(shape, F, n)
     nbytes = n * (12 + 4 * shape[3])
-    t_ops, t_bytes = flops / H100_BF16, nbytes / H100_BYTES
+    f32 = dtype is not None and "float32" in str(dtype)
+    t_ops, t_bytes = flops / (H100_F32 if f32 else H100_BF16), nbytes / H100_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -1581,7 +1625,7 @@ def main() -> int:
         "launches": joint["pe_bwd"], "max_abs_err": bwd_main["max_abs_err"],
         "rel_l2_vs_plain": bwd_rows["main_field"]["rel_l2_vs_plain"],
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
-        "bound_ms": bwd_main["bound_ms"], "bound_by": "operations",
+        "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
         "library_ms": None, "shapes": bwd_rows,
         "hash_train_step_launches": hjoint["pe_bwd"],
         # "launches" counts wrapper calls; each launches the row-tile kernel,

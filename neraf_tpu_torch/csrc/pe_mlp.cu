@@ -12,19 +12,23 @@
 // 0's input to K0P (a multiple of 16), the output to OP (a multiple of 8).
 // Layer 0's columns are interleaved [sin_0, cos_0, sin_1, cos_1, ..., x0,
 // x1, x2, 0...], so each pair of adjacent encoding columns is one sincos.
+// The bf16 kernel reads them in tile_layers' wgmma layout.
 //
-// bf16 kernel, one warp per 16 rows, 8 warps (128 rows) per block:
-//  - each thread forms its own entries of the layer-0 mma A fragments (two
+// bf16 kernel (pe_mlp_common.cuh's row-tile engine): persistent blocks of
+// two consumer warpgroups (64 rows each, 128 a tile) and a producer warp,
+// one block an SM, walking the row tiles:
+//  - each thread forms its own entries of the layer-0 A fragments (two
 //    rows, pairs of adjacent columns) straight in registers: the encoding
 //    never touches memory;
-//  - every layer runs as mma.sync m16n8k16 bf16 products with f32
-//    accumulation; the bias add and ReLU are f32, then the f32 accumulator
-//    fragment of two n8 tiles is exactly the bf16 A fragment of one k16
-//    tile of the next layer, so activations stay in registers from layer
-//    to layer (no hidden activation reaches shared or device memory);
-//  - the weights are staged in shared memory one layer at a time with
-//    cp.async (the main field's 424 KiB of weights do not fit a block's
-//    227 KB; its largest layer, 256 x 256, is 132 KiB with the row skew);
+//  - every layer is wgmma m64nNk16 with A (the activations) in registers
+//    and B (the weights) in shared memory, f32 accumulation; the bias add
+//    and ReLU are f32, then the accumulator is the next layer's A fragment
+//    (no hidden activation reaches shared or device memory);
+//  - the weights arrive by cp.async.bulk in the wgmma layout: the
+//    proposals' 47 KiB once per block, for every tile it walks; the main
+//    field's 424 KiB (its 256 x 256 layers as two 64 KiB chunks) through a
+//    three-stage ring, the next chunk in flight while the current one is in
+//    the products;
 //  - the output layer writes (N, O) f32, masked to the ragged row count.
 // Angles are range-reduced as in the Pallas kernel: t = f x in turns is
 // split exactly into t_hi + t_lo (the f32 product and its FMA residual) and
@@ -32,13 +36,13 @@
 // sincospi(2r). At 2^8 turns an unreduced fast sine is wrong, and even the
 // f32 rounding of t alone costs ~1e-4 rad.
 //
-// What bounds it on the H100: the tensor cores fed by mma.sync, and shared
-// memory reads of the B fragments. A warp reads a layer's whole weight
-// matrix once per 16 rows (16 FLOP per byte of shared memory, about half the
-// card's bf16 rate at 128 B/clk/SM), and the per-layer weight staging is not
-// overlapped with the products (about a fifth of a layer's time at HP 256).
-// Device memory sees only x (12 B/row) and the output (4 O B/row). Weights
-// resident across persistent blocks, wgmma and TMA are left for later.
+// What bounds it on the H100: the bf16 products (a warpgroup reads each
+// weight once per 64 rows from shared memory, at wgmma's own rate), with
+// the encoding's sincospi and the epilogues on the CUDA cores beside them;
+// at HP 256 also the L2 -> shared traffic of the streamed weights (424 KiB
+// a 128-row tile: 5.3 GB at a render chunk's 1,572,864 rows), overlapped
+// with the products by the ring. Device memory sees only x (12 B/row) and
+// the output (4 O B/row).
 //
 // The f32 kernel (CUDA-core FMA, no TF32) is the same function for checks
 // in f32: 64 rows per block, activations in shared memory, weights staged
@@ -48,101 +52,101 @@
 
 namespace {
 
-// The linear output layer: op (<= kMaxOut) columns from KT k tiles,
-// written as f32 to out (n x out_dim) for the warp's rows row0 .. row0+15.
-template <int KT>
-__device__ __forceinline__ void out_layer(const uint32_t (&a)[KT][4],
-                                          const __nv_bfloat16* ws, int ldw,
-                                          const float* bs,
+// The linear output layer for a warp's rows: N = opk columns of the single
+// output chunk, written as f32 to out (n x out_dim).
+template <int HP, int N>
+__device__ __forceinline__ void out_layer(const uint32_t (&act)[HP / 16][4],
+                                          const unsigned char* w,
+                                          const float* __restrict__ bias,
                                           float* __restrict__ out, int row0,
                                           const PeMlpShape& s, int lane) {
   const int g = lane >> 2, q = lane & 3;
-  const int mrow = lane & 7, mcol = ((lane >> 3) & 1) << 3;
+  float acc[N / 2];
+  chunk_fwd<N, HP / 16>(acc, act, w, HP / 16);
 #pragma unroll
-  for (int nt = 0; nt < kMaxOut / 8; ++nt) {
-    if (nt * 8 < s.op) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        uint32_t b[2];
-        ldmatrix_x2(b, ws + (nt * 8 + mrow) * ldw + kt * 16 + mcol);
-        mma_bf16(acc, a[kt], b[0], b[1]);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * q + e;
-        if (col < s.out_dim) {
-          const int r0 = row0 + g, r1 = row0 + g + 8;
-          if (r0 < s.n) out[size_t(r0) * s.out_dim + col] = acc[e] + bs[col];
-          if (r1 < s.n) out[size_t(r1) * s.out_dim + col] = acc[2 + e] + bs[col];
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int col = j * 8 + 2 * q + (e & 1), r = row0 + g + 8 * (e >> 1);
+      if (col < s.out_dim && r < s.n)
+        out[size_t(r) * s.out_dim + col] = acc[4 * j + e] + __ldg(bias + col);
     }
-  }
 }
 
 template <int HP>
-__global__ void __launch_bounds__(kThreads, (HP > 128 ? 1 : 2))
+__global__ void __launch_bounds__(kWgThreads, 1)
     pe_mlp_bf16_kernel(const float* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
                        const float* __restrict__ bias,
                        const float* __restrict__ freqs,
                        float* __restrict__ out, PeMlpShape s) {
-  constexpr int KT = HP / 16;
-  constexpr int KT0 = kMaxK0 / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* bs = reinterpret_cast<float*>(smem + bf16_weight_bytes(HP, s.k0p, s.op));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int row0 = blockIdx.x * kTileRows + warp * 16;
-
-  // layer 0's weights are in flight while the encoding is formed
-  stage_layer(ws, bs, w, bias, HP, s.k0p);
-  float xr[2][3];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + g + 8 * h;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) xr[h][d] = r < s.n ? __ldg(x + size_t(r) * 3 + d) : 0.0f;
+  constexpr int NC = HP < 128 ? HP : 128;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int opk = ceil_to(s.op, 16), L = s.n_hidden;
+  const Chunks ch{HP, s.k0p, opk, L, NC};
+  const uint32_t stage_bytes = ring_stage_bytes(HP, s.k0p, opk);
+  const int stages = ring_stages(HP, s.k0p, opk, L);
+  const bool resident = ring_resident(HP, s.k0p, opk, L);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + size_t(stages) * stage_bytes);
+  uint64_t* empty = full + kMaxStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (s.n + kBlockRows - 1) / kBlockRows;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 4 * kConsumers);
+    }
+    mbar_init_fence();
   }
-  uint32_t a0[KT0][4];
-#pragma unroll
-  for (int kt = 0; kt < KT0; ++kt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 e = encode_pair(kt * 8 + half * 4 + q, xr[h][0], xr[h][1],
-                                     xr[h][2], freqs, s.F);
-        a0[kt][half * 2 + h] = pack_bf16x2(e.x, e.y);
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    regs_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      Feeder f{smem, full, empty, stage_bytes, stages, 0, w};
+      if (resident) {
+        f.put_all(ch);
+      } else {
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+          for (int l = 0; l <= L; ++l) f.put_layer(ch, l);
       }
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t act[KT][4];
-  relu_layer<KT0, KT>(a0, act, ws, s.k0p + kSkew, bs, s.k0p / 16, lane);
-  const __nv_bfloat16* wl = w + size_t(HP) * s.k0p;
-  const float* bl = bias + HP;
-  for (int l = 1; l < s.n_hidden; ++l) {
-    __syncthreads();
-    stage_layer(ws, bs, wl, bl, HP, HP);
-    cp_async_wait_all();
-    __syncthreads();
-    uint32_t nxt[KT][4];
-    relu_layer<KT, KT>(act, nxt, ws, HP + kSkew, bs, KT, lane);
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) act[kt][e] = nxt[kt][e];
-    wl += size_t(HP) * HP;
-    bl += HP;
+    }
+    return;
   }
-  __syncthreads();
-  stage_layer(ws, bs, wl, bl, s.op, HP);
-  cp_async_wait_all();
-  __syncthreads();
-  out_layer<KT>(act, ws, HP + kSkew, bs, out, row0, s, lane);
+  regs_inc<kConsumerRegs>();
+
+  Ring ring{smem, full, empty, stage_bytes, stages, resident, 0};
+  const float* bias_out = bias + size_t(L) * HP;
+  const int sub = (warp >> 2) * kWgRows + (warp & 3) * 16;
+  // each tile's encoding is formed while the previous tile's last hidden
+  // layer is in the products
+  const EncPairs enc = enc_pairs(freqs, s, lane);
+  uint32_t a0[kMaxK0 / 16][4];
+  if (blockIdx.x < tiles)
+    encode_frags(a0, x, enc, s, blockIdx.x * kBlockRows + sub, lane);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * kBlockRows + sub;
+    const int tn = t + gridDim.x;
+    uint32_t a0n[kMaxK0 / 16][4];
+    uint32_t act[HP / 16][4];
+    forward_hidden<HP>(act, a0, ring, ch, bias, L, lane,
+                       [](int, const uint32_t (&)[HP / 16][4]) {}, [&] {
+                         if (tn < tiles)
+                           encode_frags(a0n, x, enc, s, tn * kBlockRows + sub,
+                                        lane);
+                       });
+#pragma unroll
+    for (int kt = 0; kt < kMaxK0 / 16; ++kt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a0[kt][e] = a0n[kt][e];
+    const unsigned char* wo = ring.acquire(ch, L, 0);
+    if (opk == 16)
+      out_layer<HP, 16>(act, wo, bias_out, out, row0, s, lane);
+    else
+      out_layer<HP, 32>(act, wo, bias_out, out, row0, s, lane);
+    ring.release(1, lane);
+  }
 }
 
 // f32 on the CUDA cores: thread (ty, tx) owns rows ty*8 .. ty*8+7 and
@@ -239,17 +243,18 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launches the fused PE+MLP forward on `stream` (bf16 != 0: the bf16
-// tensor-core kernel, weights bf16; else the f32 kernel, weights f32);
-// returns the cudaError_t of the launch. Shapes are those of pack_layers.
+// Launches the fused PE+MLP forward on `stream` (bf16 != 0: the bf16 wgmma
+// kernel on `blocks` persistent blocks, the weights in tile_layers' layout;
+// else the f32 kernel on pack_layers' f32 weights); returns the
+// cudaError_t of the launch. Shapes are those of pack_layers.
 int neraf_pe_mlp_launch(const float* x, const void* w, const float* bias,
                         const float* freqs, float* out, int n, int F, int k0p,
-                        int hp, int n_hidden, int out_dim, int op, int bf16,
-                        void* stream) {
+                        int hp, int n_hidden, int out_dim, int op, int blocks,
+                        int bf16, void* stream) {
   const PeMlpShape s{n, F, k0p, hp, n_hidden, out_dim, op};
   if (n <= 0 || F < 1 || k0p % 16 != 0 || k0p > kMaxK0 || 6 * F + 3 > k0p ||
       hp % 16 != 0 || hp > kMaxHidden || n_hidden < 1 || out_dim < 1 ||
-      out_dim > op || op % 8 != 0 || op > kMaxOut)
+      out_dim > op || op % 8 != 0 || op > kMaxOut || blocks < 1)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -273,12 +278,13 @@ int neraf_pe_mlp_launch(const float* x, const void* w, const float* bias,
     case 256: kernel = pe_mlp_bf16_kernel<256>; break;
     default: return int(cudaErrorInvalidValue);
   }
-  const size_t smem = bf16_smem_bytes(hp, k0p, op);
+  const size_t smem = ring_smem_bytes(hp, k0p, ceil_to(op, 16), n_hidden);
+  if (smem > size_t(kMaxSmem)) return int(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
   if (err != cudaSuccess) return int(err);
-  kernel<<<(n + kTileRows - 1) / kTileRows, kThreads, smem, st>>>(
+  kernel<<<blocks, kWgThreads, smem, st>>>(
       x, static_cast<const __nv_bfloat16*>(w), bias, freqs, out, s);
   return int(cudaGetLastError());
 }

@@ -184,7 +184,8 @@ class VisionPipeline:
 
 
 # the random draws of one train step: pixel indices (R,), STFT-slice
-# indices (B,), the three samplers' single-jitter uniforms (R, 1)
+# indices (B,), the three samplers' uniforms: (R, 1) each with
+# use_single_jitter, else one per bin edge, (R, S + 1) for S samples
 DRAW_KEYS = ("cam", "py", "px", "rec", "t", "u_init", "u_pdf0", "u_pdf1")
 
 
@@ -279,7 +280,11 @@ class JointPipeline:
         rec, t = sample_audio_indices(n_rec, self.audio_model.config.max_len,
                                       self.config.audio_data.batch_size, gen,
                                       dev)
-        u = [torch.rand((R, 1), generator=gen, device=dev) for _ in range(3)]
+        vcfg = self.config.vision_model
+        widths = ((1, 1, 1) if vcfg.use_single_jitter else
+                  (*(s + 1 for s in vcfg.num_proposal_samples),
+                   vcfg.num_nerf_samples + 1))
+        u = [torch.rand((R, k), generator=gen, device=dev) for k in widths]
         return dict(zip(DRAW_KEYS, (cam, py, px, rec, t, *u)))
 
     def anneal(self) -> float:
@@ -308,7 +313,7 @@ class JointPipeline:
 
         vout = self.vision_model(
             rays, train=True, anneal=self.anneal(),
-            jitter=[d[k].to(torch.float32).reshape(-1, 1)
+            jitter=[d[k].to(torch.float32).reshape(d[k].shape[0], -1)
                     for k in ("u_init", "u_pdf0", "u_pdf1")])
         losses = self.vision_model.loss(vout, gt_rgb)
         self._mark("vision_forward")

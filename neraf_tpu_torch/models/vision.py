@@ -7,8 +7,9 @@
      expected depth.
 
 Eval runs deterministic sampling and no camera optimisation. Train mode
-applies the SO3xR3 camera correction, jitters the bins with one uniform per
-ray at each of the three samplers (passed in by the caller),
+applies the SO3xR3 camera correction, jitters the bins at each of the three
+samplers with one uniform per ray (use_single_jitter) or one per bin edge
+(passed in by the caller),
 resamples from the detached proposal weights raised to `anneal`, and uses
 each camera's own appearance embedding. `loss` gives the rgb MSE and the
 interlevel and distortion losses with their multipliers.
@@ -75,7 +76,8 @@ class VisionModel(nn.Module):
         expected_depth (R,), and the per-level weights and spacing bins.
 
         train: `jitter` is the three samplers' uniforms (u_init, u_pdf0,
-        u_pdf1), each (R, 1); use_average_appearance defaults to
+        u_pdf1), each (R, 1), or (R, S + 1) for a sampler of S samples
+        without use_single_jitter; use_average_appearance defaults to
         `not train`."""
         cfg = self.config
         origins, directions = rays["origins"], rays["directions"]
@@ -84,8 +86,6 @@ class VisionModel(nn.Module):
         if use_average_appearance is None:
             use_average_appearance = not train
         if train:
-            if not cfg.use_single_jitter:
-                raise NotImplementedError("only use_single_jitter is ported")
             origins, directions = apply_camera_opt(self.camera_opt, cam_idx,
                                                    origins, directions)
         else:

@@ -93,9 +93,9 @@ def load() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.neraf_gl_launch.argtypes = [vp] * 8 + [ci] * 6 + [cf, vp]
     lib.neraf_gl_launch.restype = ci
-    lib.neraf_pe_mlp_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.neraf_pe_mlp_launch.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.neraf_pe_mlp_launch.restype = ci
-    lib.neraf_pe_mlp_bwd_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    lib.neraf_pe_mlp_bwd_launch.argtypes = [vp] * 10 + [ci] * 10 + [vp]
     lib.neraf_pe_mlp_bwd_launch.restype = ci
     ip = ctypes.POINTER(ci)
     lib.neraf_hash_encoding_launch.argtypes = [vp] * 3 + [ci] * 4 + [ip] * 2 + [vp]

@@ -2,14 +2,17 @@
 csrc/pe_mlp_bwd.cu backward).
 
 Replaces neraf_tpu/ops/pallas/fused_pe_mlp.py::pe_mlp and its custom VJP.
-The bf16 forward kernel keeps every activation in registers (the mma
-accumulators of one layer are the next layer's operands) and stages one
-layer's weights at a time in shared memory; it is bound by the tensor cores
-fed by mma.sync and by shared-memory reads of the weights. The backward
-recomputes the forward per row tile, walks back through the layers, writes
-h and dpre to scratch, and forms dW as a split-K product summed in a fixed
-order (see the sources' notes). The f32 kernels run the same functions on
-the CUDA cores for checks in f32.
+The bf16 kernels run on wgmma: persistent blocks of two warpgroups (64 rows
+each) keep every activation in registers as the A operand (one layer's
+accumulator is the next layer's operand) and read the weights, in
+tile_layers' layout, from shared memory, where a producer thread's bulk
+copies put them: once per block when they fit, else streamed through a
+ring. The backward recomputes the forward per row tile, walks back through
+the layers, writes h and dpre (bf16) to scratch and per-block db partials,
+then forms dW on wgmma as a split-K product over the rows, one launch a
+layer, and sums the slices and partials in a fixed order (see the
+sources' notes). The f32 kernels run the same functions on the CUDA cores
+for checks in f32.
 
 With gradients enabled and anything requiring one, ``pe_mlp_cuda`` runs
 through PeMlpFunction: the forward kernel, then the backward kernel on the
@@ -21,19 +24,28 @@ tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from neraf_tpu_torch.ops.encodings import nerf_frequencies
-from neraf_tpu_torch.ops.pe_mlp import pack_layers, pe_mlp_plain, unpack_layers
+from neraf_tpu_torch.ops.pe_mlp import (
+    pack_layers,
+    pe_mlp_plain,
+    tile_layers,
+    unpack_layers,
+)
 
 LAUNCHES = 0  # forward kernel launches since the last reset (chip_smoke.py)
 # backward calls since the last reset: each call launches n_hidden + 3
 # device kernels (the row-tile kernel, one dW kernel per layer, the
-# reduction), counted one by one by chip_smoke.py's profiler pass
+# reduction of the dW slices and db partials), counted one by one by
+# chip_smoke.py's profiler pass
 BWD_LAUNCHES = 0
 MAX_FREQUENCIES = 10  # 6F + 3 <= 64
 MAX_OUT = 32
-DW_SLICES = 256  # the dW products split the rows into at most this many slices
+ROW_TILE = 128  # rows of a bf16 kernel block's tile (two warpgroups of 64)
+DW_M_TILE = 128  # output units of a dW block
 
 
 def _check(x: torch.Tensor, layers, num_frequencies: int,
@@ -57,10 +69,39 @@ def _check(x: torch.Tensor, layers, num_frequencies: int,
 
 
 def _pack(layers, num_frequencies: int, dtype: torch.dtype):
+    """pack_layers, then for bf16 tile_layers: the weights as the kernels
+    read them."""
     w, b, dims = pack_layers(layers, num_frequencies, dtype)
     if dims["op"] > MAX_OUT:
         raise ValueError(f"pe_mlp_cuda: {dims['out_dim']} outputs > {MAX_OUT}")
+    if dtype == torch.bfloat16:
+        w = tile_layers(w, dims)
     return w, b, dims
+
+
+def packed_sizes(dims: dict) -> tuple:
+    """(weights, biases) of pack_layers' layout: the gradient's sizes."""
+    k0p, hp, op, L = dims["k0p"], dims["hp"], dims["op"], dims["n_hidden"]
+    return hp * k0p + (L - 1) * hp * hp + op * hp, L * hp + op
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def row_tile_blocks(n: int, sms: int) -> int:
+    """Persistent blocks of the bf16 row-tile kernels: one an SM, at most
+    one a 128-row tile."""
+    return max(1, min(-(-n // ROW_TILE), sms))
+
+
+def dw_slices(n: int, hp: int, sms: int) -> int:
+    """Split-K slices of the dW products: M tiles x slices fill one wave of
+    the SMs, and no slice is emptier than one 64-row step."""
+    m_tiles = -(-hp // DW_M_TILE)
+    steps = -(-n // ROW_TILE) * ROW_TILE // 64
+    return max(1, min(-(-sms // m_tiles), steps))
 
 
 def _stream(device: torch.device) -> int:
@@ -83,55 +124,61 @@ def _forward(x, w, b, dims, num_frequencies, min_exp, max_exp, dtype):
             x.data_ptr(), w.data_ptr(), b.data_ptr(), freqs.data_ptr(),
             out.data_ptr(), n, num_frequencies, dims["k0p"], dims["hp"],
             dims["n_hidden"], dims["out_dim"], dims["op"],
+            row_tile_blocks(n, _sms(x.device.index or 0)),
             int(dtype == torch.bfloat16), _stream(x.device))
     build.check(lib, err, "pe_mlp kernel launch")
     LAUNCHES += 1
     return out
 
 
-def rows_per_slice(n: int) -> int:
-    """Rows of one split-K slice of the dW products: a multiple of 32, at
-    most DW_SLICES slices."""
-    per = -(-n // DW_SLICES)
-    return max(32, -(-per // 32) * 32)
-
-
 def pe_mlp_bwd_cuda(x, g, w, b, dims, num_frequencies, min_exp, max_exp,
                     dtype, need_dx: bool = True, need_params: bool = True):
-    """The backward on packed weights: x (N, 3) f32, the output cotangent g
-    (N, O) f32 -> dx (N, 3) f32 or None, and the packed dW and db (f32, the
-    layout of pack_layers) or None."""
+    """The backward on packed weights (_pack's): x (N, 3) f32, the output
+    cotangent g (N, O) f32 -> dx (N, 3) f32 or None, and the packed dW and
+    db (f32, the layout of pack_layers) or None."""
     global BWD_LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     lib = build.load()
     n, dev = x.shape[0], x.device
-    hp, L = dims["hp"], dims["n_hidden"]
+    hp, L, op = dims["hp"], dims["n_hidden"], dims["op"]
     dx = torch.empty((n, 3), dtype=torch.float32, device=dev) if need_dx else None
-    n_w, n_b = w.numel(), b.numel()
+    n_w, n_b = packed_sizes(dims)
     if n == 0:
         zeros = torch.zeros(n_w + n_b, dtype=torch.float32, device=dev)
         return dx, (zeros[:n_w], zeros[n_w:]) if need_params else None
-    slices = -(-n // rows_per_slice(n))
-    hbuf = torch.empty((L, n, hp), dtype=dtype, device=dev)
-    dpbuf = torch.empty((L, n, hp), dtype=torch.float32, device=dev)
-    part = (torch.empty(((slices + 1) * (n_w + n_b),), dtype=torch.float32,
-                        device=dev) if need_params else None)
+    sms = _sms(dev.index or 0)
+    slices, blocks = dw_slices(n, hp, sms), row_tile_blocks(n, sms)
+    if dtype == torch.bfloat16:
+        # h planes, then the dpre planes and the g plane, rows padded to
+        # the row tiles; db partials one a row-tile block
+        rows = -(-n // ROW_TILE) * ROW_TILE
+        hbuf = torch.empty(L * rows * hp, dtype=dtype, device=dev)
+        dpbuf = torch.empty(L * rows * hp + rows * (-(-op // 16) * 16),
+                            dtype=dtype, device=dev)
+        n_part = slices * n_w + blocks * n_b
+    else:
+        hbuf = torch.empty((L, n, hp), dtype=dtype, device=dev)
+        dpbuf = torch.empty((L, n, hp), dtype=dtype, device=dev)
+        n_part = slices * (n_w + n_b)
+    part = out = None
+    if need_params:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        out = torch.empty(n_w + n_b, dtype=torch.float32, device=dev)
     freqs = nerf_frequencies(num_frequencies, min_exp, max_exp, dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = lib.neraf_pe_mlp_bwd_launch(
             x.data_ptr(), g.data_ptr(), w.data_ptr(), b.data_ptr(),
-            freqs.data_ptr(), 0 if dx is None else dx.data_ptr(),
-            hbuf.data_ptr(), dpbuf.data_ptr(),
-            0 if part is None else part.data_ptr(), n, num_frequencies,
-            dims["k0p"], hp, L, dims["out_dim"], dims["op"], rows_per_slice(n),
+            freqs.data_ptr(), ptr(dx), hbuf.data_ptr(), dpbuf.data_ptr(),
+            ptr(part), ptr(out), n, num_frequencies, dims["k0p"], hp, L,
+            dims["out_dim"], op, slices, blocks,
             int(dtype == torch.bfloat16), _stream(dev))
     build.check(lib, err, "pe_mlp backward launch")
     BWD_LAUNCHES += 1
-    if part is None:
+    if out is None:
         return dx, None
-    dwb = part[slices * (n_w + n_b):]
-    return dx, (dwb[:n_w], dwb[n_w:])
+    return dx, (out[:n_w], out[n_w:])
 
 
 class PeMlpFunction(torch.autograd.Function):

@@ -130,6 +130,34 @@ def pack_layers(layers, num_frequencies: int, dtype: torch.dtype):
     return w_flat, b_flat, dims
 
 
+def chunk_rows(hp: int) -> int:
+    """Rows of a weight chunk in tile_layers' layout (the bf16 kernels'
+    unit of staging): a layer of HP > 128 rows is cut in 128-row chunks."""
+    return min(hp, 128)
+
+
+def tile_layers(w_flat: torch.Tensor, dims: dict) -> torch.Tensor:
+    """pack_layers' weights -> the layout the bf16 kernels read with wgmma
+    (csrc/pe_mlp_common.cuh): each layer's rows cut into chunks of
+    chunk_rows(hp) (the output layer, its rows zero-padded to a multiple of
+    16, one chunk), and a chunk of R x C stored as 8 x 8 core matrices
+    (row-major inside), core matrix (i, j) (rows 8i.., columns 8j..) at
+    element 64 (j R / 8 + i). Layers and chunks stay in order."""
+    k0p, hp, op, n_hidden = dims["k0p"], dims["hp"], dims["op"], dims["n_hidden"]
+    out, off = [], 0
+    for i in range(n_hidden + 1):
+        last = i == n_hidden
+        rows, cols = (op, hp) if last else (hp, k0p if i == 0 else hp)
+        w = w_flat[off:off + rows * cols].reshape(rows, cols)
+        off += rows * cols
+        if last:
+            w = _padded(w, (_ceil(op, 16), cols))
+        r = w.shape[0] if last else chunk_rows(hp)
+        out.append(w.reshape(-1, r // 8, 8, cols // 8, 8)
+                   .permute(0, 3, 1, 2, 4).reshape(-1))
+    return torch.cat(out).contiguous()
+
+
 def unpack_layers(w_flat: torch.Tensor, b_flat: torch.Tensor, dims: dict,
                   num_frequencies: int, hidden: int):
     """The inverse of pack_layers: packed weights and biases (or their

@@ -4,8 +4,9 @@ neraf_tpu/ops/samplers.py).
 A spacing s in [0, 1] maps linearly in depth over [near, mid] for s < 1/2 and
 linearly in disparity over [mid, far] above. The eval path is deterministic:
 fixed uniform bins, then inverse-CDF resampling at bin-centred quantiles.
-Training jitters both with one uniform per ray (use_single_jitter), passed
-in explicitly: JAX's PRNG and torch's never agree, so the caller draws.
+Training jitters both, with one uniform per ray (use_single_jitter) or one
+per bin edge, passed in explicitly: JAX's PRNG and torch's never agree, so
+the caller draws.
 """
 
 from __future__ import annotations
@@ -36,14 +37,18 @@ def spacing_bins_to_euclidean(bins_s: torch.Tensor, near: torch.Tensor,
 def uniform_spacing_bins(num_rays: int, num_samples: int, device=None,
                          jitter: torch.Tensor | None = None) -> torch.Tensor:
     """Uniform bins in the spacing domain -> (R, S+1) in [0, 1]. With
-    `jitter` (R, 1) uniforms in [0, 1), the interior edges move by
-    (u - 1/2) / S and are clipped to [0, 1]; 0 and 1 stay."""
+    `jitter` uniforms in [0, 1), (R, 1) or one per edge (R, S+1), interior
+    edge i moves by (u - 1/2) / S and is clipped to [0, 1]; 0 and 1 stay.
+    Per-edge uniforms: the interior edges take the first S - 1 columns, as
+    the JAX package does."""
     edges = torch.linspace(0.0, 1.0, num_samples + 1, dtype=torch.float32,
                            device=device)
     bins = edges.expand(num_rays, num_samples + 1)
     if jitter is None:
         return bins
     width = 1.0 / num_samples
+    if jitter.shape[-1] > 1:
+        jitter = jitter[..., :num_samples - 1]
     interior = (bins[..., 1:-1] + jitter * width - width / 2.0).clamp(0.0, 1.0)
     return torch.cat([bins[..., :1], interior, bins[..., -1:]], dim=-1)
 
@@ -53,8 +58,8 @@ def pdf_spacing_bins(bins_s: torch.Tensor, weights: torch.Tensor,
                      jitter: torch.Tensor | None = None) -> torch.Tensor:
     """Inverse-CDF resampling of spacing bins (R, S+1) from per-interval
     weights (R, S) at the quantiles (i + 1/2) / (num_samples + 1), or with
-    `jitter` (R, 1) uniforms at (i + u) / (num_samples + 1) ->
-    (R, num_samples + 1) sorted bin edges.
+    `jitter` uniforms, (R, 1) or one per quantile (R, num_samples + 1), at
+    (i + u_i) / (num_samples + 1) -> (R, num_samples + 1) sorted bin edges.
 
     The bracketing edges come from a binary search: cdf is non-decreasing,
     so searchsorted(right=True) finds the first edge with cdf > u, which is

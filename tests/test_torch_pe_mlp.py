@@ -4,9 +4,9 @@ Pallas kernel in interpret mode and its plain reference.
 On the CPU `pe_mlp` runs the plain version; the CUDA kernel is held against
 it on a card (marked `cuda`, skipped here). JAX is imported inside the
 tests that use it, so the `cuda` tests also run where JAX is not installed.
-Tolerances: rtol 2e-4 and atol 2e-5 against the JAX kernel in f32, the JAX
-package's own bound for its kernel against the layer chain
-(tests/test_fused_pe_mlp.py); gradients rtol 2e-3 and atol 1e-4 of each
+Tolerances: the forward, the port's and the JAX kernel's, each against
+the float64 chain at rtol 2e-4 and atol 1e-4 of the peak (the float32
+angles' noise, see the test); gradients rtol 2e-3 and atol 1e-4 of each
 tensor's peak, that test's bound, on rows with no pre-activation within
 f32 noise of 0 (such a unit's ReLU subgradient flips between orderings).
 """
@@ -16,12 +16,16 @@ import pytest
 import torch
 
 from neraf_tpu_torch.ops.cuda import pe_mlp as pe_mlp_cuda_mod
+from neraf_tpu_torch.ops.encodings import nerf_encoding
 from neraf_tpu_torch.ops.pe_mlp import (
+    KERNEL_HIDDEN_WIDTHS,
+    chunk_rows,
     pack_layers,
     pe_mlp,
     pe_mlp_plain,
     pe_mlp_vjp_plain,
     split_first_layer,
+    tile_layers,
     unpack_layers,
 )
 
@@ -56,12 +60,15 @@ def _jax_chain(x, params, F):
     return h @ w + b
 
 
-def _jax_ref_mlp(x, params, F):
-    return np.asarray(_jax_chain(x, params, F))
-
-
 @pytest.mark.parametrize("F,H,L,O", CASES)
 def test_pe_mlp_matches_jax_interpret_and_reference(F, H, L, O):
+    """The port's output (the plain version on the CPU) and the Pallas
+    kernel's in interpret mode, each against the float64 chain of the same
+    weights, rtol 2e-4 and atol 1e-4 of the float64 output's peak: both are
+    float32 with angles of up to 2^8 turns, which carry ~3e-5 of the peak
+    (the f32 plain chain measured 1.75e-5 off at a peak of 0.637), so an
+    atol of 2e-5 sits at the noise of float32 sines and another XLA CPU
+    build or CPU can cross it; a wrong layer is O(peak) off."""
     import jax.numpy as jnp
 
     from neraf_tpu.ops.pallas.fused_pe_mlp import pe_mlp as jpe_mlp
@@ -78,9 +85,12 @@ def test_pe_mlp_matches_jax_interpret_and_reference(F, H, L, O):
     jparams = [(jnp.asarray(w), jnp.asarray(b)) for w, b in params]
     ref_kernel = np.asarray(jpe_mlp(jnp.asarray(x), jparams, F, 0.0, 8.0,
                                     jnp.float32, 256, True))
-    np.testing.assert_allclose(out.numpy(), ref_kernel, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(out.numpy(), _jax_ref_mlp(x, jparams, F),
-                               rtol=2e-4, atol=2e-5)
+    ref64 = pe_mlp_plain(torch.from_numpy(x).double(),
+                         _torch_layers(params, dtype=torch.float64), F, 0.0,
+                         8.0, torch.float64).numpy()
+    atol = 1e-4 * np.abs(ref64).max()
+    np.testing.assert_allclose(out.numpy(), ref64, rtol=2e-4, atol=atol)
+    np.testing.assert_allclose(ref_kernel, ref64, rtol=2e-4, atol=atol)
 
 
 @pytest.mark.parametrize("F,H,L,O", CASES)
@@ -358,3 +368,194 @@ def test_pe_mlp_backward_kernel_matches_plain_on_card(F, H, L, O):
         assert rel(got, p16) <= 0.15, (i, rel(got, p16))
         assert rel(got, want) <= 1.5 * rel(p16, want), (
             i, rel(got, want), rel(p16, want))
+
+
+def _layer_shapes(dims):
+    """(rows, packed rows, cols, chunk rows) of each layer as tile_layers
+    cuts it: the output layer's op rows padded to 16 and in one chunk."""
+    k0p, hp, op, L = dims["k0p"], dims["hp"], dims["op"], dims["n_hidden"]
+    opk = -(-op // 16) * 16
+    return ([(hp, hp, k0p, chunk_rows(hp))]
+            + [(hp, hp, hp, chunk_rows(hp))] * (L - 1) + [(opk, op, hp, opk)])
+
+
+def _tiled_case(hp):
+    F = 10 if hp == 256 else 6
+    H = hp - 8 if hp > 16 else hp  # a padded hidden width where there is room
+    layers = _torch_layers(_rand_params(np.random.RandomState(hp), F, H, 3, 5))
+    w, _, dims = pack_layers(layers, F, torch.float32)
+    assert dims["hp"] == hp
+    return w, dims
+
+
+@pytest.mark.parametrize("hp", KERNEL_HIDDEN_WIDTHS)
+def test_tile_layers_places_every_weight(hp):
+    """tile_layers (the bf16 kernels' weight layout): weight (r, c) of a
+    layer lies in chunk r // R at core matrix (r % R // 8, c // 8), element
+    64 (j R / 8 + i) + 8 (r % 8) + c % 8; the output layer's padded rows are
+    zero; nothing else is in the buffer."""
+    w, dims = _tiled_case(hp)
+    tiled = tile_layers(w, dims)
+    off_packed, off_tiled = 0, 0
+    for rows, live, cols, R in _layer_shapes(dims):
+        layer = w[off_packed:off_packed + live * cols].reshape(live, cols)
+        r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+        idx = (off_tiled + (r // R) * R * cols + 64 * ((c // 8) * (R // 8)
+               + (r % R) // 8) + 8 * (r % 8) + c % 8)
+        got = tiled[torch.from_numpy(idx)]
+        torch.testing.assert_close(got[:live], layer, rtol=0, atol=0)
+        assert not got[live:].any()
+        off_packed += live * cols
+        off_tiled += rows * cols
+    assert off_packed == w.numel() and off_tiled == tiled.numel()
+
+
+def _canonical(buf, start, lbo, sbo, k_major, n_mn, n_k):
+    """What wgmma reads from a no-swizzle descriptor (byte start, leading
+    and stride byte offsets) over an MN x K operand of bf16: the PTX ISA's
+    canonical layouts, K-major ((8, m), (8, 2)) : ((16 B, SBO), (2 B, LBO))
+    and MN-major ((8, m), (8, k)) : ((2 B, SBO), (16 B, LBO)) -> (MN, K)."""
+    mn, k = np.meshgrid(np.arange(n_mn), np.arange(n_k), indexing="ij")
+    if k_major:
+        byte = start + (mn // 8) * sbo + (mn % 8) * 16 + (k // 8) * lbo + (k % 8) * 2
+    else:
+        byte = start + (mn // 8) * sbo + (mn % 8) * 2 + (k // 8) * lbo + (k % 8) * 16
+    assert (byte % 2 == 0).all()
+    return buf[torch.from_numpy(byte // 2)]
+
+
+@pytest.mark.parametrize("hp", KERNEL_HIDDEN_WIDTHS)
+def test_tiled_chunks_read_as_wgmma_operands(hp):
+    """The descriptors the kernels build on a staged chunk of R rows x C
+    columns (csrc/pe_mlp_common.cuh chunk_fwd, csrc/pe_mlp_bwd.cu
+    back_product) read the weights they mean: the forward's K-major B of k
+    tile kt (start kt R 32, LBO R 16, SBO 128) is W[chunk, 16 kt ..]^T, the
+    backward's MN-major B of k tile kt over the N columns col0 .. (start
+    col0 R 2 + kt 256, LBO 128, SBO R 16) is W[chunk rows 16 kt .., col0 ..]."""
+    w, dims = _tiled_case(hp)
+    tiled = tile_layers(w, dims)
+    off_tiled = 0
+    for rows, _, cols, R in _layer_shapes(dims):
+        packed = tiled[off_tiled:off_tiled + rows * cols]
+        dense = torch.zeros(rows, cols)
+        # the layer back from the layout, by test_tile_layers' formula
+        r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+        pos = ((r // R) * R * cols + 64 * ((c // 8) * (R // 8) + (r % R) // 8)
+               + 8 * (r % 8) + c % 8)
+        dense[torch.from_numpy(r), torch.from_numpy(c)] = packed[
+            torch.from_numpy(pos)]
+        for chunk in range(rows // R):
+            buf = packed[chunk * R * cols:(chunk + 1) * R * cols]
+            wc = dense[chunk * R:(chunk + 1) * R]
+            for kt in range(cols // 16):
+                b = _canonical(buf, kt * R * 32, R * 16, 128, True, R, 16)
+                torch.testing.assert_close(b, wc[:, 16 * kt:16 * kt + 16],
+                                           rtol=0, atol=0)
+            n = min(cols, 128)
+            for col0 in range(0, cols, n):
+                for kt in range(R // 16):
+                    b = _canonical(buf, col0 * R * 2 + kt * 256, 128, R * 16,
+                                   False, n, 16)
+                    torch.testing.assert_close(
+                        b, wc[16 * kt:16 * kt + 16, col0:col0 + n].T,
+                        rtol=0, atol=0)
+        off_tiled += rows * cols
+
+
+@pytest.mark.parametrize("hp", KERNEL_HIDDEN_WIDTHS)
+def test_slices_and_row_tile_blocks(hp):
+    """The bf16 kernels' grid sizes: one persistent row-tile block an SM,
+    never more than the 128-row tiles; the dW slices, one wave of M tiles
+    x slices (66 at HP 256 and 132 below it on a 132-SM card, not the 256
+    of a 64 x 64 tile), never more than the 64-row steps."""
+    sms = 132
+    m_tiles = -(-hp // 128)
+    for n in (1, 63, 64, 65, 300, 777, 73_728, 196_608, 1_048_576):
+        tiles = -(-n // 128)
+        assert pe_mlp_cuda_mod.row_tile_blocks(n, sms) == min(tiles, sms)
+        s = pe_mlp_cuda_mod.dw_slices(n, hp, sms)
+        assert 1 <= s <= 2 * tiles and m_tiles * s <= sms + m_tiles - 1
+        if n >= 196_608:
+            assert s == (66 if hp == 256 else 132)
+
+
+def _kernel_rounding(x, layers, g, F):
+    """The bf16 kernels' rounding, emulated in float32 products of bf16
+    values: the encoding from exact angles, each layer's input and weights
+    in bf16, products summed in f32, bias add and ReLU in f32, then one
+    bf16 cast; backward: dW from the bf16 cotangents and inputs, db from
+    the f32 ones, the masks h > 0 -> out, dx, [(dW, db)]."""
+    bf = lambda t: t.to(torch.bfloat16).float()
+    n = x.shape[0]
+    enc = nerf_encoding(x.double(), F).float()
+    hs = [bf(enc)]
+    for w, b in layers[:-1]:
+        hs.append(bf(torch.relu(hs[-1] @ bf(w).T + b)))
+    out = hs[-1] @ bf(layers[-1][0]).T + layers[-1][1]
+    grads = [(bf(g).T @ hs[-1], g.sum(0))]
+    dh = bf(g) @ bf(layers[-1][0])
+    for i in range(len(layers) - 2, -1, -1):
+        dpre = dh * (hs[i + 1] > 0)
+        grads.insert(0, (bf(dpre).T @ hs[i], dpre.sum(0)))
+        dh = bf(dpre) @ bf(layers[i][0])
+    df = 3 * F
+    freqs = 2.0 ** torch.linspace(0.0, 8.0, F, dtype=torch.float64,
+                                  device=x.device)
+    ang = (2.0 * np.pi * x.double()[:, :, None] * freqs).reshape(n, -1)
+    d_ang = (dh[:, :df].double() * torch.cos(ang)
+             - dh[:, df:2 * df].double() * torch.sin(ang))
+    dx = ((d_ang.reshape(n, 3, F) * 2.0 * np.pi * freqs).sum(-1)
+          + dh[:, 2 * df:].double())
+    return out, dx.float(), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 300, 777])
+@pytest.mark.parametrize("hp", KERNEL_HIDDEN_WIDTHS)
+def test_bf16_kernels_at_ragged_rows_on_card(hp, n):
+    """The wgmma kernels at every HP and ragged row counts (empty, one row,
+    a warpgroup's 64 and either side of it, 300, and 777, not a multiple of
+    a block's 128), forward and backward, with dx and without: against
+    the kernels' rounding emulated in f32 products of bf16 values
+    (_kernel_rounding), each tensor to 2e-2 relative L2 and the forward to
+    2e-2 of its peak (the two sum in other orders, and a bf16 activation a
+    rounding step apart moves a few units; a wrong product, row or layout
+    is O(1))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    F = 10 if hp == 256 else 6
+    rng = np.random.RandomState(100 + hp)
+    params = _rand_params(rng, F, hp, 3, 16 if hp == 256 else 1)
+    params = [(w, (rng.randn(*b.shape) * 0.1).astype(np.float32))
+              for w, b in params]
+    layers = _torch_layers(params, "cuda")
+    x = torch.from_numpy(rng.rand(n, 3).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.randn(n, params[-1][0].shape[1])
+                         .astype(np.float32)).cuda()
+
+    def rel(a, b):
+        den = float(b.double().norm())
+        return float((a.double() - b.double()).norm()) / max(den, 1e-30)
+
+    with torch.no_grad():
+        out = pe_mlp(x, layers, F, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (n, g.shape[1])
+    if n:
+        out_ref, dx_ref, grads_ref = _kernel_rounding(x, layers, g, F)
+        peak = float(out_ref.abs().max())
+        assert float((out - out_ref).abs().max()) <= 2e-2 * peak
+    w, b, dims = pe_mlp_cuda_mod._pack(layers, F, torch.bfloat16)
+    for need_dx in (True, False):
+        dx, (dw, db) = pe_mlp_cuda_mod.pe_mlp_bwd_cuda(
+            x, g, w, b, dims, F, 0.0, 8.0, torch.bfloat16, need_dx=need_dx)
+        torch.cuda.synchronize()
+        got = unpack_layers(dw, db, dims, F, hp)
+        if n == 0:
+            assert all(not t.any() for wb in got for t in wb)
+            continue
+        if need_dx:
+            assert rel(dx, dx_ref) <= 2e-2, rel(dx, dx_ref)
+        for i, ((gw, gb), (rw, rb)) in enumerate(zip(got, grads_ref)):
+            assert rel(gw, rw) <= 2e-2, (i, rel(gw, rw))
+            assert rel(gb, rb) <= 2e-2, (i, rel(gb, rb))

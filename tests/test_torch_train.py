@@ -115,6 +115,48 @@ def test_jittered_samplers_match_jax():
     assert (p.diff(dim=-1) >= 0).all()
 
 
+def test_per_edge_jittered_samplers_match_jax():
+    """use_single_jitter=False: uniform and PDF bins from one uniform per
+    bin edge, the uniforms JAX draws, at the single-jitter test's bounds."""
+    R, S0, S1 = 40, 24, 10
+    k0, k1 = jax.random.split(jax.random.PRNGKey(11))
+    jb = jsamplers.uniform_spacing_bins(k0, R, S0, single_jitter=False)
+    u0 = np.array(jax.random.uniform(k0, (R, S0 + 1)))
+    b = samplers.uniform_spacing_bins(R, S0, jitter=T(u0))
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=0, atol=2.4e-7)
+    assert b[:, 0].eq(0).all() and b[:, -1].eq(1).all()
+    # the edges move independently: not one shift for the whole ray
+    assert (b[:, 1:-1] - torch.linspace(0, 1, S0 + 1)[1:-1]).std(dim=1).min() > 0
+    w = np.random.default_rng(4).exponential(size=(R, S0)).astype(np.float32)
+    w[:5] = 0.0
+    jp = jsamplers.pdf_spacing_bins(k1, jb, jnp.asarray(w), S1,
+                                    single_jitter=False)
+    u1 = np.array(jax.random.uniform(k1, (R, S1 + 1)))
+    p = samplers.pdf_spacing_bins(b, T(w), S1, jitter=T(u1))
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=0, atol=2e-6)
+    assert (p.diff(dim=-1) >= 0).all()
+
+
+@pytest.mark.parametrize("single", [True, False])
+def test_draws_follow_use_single_jitter(single):
+    """JointPipeline.draw: (R, 1) uniforms a sampler with use_single_jitter,
+    else one per bin edge of each sampler, (R, S + 1)."""
+    cfg = factory.joint_config(tiny=True)
+    cfg.vision_model = dataclasses.replace(cfg.vision_model,
+                                           use_single_jitter=single)
+    pipe = factory.build_joint_pipeline(grid_res=8, tiny=True, device="cpu",
+                                        mixed_precision=False, config=cfg)
+    d = pipe.draw(2, 6, 5, 3)
+    R = cfg.vision_data.train_rays_per_batch
+    (p0, p1), n = cfg.vision_model.num_proposal_samples, \
+        cfg.vision_model.num_nerf_samples
+    want = (1, 1, 1) if single else (p0 + 1, p1 + 1, n + 1)
+    assert tuple(d[k].shape for k in ("u_init", "u_pdf0", "u_pdf1")) == tuple(
+        (R, k) for k in want)
+    assert all(float(d[k].min()) >= 0 and float(d[k].max()) < 1
+               for k in ("u_init", "u_pdf0", "u_pdf1"))
+
+
 # ------------------------------------------------------------------ losses
 def test_interlevel_and_distortion_losses_match_jax():
     """Values, and gradients with respect to the proposal weights (the

@@ -26,7 +26,9 @@ Adam and its schedule are held against optax in tests/test_torch_train.py.
 One more fourier step runs with NERAF_STEM_WGRAD_PALLAS=1 on both sides, from
 step 2 so that the audio branch is live: the port's stem weight gradient is
 then ops/stem_wgrad.py's (plain on the CPU, once a step), held against the
-JAX step's at the same tolerances.
+JAX step's at the same tolerances. And one fourier step, from step 2, with
+use_single_jitter=False: each sampler then jitters with one uniform per bin
+edge, (R, S + 1), drawn as the JAX samplers draw them.
 
 Tolerances: losses 1e-5 relative, the interlevel and distortion terms also
 1e-5 of the total loss (they are ~1e-5 of it here, and differences of f32
@@ -40,6 +42,8 @@ ulp of a position, which the corrected rays' rotation leaves to rounding,
 is 1e-4 rad of phase); the learning rates 1e-6 relative (numpy float32
 against XLA's exp and log).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -67,6 +71,7 @@ from neraf_tpu_torch.engine.factory import (
     NEAR,
     NUM_CAMERAS,
     build_joint_pipeline,
+    joint_config,
     vision_model_config,
 )
 from neraf_tpu_torch.ops import stem_wgrad
@@ -92,9 +97,11 @@ def _recording(inner):
     return optax.GradientTransformation(init, update)
 
 
-def _jax_config(encoding):
+def _jax_config(encoding, single_jitter=True):
     cfg = ExperimentConfig(dataset="SoundSpaces")
-    cfg.vision_model = vision_model_config(tiny=True, encoding=encoding)
+    cfg.vision_model = dataclasses.replace(
+        vision_model_config(tiny=True, encoding=encoding),
+        use_single_jitter=single_jitter)
     cfg.audio_model = AudioModelConfig(
         dataset="SoundSpaces", max_len=12, n_freq_stft=257, w_field=32,
         n_features=1024, resnet_backbone="resnet18").resolve()
@@ -107,13 +114,20 @@ def _jax_config(encoding):
 
 
 def _draws(state, cfg):
-    """The draws _train_step_impl makes from state.rng, as numpy."""
+    """The draws _train_step_impl makes from state.rng, as numpy: the
+    samplers' uniforms (R, 1) each with use_single_jitter, else (R, S + 1)
+    for a sampler of S samples (samplers.py:52,99)."""
     _, k_pix, k_aud, k_render = jax.random.split(state.rng, 4)
     R, B = cfg.vision_data.train_rays_per_batch, cfg.audio_data.batch_size
     T = cfg.audio_model.max_len
     cam, py, px = jsample_pixel_batch(k_pix, NUM_CAMERAS, H, W, R)
     idx = jax.random.randint(k_aud, (B,), 0, N_REC * T)
-    u = [jax.random.uniform(k, (R, 1)) for k in jax.random.split(k_render, 3)]
+    vm = cfg.vision_model
+    widths = ((1, 1, 1) if vm.use_single_jitter else
+              (*(s + 1 for s in vm.num_proposal_samples),
+               vm.num_nerf_samples + 1))
+    u = [jax.random.uniform(k, (R, n))
+         for k, n in zip(jax.random.split(k_render, 3), widths)]
     vals = (cam, py, px, idx // T, idx % T, *u)
     keys = ("cam", "py", "px", "rec", "t", "u_init", "u_pdf0", "u_pdf1")
     return {k: np.array(v) for k, v in zip(keys, vals)}
@@ -160,10 +174,10 @@ def _bn_stats(port):
             if k.endswith(("running_mean", "running_var"))}
 
 
-def _run_steps(encoding, steps, start_step=0):
+def _run_steps(encoding, steps, start_step=0, single_jitter=True):
     """`steps` joint steps of both packages from one JAX init_state, its
     step counter set to `start_step` -> a list of each step's results."""
-    cfg = _jax_config(encoding)
+    cfg = _jax_config(encoding, single_jitter)
     feat_dim = JResNet3D(backbone="resnet18", n_features=1024).feature_dim
     jpipe = JJointPipeline(
         config=cfg,
@@ -178,9 +192,12 @@ def _run_steps(encoding, steps, start_step=0):
         setattr(jpipe, attr, _recording(getattr(jpipe, attr)))
     state = jpipe.init_state(seed=3)
     state = state._replace(step=jnp.asarray(start_step, jnp.int32))
+    pcfg = joint_config(tiny=True, encoding=encoding)
+    pcfg.vision_model = dataclasses.replace(pcfg.vision_model,
+                                            use_single_jitter=single_jitter)
     port = build_joint_pipeline(grid_res=GRID_RES, tiny=True, device="cpu",
                                 mixed_precision=False, state=state,
-                                encoding=encoding)
+                                config=pcfg)
 
     rng = np.random.default_rng(12)
     cams = synthetic_cameras(NUM_CAMERAS, H, W, seed=2)
@@ -238,6 +255,14 @@ def gate_run():
         mp.setattr(stem_wgrad, "stem_wgrad_plain", counted)
         (run,) = _run_steps("fourier", 1, start_step=2)
     return run, calls
+
+
+@pytest.fixture(scope="module")
+def jitter_run():
+    """One fourier step with use_single_jitter=False on both sides, from
+    step 2 (the audio branch live)."""
+    (run,) = _run_steps("fourier", 1, start_step=2, single_jitter=False)
+    return run
 
 
 def _close_to_peak(a, b, what):
@@ -322,3 +347,16 @@ def test_stem_gate_grid_cursor_and_bn_stats_match_jax(gate_run):
 
 def test_stem_gate_runs_the_stem_weight_gradient_once_a_step(gate_run):
     assert gate_run[1] == [(1, GRID_RES, GRID_RES, GRID_RES, 7)]
+
+
+def test_per_edge_jitter_losses_match_jax(jitter_run):
+    _check_losses(jitter_run, live=True)
+
+
+def test_per_edge_jitter_gradients_match_jax(jitter_run):
+    """use_single_jitter=False: every gradient at the same tolerances."""
+    _check_gradients(jitter_run, live=True)
+
+
+def test_per_edge_jitter_grid_cursor_and_bn_stats_match_jax(jitter_run):
+    _check_state(jitter_run, 1, 3, live=True)
