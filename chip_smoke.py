@@ -9,7 +9,9 @@ Phases, each fatal on failure:
   1. report the card (name, power limit);
   2. build the CUDA kernels from neraf_tpu_torch/csrc with nvcc;
   3. the Griffin-Lim kernel against griffin_lim_plain on the card, at the
-     SoundSpaces geometry (128 and 1024 channels) and the RAF one (64);
+     SoundSpaces geometry (128 and 1024 channels) and the RAF one (64): its
+     launch plan, two launches bitwise equal, timed in turns with the plain
+     version beside its bound and the per-bin state's bytes a call;
   4. the full-width render slice (resnet50 over a 7x128^3 grid, w_field 512,
      T 78) serving three requests of 64 RIRs and two of 512 through
      render_waveforms (the first request pays the cold start), with the
@@ -204,6 +206,87 @@ def spectral_convergence(wav, mag, n_fft, hop, win) -> float:
 
     rebuilt = stft_magnitude(wav, n_fft, hop, win)
     return float((rebuilt - mag).norm() / mag.norm())
+
+
+GL_SHAPES = (("soundspaces", 512, 128, 512, 78, 128),
+             ("soundspaces", 512, 128, 512, 78, 1024),
+             ("raf", 1024, 256, 512, 60, 64))
+
+
+def gl_state_bytes(M, n_fft, T, n_iter=32) -> int:
+    """The per-bin state's traffic of one kernel call: each iteration reads
+    and writes tprev (8 B a bin) and reads mag_t (4 B); the first pass reads
+    mag and the phasors and writes both (24 B a bin)."""
+    return M * T * (n_fft // 2 + 1) * (20 * n_iter + 24)
+
+
+def gl_blocks_per_sm(n_fft, plan) -> int:
+    """Blocks of the GL kernel's launch plan that the card keeps resident
+    on one SM (its occupancy query)."""
+    import ctypes
+
+    from neraf_tpu_torch.ops.cuda import build
+
+    lib, blocks = build.load(), ctypes.c_int(0)
+    err = lib.neraf_gl_blocks_per_sm(n_fft, plan.warps, plan.smem_bytes,
+                                     ctypes.byref(blocks))
+    build.check(lib, err, "griffin_lim occupancy query")
+    return blocks.value
+
+
+def gl_check(torch, dev, n_fft, hop, win, T, M) -> dict:
+    """The GL kernel against griffin_lim_plain on M seeded channels: 1e-3 of
+    the peak after 4 iterations, the spectral convergence after 32 within
+    SC_ABS_TOL, two launches bitwise equal; both timed in turns."""
+    from neraf_tpu_torch.dsp.griffin_lim import griffin_lim_plain, random_angles
+    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
+
+    gen = torch.Generator().manual_seed(M)
+    F = n_fft // 2 + 1
+    mag = rir_like_magnitudes(M, n_fft, hop, win, T, gen).to(dev)
+    ang = random_angles(mag.shape, gen, dev)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=win)
+    run_k = lambda n: gl_cuda.griffin_lim_cuda(mag, ang, n_iter=n, **kw)
+    run_p = lambda n: griffin_lim_plain(mag, init_angles=ang, n_iter=n, **kw)
+    k4, p4 = run_k(4), run_p(4)
+    out_k, out_p, again = run_k(32), run_p(32), run_k(32)
+    torch.cuda.synchronize()
+    if out_k.shape != (M, hop * (T - 1)):
+        fail(f"GL kernel shape {tuple(out_k.shape)}")
+    if not torch.equal(out_k, again):
+        fail(f"GL kernel: two launches differ at n_fft {n_fft} M={M} "
+             f"(max {float((out_k - again).abs().max()):.3e})")
+    err = float((k4 - p4).abs().max())
+    rel = err / float(p4.abs().max())
+    err32 = float((out_k - out_p).abs().max())
+    chan = ((out_k - out_p).abs().amax(-1) / out_p.abs().amax(-1)).cpu()
+    sc_k, sc_p = (spectral_convergence(w, mag, n_fft, hop, win)
+                  for w in (out_k, out_p))
+    reps = 3
+    p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
+        lambda: run_p(32), lambda: run_k(32), lambda: run_k(32),
+        lambda: run_p(32)))
+    ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+    plan = gl_cuda.gl_launch_plan(n_fft, hop, T, hop * (T - 1))
+    blocks = gl_blocks_per_sm(n_fft, plan)
+    bound, by = gl_bound_ms(M, n_fft, T)
+    state = gl_state_bytes(M, n_fft, T)
+    print(f"gl n_fft {n_fft} hop {hop} M={M} F={F} T={T}: plan {plan.warps} "
+          f"warps, {plan.smem_bytes} B shared, {blocks} blocks resident an "
+          f"SM; 4 iter max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{GL_REL_TOL}); 32 iter max_abs_err={err32:.3e}, per-channel rel "
+          f"median {float(chan.median()):.3e} max {float(chan.max()):.3e}, "
+          f"spectral convergence {sc_k:.7f} vs {sc_p:.7f} (tol {SC_ABS_TOL}); "
+          f"two launches bitwise equal; 32 iter kernel {ms_k:.3f} ms "
+          f"[{k1:.3f}, {k2:.3f}] plain {ms_p:.3f} ms [{p1:.3f}, {p2:.3f}], "
+          f"bound {bound:.3f} ms ({by}); per-bin state {state / 1e9:.3f} GB "
+          f"a call, {state / H100_BYTES * 1e3:.3f} ms at device-memory rate",
+          flush=True)
+    if not (rel <= GL_REL_TOL and abs(sc_k - sc_p) <= SC_ABS_TOL):
+        fail(f"GL kernel disagrees with plain at n_fft {n_fft} M={M}: rel "
+             f"{rel}, spectral convergence {sc_k} vs {sc_p}")
+    return {"err": err, "err32": err32, "ms": ms_k, "plain_ms": ms_p,
+            "plan": {**plan._asdict(), "blocks_per_sm": blocks}}
 
 
 def pe_fwd_errors(torch, out, x, layers, F, dtype, ref, what):
@@ -1212,11 +1295,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from neraf_tpu_torch.dsp.griffin_lim import (
-        griffin_lim,
-        griffin_lim_plain,
-        random_angles,
-    )
+    from neraf_tpu_torch.dsp.griffin_lim import griffin_lim, random_angles
     from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
     from neraf_tpu_torch.dsp.stft import log_to_magnitude
     from neraf_tpu_torch.engine.factory import (
@@ -1244,44 +1323,8 @@ def main() -> int:
     print(build.build_log(), flush=True)
 
     # phase 3: the GL kernel against the plain version on the card
-    gl_rows = {}
-    for geo, n_fft, hop, win, T, M in (("soundspaces", 512, 128, 512, 78, 128),
-                                       ("soundspaces", 512, 128, 512, 78, 1024),
-                                       ("raf", 1024, 256, 512, 60, 64)):
-        gen = torch.Generator().manual_seed(M)
-        F = n_fft // 2 + 1
-        mag = rir_like_magnitudes(M, n_fft, hop, win, T, gen).to(dev)
-        ang = random_angles(mag.shape, gen, dev)
-        kw = dict(n_fft=n_fft, hop_length=hop, win_length=win)
-        run_k = lambda n: gl_cuda.griffin_lim_cuda(mag, ang, n_iter=n, **kw)
-        run_p = lambda n: griffin_lim_plain(mag, init_angles=ang, n_iter=n, **kw)
-        k4, p4 = run_k(4), run_p(4)
-        out_k, out_p = run_k(32), run_p(32)
-        torch.cuda.synchronize()
-        if out_k.shape != (M, hop * (T - 1)):
-            fail(f"GL kernel shape {tuple(out_k.shape)}")
-        err = float((k4 - p4).abs().max())
-        rel = err / float(p4.abs().max())
-        err32 = float((out_k - out_p).abs().max())
-        chan = ((out_k - out_p).abs().amax(-1) / out_p.abs().amax(-1)).cpu()
-        sc_k, sc_p = (spectral_convergence(w, mag, n_fft, hop, win)
-                      for w in (out_k, out_p))
-        reps = 3
-        p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
-            lambda: run_p(32), lambda: run_k(32), lambda: run_k(32),
-            lambda: run_p(32)))
-        ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"gl {geo} M={M} F={F} T={T}: 4 iter max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (tol {GL_REL_TOL}); 32 iter max_abs_err="
-              f"{err32:.3e}, per-channel rel median {float(chan.median()):.3e}"
-              f" max {float(chan.max()):.3e}, spectral convergence "
-              f"{sc_k:.7f} vs {sc_p:.7f} (tol {SC_ABS_TOL}); 32 iter kernel "
-              f"{ms_k:.3f} ms [{k1:.3f}, {k2:.3f}] plain {ms_p:.3f} ms "
-              f"[{p1:.3f}, {p2:.3f}]", flush=True)
-        if not (rel <= GL_REL_TOL and abs(sc_k - sc_p) <= SC_ABS_TOL):
-            fail(f"GL kernel disagrees with plain at {geo} M={M}: rel {rel}, "
-                 f"spectral convergence {sc_k} vs {sc_p}")
-        gl_rows[(geo, M)] = (err, err32, ms_k, ms_p)
+    gl_rows = {(geo, M): gl_check(torch, dev, n_fft, hop, win, T, M)
+               for geo, n_fft, hop, win, T, M in GL_SHAPES}
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -1593,7 +1636,7 @@ def main() -> int:
     # phase 19: the shifted-slice concat against torch.cat
     concat = concat_check(torch, dev)
 
-    err, err32, ms_k, ms_p = gl_rows[("soundspaces", 1024)]
+    gl_row = gl_rows[("soundspaces", 1024)]
     gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
     main_bf16 = pe_rows["main_field"]["bf16"]
     fwd_bound, fwd_by = pe_fwd_bound_ms(
@@ -1605,9 +1648,10 @@ def main() -> int:
         "name": "griffin_lim", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "neraf_tpu/ops/pallas/griffin_lim_kernel.py:148",
-        "launches": launches, "max_abs_err": err, "ms": ms_k,
-        "plain_ms": ms_p, "bound_ms": gl_bound, "bound_by": gl_by,
-        "library_ms": None, "max_abs_err_32_iter": err32}, {
+        "launches": launches, "max_abs_err": gl_row["err"],
+        "ms": gl_row["ms"], "plain_ms": gl_row["plain_ms"],
+        "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None,
+        "max_abs_err_32_iter": gl_row["err32"], "plan": gl_row["plan"]}, {
         "name": "pe_mlp_fwd", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/pe_mlp.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:373",

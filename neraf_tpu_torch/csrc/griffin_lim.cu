@@ -15,24 +15,46 @@
 // through analysis -> momentum/normalise -> synthesis -> overlap-add, and
 // the angles are never stored. Frames t and t + n_fft/hop do not overlap,
 // so the warps run one residue class of frames at a time with no atomics and
-// a fixed summation order (results do not change from run to run).
+// a fixed summation order (results do not change from run to run, nor with
+// the launch plan). The plan (ops/cuda/griffin_lim.py::gl_launch_plan) gives
+// a block as many warps as a class has frames, or an even share of them, so
+// that a class runs in whole rounds with every warp busy.
 //
 // Each frame's real DFT of n_fft points is a complex FFT of P = n_fft/2
-// points (even samples real, odd imaginary) plus the usual split step, run by
-// one warp as a radix-4/2 Stockham FFT in shared memory, in fp32 on the CUDA
-// cores (a TF32 tensor-core DFT keeps ~3 digits, which drifts over 32
-// iterations). The per-bin state (tprev, and mag transposed to frame-major
-// order) is 240 KB per SoundSpaces channel, more than shared memory holds;
-// it stays in global memory, read and written once per frame, coalesced.
+// points (even samples real, odd imaginary) plus the split step, in fp32 on
+// the CUDA cores (a TF32 tensor-core DFT keeps ~3 digits, which drifts over
+// 32 iterations). One warp holds a frame in registers, R = P/32 points a
+// lane: lane l holds points l + 32 s. The FFT is a self-sorting mixed-radix
+// (Stockham) FFT whose every stage is one radix-R DFT per lane in registers
+// (the last stage R/rho radix-rho DFTs), with the stage twiddles held in
+// registers from the float64-built table; between stages the warp exchanges
+// the points once through its buffer of P float2 (XOR-swizzled, no bank
+// conflicts). P = 256 and 512 take 2 exchanges, P = 128 three. The output
+// is in natural order in the input's layout, so the split step pairs bin k
+// (lane l) with bin P - k (lane 32 - l) by warp shuffles, and the momentum,
+// the projection (f32 rsqrt) and the inverse split step run on the same
+// registers. The inverse FFT is the forward FFT of the conjugate. So a
+// frame's analysis makes 3 dependent shared-memory passes (the frame load, 2
+// exchanges) and its synthesis 3 (2 exchanges, the overlap-add), with the
+// split steps between them in shuffles.
 //
-// What bounds the kernel on the card: instruction issue and shared-memory
-// latency of the per-warp FFTs (~30 kFLOP per frame and iteration, small
-// against the card's rate), with global traffic for the per-bin state
-// (20 bytes per bin and iteration, ~13 GB over 32 iterations at 1024
-// SoundSpaces channels) as the next limit; each frame loads its state before
-// its forward FFT, so the load latency overlaps the FFT. One block per SM
-// with up to 16 warps (SoundSpaces 16, RAF 11) keeps the in-flight state
-// (~240 KB per channel) near L2's size.
+// The per-bin state (tprev, and mag transposed to frame-major order) is
+// 240 KB per SoundSpaces channel, more than shared memory holds; it stays in
+// global memory (L2-resident at one block an SM: ~32 MB for 132 channels),
+// read and written once per frame, coalesced. Each warp copies the state of
+// its next frame into its staging buffer with cp.async as soon as the
+// current frame's split step has read its own, so the copy's latency hides
+// behind the rest of the frame, the barrier and the next forward FFT, and
+// holds no registers.
+//
+// What bounds the kernel on the card: latency, not a rate. A block holds a
+// residue class's frames (20 warps at SoundSpaces, 96 registers a thread
+// under the launch bound; 8 at RAF, where shared memory holds no more), each
+// frame a dependent chain of FFT stages, exchanges and shuffles, and the
+// block waits at a barrier after every class; the per-bin state's traffic
+// through the L2 (20 bytes per bin and iteration, ~13.6 GB over 32
+// iterations at 1024 SoundSpaces channels) is the next limit. Two blocks an
+// SM would hold twice the state, more than the L2.
 //
 // Preconditions (checked by the Python wrapper): n_fft 256, 512 or 1024,
 // F == n_fft/2 + 1, length == hop * (T - 1) > n_fft/2, hop | n_fft/2.
@@ -42,8 +64,13 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = 16;
-constexpr size_t kSmemPerBlock = 227 * 1024;  // H100: opt-in maximum
+constexpr unsigned kFull = 0xffffffffu;
+
+// most warps a block, by n_fft: the launch bound caps the registers so that
+// a block of this many warps fits an SM's register file. At n_fft 1024 the
+// staging leaves shared memory for 8 warps at RAF's T 60, so 8 lets a thread
+// have 255 registers (16 capped it at 128, and the frame spilled)
+__host__ __device__ constexpr int max_warps(int N) { return N == 1024 ? 8 : 20; }
 
 struct GLShape {
   int T, hop, length, n_iter;
@@ -59,78 +86,185 @@ __device__ __forceinline__ float2 sub(float2 a, float2 b) { return make_float2(a
 // i * a and -i * a
 __device__ __forceinline__ float2 mul_i(float2 a) { return make_float2(-a.y, a.x); }
 __device__ __forceinline__ float2 mul_ni(float2 a) { return make_float2(a.y, -a.x); }
+__device__ __forceinline__ float2 shfl(float2 a, int src) {
+  return make_float2(__shfl_sync(kFull, a.x, src), __shfl_sync(kFull, a.y, src));
+}
 
-// Stockham autosort FFT of P points (a power of two) by one warp, radix 4
-// with one radix-2 stage when log2(P) is odd. tw[j] = exp(-2 pi i j / N)
-// with P | N; `inverse` uses exp(+...) and does not scale. Ping-pongs
-// between x and y and returns the buffer that holds the result.
-template <int P, int N>
-__device__ float2* warp_fft(float2* x, float2* y, const float2* tw,
-                            bool inverse, int lane) {
-#pragma unroll
-  for (int p = 1; p < P;) {
-    const int R = ((P / p) % 4 == 0) ? 4 : 2;
-    const int stride = P / R, tstep = N / (R * p);
-    for (int i = lane; i < stride; i += kWarp) {
-      const int k = i & (p - 1);
-      if (R == 4) {
-        float2 a0 = x[i], a1 = x[i + stride], a2 = x[i + 2 * stride],
-               a3 = x[i + 3 * stride];
-        if (p > 1) {
-          float2 w1 = tw[k * tstep], w2 = tw[2 * k * tstep],
-                 w3 = tw[3 * k * tstep];
-          if (inverse) { w1 = conjf2(w1); w2 = conjf2(w2); w3 = conjf2(w3); }
-          a1 = cmul(a1, w1);
-          a2 = cmul(a2, w2);
-          a3 = cmul(a3, w3);
-        }
-        const float2 t0 = add(a0, a2), t1 = sub(a0, a2), t2 = add(a1, a3),
-                     t3 = inverse ? mul_i(sub(a1, a3)) : mul_ni(sub(a1, a3));
-        const int j = ((i - k) << 2) + k;
-        y[j] = add(t0, t2);
-        y[j + p] = add(t1, t3);
-        y[j + 2 * p] = sub(t0, t2);
-        y[j + 3 * p] = sub(t1, t3);
-      } else {
-        float2 a0 = x[i], a1 = x[i + stride];
-        if (p > 1) {
-          const float2 w = tw[k * tstep];
-          a1 = cmul(a1, inverse ? conjf2(w) : w);
-        }
-        const int j = ((i - k) << 1) + k;
-        y[j] = add(a0, a1);
-        y[j + p] = sub(a0, a1);
-      }
-    }
-    __syncwarp();
-    float2* tmp = x;
-    x = y;
-    y = tmp;
-    p *= R;
+// a * exp(-2 pi i m / 16); m is a constant once the callers' loops unroll,
+// and the quarter turns are exact
+__device__ __forceinline__ float2 rot16(float2 a, int m) {
+  constexpr float h = 0.70710678118654752f, c1 = 0.92387953251128676f,
+                  s1 = 0.38268343236508977f;
+  float c, s;
+  switch (m & 15) {
+    case 0: return a;
+    case 4: return mul_ni(a);
+    case 8: return make_float2(-a.x, -a.y);
+    case 12: return mul_i(a);
+    case 1: c = c1; s = s1; break;
+    case 2: c = h; s = h; break;
+    case 3: c = s1; s = c1; break;
+    case 5: c = -s1; s = c1; break;
+    case 6: c = -h; s = h; break;
+    case 7: c = -c1; s = s1; break;
+    case 9: c = -c1; s = -s1; break;
+    case 10: c = -h; s = -h; break;
+    case 11: c = -s1; s = -c1; break;
+    case 13: c = s1; s = -c1; break;
+    case 14: c = h; s = -h; break;
+    default: c = c1; s = -s1; break;  // 15
   }
-  return x;
+  return make_float2(a.x * c + a.y * s, a.y * c - a.x * s);
+}
+
+// in-register DFT of RHO (<= 16) points, radix 2 by decimation in time:
+// a[t] <- sum_s a[s] exp(-2 pi i s t / RHO)
+template <int RHO>
+__device__ __forceinline__ void dft(float2 (&a)[RHO]) {
+  if constexpr (RHO > 1) {
+    constexpr int H = RHO / 2;
+    float2 e[H], o[H];
+#pragma unroll
+    for (int s = 0; s < H; ++s) {
+      e[s] = a[2 * s];
+      o[s] = a[2 * s + 1];
+    }
+    dft<H>(e);
+    dft<H>(o);
+#pragma unroll
+    for (int t = 0; t < H; ++t) {
+      const float2 w = rot16(o[t], t * (16 / RHO));
+      a[t] = add(e[t], w);
+      a[t + H] = sub(e[t], w);
+    }
+  }
+}
+
+// The FFT's stages: p = 1, then p *= rho, with rho = min(R, P / p).
+__host__ __device__ constexpr int stage_radix(int P, int p) {
+  return P / p < P / kWarp ? P / p : P / kWarp;
+}
+// twiddles a lane holds for the stages before p_end: (R / rho) * (rho - 1)
+// for each stage after the first
+__host__ __device__ constexpr int tw_count(int P, int p_end) {
+  int n = 0;
+  for (int p = 1; p < p_end; p *= stage_radix(P, p))
+    if (p > 1) n += (P / kWarp / stage_radix(P, p)) * (stage_radix(P, p) - 1);
+  return n;
+}
+
+// the exchange buffer's XOR swizzle: row a = j / 16 (16 float2, 128 bytes)
+// permutes its slots by (a ^ 2a ^ 4a) mod 16, so that every stage's stores
+// and the loads of points l + 32 s fall on distinct banks in each half-warp
+__device__ __forceinline__ int swz(int j) {
+  const int a = j >> 4;
+  return j ^ ((a ^ (a << 1) ^ (a << 2)) & 15);
+}
+
+// the lane's stage twiddles exp(-2 pi i s k / (rho p)), k = (lane + 32 b)
+// mod p, from tw_g[j] = exp(-2 pi i j / (2 P))
+template <int P, int p = 1>
+__device__ __forceinline__ void load_twiddles(float2 (&twr)[tw_count(P, P)],
+                                              const float2* __restrict__ tw_g,
+                                              int lane) {
+  constexpr int R = P / kWarp, rho = stage_radix(P, p), nb = R / rho;
+  if constexpr (p > 1) {
+    constexpr int off = tw_count(P, p);
+#pragma unroll
+    for (int b = 0; b < nb; ++b) {
+      const int k = (lane + kWarp * b) & (p - 1);
+#pragma unroll
+      for (int s = 1; s < rho; ++s)
+        twr[off + b * (rho - 1) + s - 1] = __ldg(tw_g + s * k * (2 * P / (rho * p)));
+    }
+  }
+  if constexpr (p * rho < P) load_twiddles<P, p * rho>(twr, tw_g, lane);
+}
+
+// Forward FFT of P points by one warp: v[s] holds point lane + 32 s on entry
+// and bin lane + 32 s on exit. Stage (p, rho), butterfly i = lane + 32 b:
+// inputs i + s P / rho (v[b + s R / rho]) times exp(-2 pi i s k / (rho p)),
+// k = i mod p; a radix-rho DFT; outputs to (i - k) rho + k + t p, which the
+// last stage (p rho = P, so k = i) leaves in place.
+template <int P, int p = 1>
+__device__ __forceinline__ void warp_fft(float2 (&v)[P / kWarp], float2* buf,
+                                         const float2 (&twr)[tw_count(P, P)],
+                                         int lane) {
+  constexpr int R = P / kWarp, rho = stage_radix(P, p), nb = R / rho;
+  constexpr int off = tw_count(P, p);
+  constexpr bool last = p * rho == P;
+#pragma unroll
+  for (int b = 0; b < nb; ++b) {
+    float2 a[rho];
+#pragma unroll
+    for (int s = 0; s < rho; ++s) a[s] = v[b + s * nb];
+    if constexpr (p > 1) {
+#pragma unroll
+      for (int s = 1; s < rho; ++s) a[s] = cmul(a[s], twr[off + b * (rho - 1) + s - 1]);
+    }
+    dft<rho>(a);
+    if constexpr (last) {
+#pragma unroll
+      for (int t = 0; t < rho; ++t) v[b + t * nb] = a[t];
+    } else {
+      const int i = lane + kWarp * b, k = i & (p - 1);
+#pragma unroll
+      for (int t = 0; t < rho; ++t) buf[swz((i - k) * rho + k + t * p)] = a[t];
+    }
+  }
+  if constexpr (!last) {
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < R; ++s) v[s] = buf[swz(lane + kWarp * s)];
+    __syncwarp();
+    warp_fft<P, p * rho>(v, buf, twr, lane);
+  }
+}
+
+// asynchronous copy of 4 or 8 bytes from global to shared memory
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
 __device__ __forceinline__ int reflect(int j, int L) {
   return j < 0 ? -j : (j >= L ? 2 * (L - 1) - j : j);
 }
 
+// a bin's synthesis coefficient mag * new / max(|new|, 1e-16) / P, with
+// new = x - mom * prev (the DC and Nyquist bins are real); rsqrtf is within
+// 2 ulp, where an IEEE sqrt and divide cost ~20 instructions a bin
+__device__ __forceinline__ float2 project(float2 x, float2 prev, float g,
+                                          float mom, bool real) {
+  const float nr = x.x - mom * prev.x;
+  const float ni = real ? 0.f : x.y - mom * prev.y;
+  const float h = g * rsqrtf(fmaxf(nr * nr + ni * ni, 1e-32f));
+  return make_float2(nr * h, ni * h);
+}
+
 // Dynamic shared memory, in this order (float2 arrays first, every float
-// array of even length, so ola stays 8-byte aligned):
-//   tw  [N] float2                : exp(-2 pi i j / N)
-//   buf [warps][2][P+1] float2    : each warp's two FFT buffers
+// array of even length, so core and ola stay 8-byte aligned):
+//   tw    [P] float2                 : exp(-2 pi i k / N), the split's twiddles
+//   buf   [warps][P] float2          : each warp's exchange buffer
+//   stage [warps] {[P+1] float2, [P+2] float} : each warp's next frame's
+//                                      tprev and mag, copied ahead
 //   win [N], core [length], ola [N + hop (T-1)]
+// ops/cuda/griffin_lim.py::gl_smem_bytes mirrors these two functions.
 __host__ __device__ inline size_t gl_base_bytes(int n_fft, int hop, int T,
                                                 int length) {
-  return size_t(n_fft) * sizeof(float2) +
+  return size_t(n_fft / 2) * sizeof(float2) +
          size_t(n_fft + length + n_fft + hop * (T - 1)) * sizeof(float);
 }
 __host__ __device__ inline size_t gl_warp_bytes(int n_fft) {
-  return 2 * size_t(n_fft / 2 + 1) * sizeof(float2);
+  return size_t(n_fft / 2) * sizeof(float2) +
+         size_t(n_fft / 2 + 1) * sizeof(float2) + size_t(n_fft / 2 + 2) * sizeof(float);
 }
 
 template <int N>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
+__global__ void __launch_bounds__(max_warps(N) * kWarp)
 griffin_lim_kernel(const float* __restrict__ mag,      // (M, F, T)
                    const float2* __restrict__ ang0,    // (M, F, T) unit phasors
                    const float2* __restrict__ tw_g,    // (N,)
@@ -141,20 +275,21 @@ griffin_lim_kernel(const float* __restrict__ mag,      // (M, F, T)
                    float* __restrict__ out,            // (M, length)
                    GLShape s) {
   extern __shared__ float2 smem2[];
-  constexpr int P = N / 2;
-  constexpr int KB = P / kWarp + 1;  // bins per lane: k = lane + 32 j <= P
-  constexpr int F = P + 1;
+  constexpr int P = N / 2, R = P / kWarp, F = P + 1;
   const int T = s.T, hop = s.hop;
   const int L = s.length, pad = N / 2, olen = N + hop * (T - 1);
   const int q = N / hop, warps = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int mirror = (kWarp - lane) & (kWarp - 1);  // holds bins P - k
   float2* tw = smem2;
-  float2* bufs = tw + N;
-  float* win = reinterpret_cast<float*>(bufs + size_t(warps) * 2 * (P + 1));
+  float2* buf = tw + P + size_t(warp) * P;
+  constexpr int SW = (3 * P + 4) / 2;  // a warp's staging, in float2
+  float2* stage = tw + P + size_t(warps) * P + size_t(warp) * SW;
+  float* mg_s = reinterpret_cast<float*>(stage + P + 1);
+  float* win = reinterpret_cast<float*>(tw + P + size_t(warps) * (P + SW));
   float* core = win + N;
   float* ola = core + L;
-  float2* bx = bufs + size_t(warp) * 2 * (P + 1);
-  float2* by = bx + (P + 1);
+  const float2* win2 = reinterpret_cast<const float2*>(win);
 
   const int m = blockIdx.x;
   const float* mag_m = mag + size_t(m) * F * T;
@@ -163,10 +298,10 @@ griffin_lim_kernel(const float* __restrict__ mag,      // (M, F, T)
   float* mt_m = mag_t + size_t(m) * T * F;
   const float invP = 1.0f / float(P);
 
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    tw[i] = tw_g[i];
-    win[i] = win_g[i];
-  }
+  float2 twr[tw_count(P, P)];
+  load_twiddles<P>(twr, tw_g, lane);
+  for (int i = threadIdx.x; i < P; i += blockDim.x) tw[i] = tw_g[i];
+  for (int i = threadIdx.x; i < N; i += blockDim.x) win[i] = win_g[i];
   for (int i = threadIdx.x; i < olen; i += blockDim.x) ola[i] = 0.0f;
   __syncthreads();
 
@@ -177,98 +312,147 @@ griffin_lim_kernel(const float* __restrict__ mag,      // (M, F, T)
       for (int t = r + q * warp; t < T; t += q * warps) {
         float2* tp = tp_m + size_t(t) * F;
         float* mt = mt_m + size_t(t) * F;
-        float2* spec;  // the frame's synthesis coefficients C[0..P], / P
-        float2* work;  // the other buffer
+        // the frame's synthesis coefficients C / P at bins k = lane + 32 j,
+        // and (lane 0) at the Nyquist bin P
+        float2 c[R], cP = make_float2(0.f, 0.f);
+        float2 v[R];
         if (it >= 0) {
-          // the frame's per-bin state, loaded first so that its latency
-          // (L2 or device memory) hides behind the forward FFT
-          float2 prev[KB];
-          float mg[KB];
+          // this frame's per-bin state, copied into the staging by this
+          // lane when its previous frame was done with it
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+          // windowed frame t of the reflect-padded signal, packed as
+          // z[n] = x[2n] + i x[2n+1], n = lane + 32 j
+          if (t * hop >= pad && t * hop + pad <= L) {  // no reflection
+            const float2* src = reinterpret_cast<const float2*>(core + t * hop - pad);
 #pragma unroll
-          for (int j = 0; j < KB; ++j) {
-            const int k = lane + kWarp * j;
-            if (k <= P) {
-              prev[j] = tp[k];
-              mg[j] = mt[k];
+            for (int j = 0; j < R; ++j) {
+              const int n = lane + kWarp * j;
+              const float2 x = src[n], w = win2[n];
+              v[j] = make_float2(x.x * w.x, x.y * w.y);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              const int n = lane + kWarp * j, p0 = t * hop + 2 * n - pad;
+              const float2 w = win2[n];
+              v[j] = make_float2(core[reflect(p0, L)] * w.x,
+                                 core[reflect(p0 + 1, L)] * w.y);
             }
           }
-          // windowed frame t of the reflect-padded signal, packed as
-          // z[n] = x[2n] + i x[2n+1]
-          for (int n = lane; n < P; n += kWarp) {
-            const int p0 = t * hop + 2 * n - pad;
-            bx[n] = make_float2(core[reflect(p0, L)] * win[2 * n],
-                                core[reflect(p0 + 1, L)] * win[2 * n + 1]);
-          }
-          __syncwarp();
-          const float2* Z = warp_fft<P, N>(bx, by, tw, false, lane);
-          spec = (Z == bx) ? by : bx;
-          work = (Z == bx) ? bx : by;
+          warp_fft<P>(v, buf, twr, lane);
+          // split step: X[k] = E[k] + exp(-2 pi i k / N) O[k], with Z[P - k]
+          // from the mirror lane (lane 0 holds its own: Z[P - 32 j] = v[R - j])
 #pragma unroll
-          for (int j = 0; j < KB; ++j) {
+          for (int j = 0; j < R; ++j) {
             const int k = lane + kWarp * j;
-            if (k > P) break;
-            // split step: X[k] = E[k] + exp(-2 pi i k / N) O[k]
-            const float2 zk = Z[k == P ? 0 : k];
-            const float2 zc = conjf2(Z[k == 0 ? 0 : P - k]);
+            const float2 other = shfl(v[R - 1 - j], mirror);
+            const float2 zk = v[j];
+            const float2 zc = conjf2(lane == 0 ? v[(R - j) % R] : other);
             const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
             const float2 o = make_float2(0.5f * (zk.y - zc.y), -0.5f * (zk.x - zc.x));
             const float2 xk = add(e, cmul(tw[k], o));
             tp[k] = xk;
-            const float g = mg[j] * invP;
-            if (k == 0 || k == P) {  // real bins
-              const float nr = xk.x - s.mom * prev[j].x;
-              spec[k] = make_float2(g * nr / fmaxf(fabsf(nr), 1e-16f), 0.f);
-            } else {
-              const float nr = xk.x - s.mom * prev[j].x;
-              const float ni = xk.y - s.mom * prev[j].y;
-              const float h = g / fmaxf(sqrtf(nr * nr + ni * ni), 1e-16f);
-              spec[k] = make_float2(nr * h, ni * h);
+            c[j] = project(xk, stage[k], mg_s[k] * invP, s.mom, k == 0);
+            if (k == 0) {  // the Nyquist bin: X[P] = E[0] - O[0]
+              const float2 xP = sub(e, o);
+              tp[P] = xP;
+              cP = project(xP, stage[P], mg_s[P] * invP, s.mom, true);
             }
           }
         } else {
-          spec = bx;
-          work = by;
-          for (int k = lane; k <= P; k += kWarp) {
-            const float mg = mag_m[size_t(k) * T + t];
-            const float2 a = ang_m[size_t(k) * T + t];
-            mt[k] = mg;
-            tp[k] = make_float2(0.f, 0.f);
-            spec[k] = (k == 0 || k == P) ? make_float2(mg * a.x * invP, 0.f)
-                                         : make_float2(mg * a.x * invP, mg * a.y * invP);
+#pragma unroll
+          for (int j = 0; j <= R; ++j) {
+            const int k = lane + kWarp * j;
+            if (k <= P) {
+              const float g = mag_m[size_t(k) * T + t];
+              const float2 a = ang_m[size_t(k) * T + t];
+              mt[k] = g;
+              tp[k] = make_float2(0.f, 0.f);
+              const float2 ck = (k == 0 || k == P)
+                                    ? make_float2(g * a.x * invP, 0.f)
+                                    : make_float2(g * a.x * invP, g * a.y * invP);
+              if (j < R) c[j] = ck; else cP = ck;
+            }
           }
         }
-        __syncwarp();
+        {  // copy the state of this warp's next analysed frame (the next
+           // of its class, else of the next class or iteration) into the
+           // staging; each lane copies and later reads its own bins
+          int tn = t + q * warps, rn = r, itn = it;
+          while (tn >= T) {
+            if (++rn == q) {
+              rn = 0;
+              if (++itn == s.n_iter) break;
+            }
+            tn = rn + q * warp;
+          }
+          // orders the tprev stores above before the copy, which reads them
+          // back when a warp has one frame an iteration
+          __syncwarp();
+          if (itn >= 0 && itn < s.n_iter) {
+            const float2* tpn = tp_m + size_t(tn) * F;
+            const float* mtn = mt_m + size_t(tn) * F;
+#pragma unroll
+            for (int j = 0; j <= R; ++j) {
+              const int k = lane + kWarp * j;
+              if (k <= P) {
+                cp_async(stage + k, tpn + k, 8);
+                cp_async(mg_s + k, mtn + k, 4);
+              }
+            }
+            asm volatile("cp.async.commit_group;\n" ::: "memory");
+          }
+        }
         // inverse split step: Z'[k] = E[k] + i O[k], with
-        // E = (C[k] + conj C[P-k]) / 2, O = (C[k] - conj C[P-k]) / 2 * exp(+2 pi i k / N)
-        for (int k = lane; k < P; k += kWarp) {
-          const float2 ck = spec[k], cc = conjf2(spec[P - k]);
+        // E = (C[k] + conj C[P-k]) / 2, O = (C[k] - conj C[P-k]) / 2 * exp(+2 pi i k / N);
+        // the inverse FFT is conj(FFT(conj Z'))
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int k = lane + kWarp * j;
+          const float2 other = shfl(c[R - 1 - j], mirror);
+          const float2 cc = conjf2(lane != 0 ? other : (j == 0 ? cP : c[(R - j) % R]));
+          const float2 ck = c[j];
           const float2 e = make_float2(0.5f * (ck.x + cc.x), 0.5f * (ck.y + cc.y));
           const float2 o = cmul(make_float2(0.5f * (ck.x - cc.x), 0.5f * (ck.y - cc.y)),
                                 conjf2(tw[k]));
-          work[k] = add(e, mul_i(o));
+          v[j] = conjf2(add(e, mul_i(o)));
         }
-        __syncwarp();
-        const float2* z = warp_fft<P, N>(work, spec, tw, true, lane);
+        warp_fft<P>(v, buf, twr, lane);
+        // overlap-add of the windowed frame: x[2n] + i x[2n+1] = conj v[j]
         float2* dst = reinterpret_cast<float2*>(ola + t * hop);
-        const float2* w2 = reinterpret_cast<const float2*>(win);
-        for (int n = lane; n < P; n += kWarp) {
-          const float2 v = z[n], w = w2[n];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int n = lane + kWarp * j;
+          const float2 w = win2[n];
           float2 acc = dst[n];
-          acc.x = fmaf(v.x, w.x, acc.x);
-          acc.y = fmaf(v.y, w.y, acc.y);
+          acc.x = fmaf(v[j].x, w.x, acc.x);
+          acc.y = fmaf(-v[j].y, w.y, acc.y);
           dst[n] = acc;
         }
-        __syncwarp();
       }
       __syncthreads();  // the next residue class overlaps this one's frames
     }
     if (it < s.n_iter - 1) {
-      // normalise into core for the next analysis; reset the accumulator
-      for (int i = threadIdx.x; i < olen; i += blockDim.x) {
-        const float v = ola[i];
-        ola[i] = 0.0f;
-        const int j = i - pad;
-        if (j >= 0 && j < L) core[j] = v * inv_wsq[j];
+      // normalise into core for the next analysis; reset the accumulator.
+      // 1/wsq comes from the L2: eight loads in flight a thread, not one
+      constexpr int U = 8;
+      for (int i0 = threadIdx.x; i0 < olen; i0 += U * blockDim.x) {
+        float w[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = i0 + u * blockDim.x - pad;
+          w[u] = (j >= 0 && j < L) ? inv_wsq[j] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * blockDim.x;
+          if (i < olen) {
+            const float v = ola[i];
+            ola[i] = 0.0f;
+            const int j = i - pad;
+            if (j >= 0 && j < L) core[j] = v * w[u];
+          }
+        }
       }
       __syncthreads();
     }
@@ -279,45 +463,72 @@ griffin_lim_kernel(const float* __restrict__ mag,      // (M, F, T)
     out_m[j] = ola[pad + j] * inv_wsq[j];
 }
 
-}  // namespace
+using GLKernel = void (*)(const float*, const float2*, const float2*,
+                         const float*, const float*, float2*, float*, float*,
+                         GLShape);
 
-extern "C" {
-
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
-// Warps per block: one per frame of a residue class, as far as shared
-// memory (one block per SM) and kMaxWarps allow.
-int neraf_gl_launch(const float* mag, const void* ang0, const void* tw,
-                    const float* win, const float* inv_wsq, void* tprev,
-                    float* mag_t, float* out, int M, int T, int n_fft,
-                    int hop, int length, int n_iter, float mom, void* stream) {
-  const size_t base = gl_base_bytes(n_fft, hop, T, length);
-  const size_t per_warp = gl_warp_bytes(n_fft);
-  if (base + per_warp > kSmemPerBlock) return int(cudaErrorInvalidValue);
-  const int q = n_fft / hop;
-  size_t warps = (kSmemPerBlock - base) / per_warp;
-  warps = warps < size_t(kMaxWarps) ? warps : size_t(kMaxWarps);
-  warps = warps < size_t((T + q - 1) / q) ? warps : size_t((T + q - 1) / q);
-  const size_t smem = base + warps * per_warp;
-  void (*kernel)(const float*, const float2*, const float2*, const float*,
-                 const float*, float2*, float*, float*, GLShape);
+// the kernel for n_fft, its dynamic shared memory raised to `smem` bytes;
+// null if n_fft is not served or `smem` is over the card's opt-in limit
+GLKernel gl_kernel(int n_fft, int smem, cudaError_t* err) {
+  GLKernel kernel = nullptr;
   switch (n_fft) {
     case 256: kernel = griffin_lim_kernel<256>; break;
     case 512: kernel = griffin_lim_kernel<512>; break;
     case 1024: kernel = griffin_lim_kernel<1024>; break;
-    default: return int(cudaErrorInvalidValue);
+    default: *err = cudaErrorInvalidValue; return nullptr;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             int(cudaSharedmemCarveoutMaxShared));
-  if (err != cudaSuccess) return int(err);
+  int dev = 0, optin = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (*err == cudaSuccess && smem > optin) *err = cudaErrorInvalidValue;
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  return *err == cudaSuccess ? kernel : nullptr;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the kernel on `stream` with the caller's plan (ops/cuda/
+// griffin_lim.py::gl_launch_plan): `warps` a block, `smem` bytes of dynamic
+// shared memory. Refuses a plan that the layout or the card cannot hold;
+// returns the cudaError_t.
+int neraf_gl_launch(const float* mag, const void* ang0, const void* tw,
+                    const float* win, const float* inv_wsq, void* tprev,
+                    float* mag_t, float* out, int M, int T, int n_fft,
+                    int hop, int length, int n_iter, float mom, int warps,
+                    int smem, void* stream) {
+  if (warps < 1 || warps > max_warps(n_fft) ||
+      size_t(smem) < gl_base_bytes(n_fft, hop, T, length) +
+                         size_t(warps) * gl_warp_bytes(n_fft))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  const GLKernel kernel = gl_kernel(n_fft, smem, &err);
+  if (!kernel) return int(err);
   GLShape s{T, hop, length, n_iter, mom};
-  kernel<<<M, int(warps) * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<M, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       mag, static_cast<const float2*>(ang0), static_cast<const float2*>(tw),
       win, inv_wsq, static_cast<float2*>(tprev), mag_t, out, s);
   return int(cudaGetLastError());
+}
+
+// Blocks of a plan that the card keeps resident on one SM, in *blocks (a
+// report for chip_smoke.py; the launcher does not ask). Returns the
+// cudaError_t.
+int neraf_gl_blocks_per_sm(int n_fft, int warps, int smem, int* blocks) {
+  cudaError_t err;
+  const GLKernel kernel = gl_kernel(n_fft, smem, &err);
+  if (!kernel) return int(err);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, warps * kWarp, size_t(smem)));
 }
 
 const char* neraf_cuda_error_string(int err) {

@@ -91,8 +91,10 @@ def load() -> ctypes.CDLL:
             f"build_seconds={time.perf_counter() - t0:.2f}\n" + "".join(logs))
     lib = ctypes.CDLL(str(lib_path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.neraf_gl_launch.argtypes = [vp] * 8 + [ci] * 6 + [cf, vp]
+    lib.neraf_gl_launch.argtypes = [vp] * 8 + [ci] * 6 + [cf] + [ci] * 2 + [vp]
     lib.neraf_gl_launch.restype = ci
+    lib.neraf_gl_blocks_per_sm.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
+    lib.neraf_gl_blocks_per_sm.restype = ci
     lib.neraf_pe_mlp_launch.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.neraf_pe_mlp_launch.restype = ci
     lib.neraf_pe_mlp_bwd_launch.argtypes = [vp] * 10 + [ci] * 10 + [vp]

@@ -2,10 +2,14 @@
 
 Replaces neraf_tpu/ops/pallas/griffin_lim_kernel.py::griffin_lim_pallas. The
 kernel runs the whole momentum loop for one channel inside one block, with
-the signal resident in shared memory and one frame per warp through a
-shared-memory FFT; it is bound by instruction issue and shared-memory latency
-of those FFTs, then by the per-bin state's global traffic (see the source's
-note).
+the signal resident in shared memory. A block runs one residue class of
+frames at a time (gl_launch_plan: as many warps as a class has frames, or an
+even share of them); a warp takes a frame through an FFT held in registers
+(R = n_fft/64 points a lane, two exchanges through shared memory a
+transform, three at n_fft 256) and the split step by warp shuffles, and copies its next frame's
+per-bin state into shared memory ahead of time. It is bound by the latency
+of those chains and the barrier between classes, then by the per-bin state's
+traffic through the L2 (see the source's note).
 
 A CPU tensor takes the plain version (dsp/griffin_lim.py::griffin_lim_plain);
 a CUDA tensor launches the kernel or raises.
@@ -14,6 +18,7 @@ a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,6 +26,50 @@ import torch
 from neraf_tpu_torch.dsp.stft import _padded_window_np, _wsq_np
 
 LAUNCHES = 0  # kernel launches since the last reset; chip_smoke.py reads it
+
+# H100 (sm_90): the dynamic shared memory a block may opt in to (228 KB an SM
+# less the 1 KB the driver reserves beside each resident block). The
+# launcher reads the card's own limit and refuses a plan over it.
+SMEM_PER_BLOCK = 232_448
+# the kernel's most warps a block, by n_fft (csrc/griffin_lim.cu::max_warps:
+# its launch bound sizes the registers for this many)
+MAX_WARPS = {256: 20, 512: 20, 1024: 8}
+
+
+class GLPlan(NamedTuple):
+    warps: int       # warps a block (one frame each at a time)
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def gl_smem_bytes(n_fft: int, hop: int, T: int, length: int,
+                  warps: int) -> int:
+    """A block's shared memory, as csrc/griffin_lim.cu lays it out
+    (`gl_base_bytes`, `gl_warp_bytes`, which the launcher checks the plan
+    against), mirrored here so that the plan is made, and pinned by the CPU
+    tests, without the card: the split step's twiddles (P float2); a warp's
+    exchange buffer (P float2) and its staging of a frame's state ((P + 1)
+    float2 and P + 2 floats); the window, the signal and the overlap-add
+    accumulator."""
+    P = n_fft // 2
+    per_warp = P * 8 + (P + 1) * 8 + (P + 2) * 4
+    return P * 8 + warps * per_warp + (2 * n_fft + length + hop * (T - 1)) * 4
+
+
+def gl_launch_plan(n_fft: int, hop: int, T: int, length: int) -> GLPlan:
+    """Warps a block and its shared memory. The frames t = r mod n_fft/hop
+    form a residue class (its frames do not overlap) and the block runs one
+    class at a time, so each class runs in the fewest rounds that fit, its
+    frames spread evenly over them: warps = ceil(frames / rounds). At
+    SoundSpaces that is one block of 20 warps an SM; 10 and 16 warps in two
+    rounds, and two blocks of 10 an SM, ran slower on an H100 (PERF.md)."""
+    frames = -(-T // (n_fft // hop))  # frames in the largest class
+    for rounds in range(1, frames + 1):
+        warps = -(-frames // rounds)
+        smem = gl_smem_bytes(n_fft, hop, T, length, warps)
+        if warps <= MAX_WARPS[n_fft] and smem <= SMEM_PER_BLOCK:
+            return GLPlan(warps, smem)
+    raise ValueError(f"griffin_lim_cuda: n_fft={n_fft} hop={hop} T={T} "
+                     f"length={length} does not fit one block's shared memory")
 
 
 @functools.lru_cache(maxsize=16)
@@ -91,6 +140,7 @@ def griffin_lim_cuda(
         return out.reshape(*lead, length)
     tw, win, inv_wsq = _constants(n_fft, hop_length, win_length, T, length,
                                   mag.device)
+    plan = gl_launch_plan(n_fft, hop_length, T, length)
     tprev = torch.empty((M, T, F, 2), dtype=torch.float32, device=mag.device)
     mag_t = torch.empty((M, T, F), dtype=torch.float32, device=mag.device)
     with torch.cuda.device(mag.device):
@@ -99,7 +149,7 @@ def griffin_lim_cuda(
             mag.data_ptr(), init_angles.data_ptr(), tw.data_ptr(),
             win.data_ptr(), inv_wsq.data_ptr(), tprev.data_ptr(),
             mag_t.data_ptr(), out.data_ptr(), M, T, n_fft, hop_length,
-            length, n_iter, momentum / (1.0 + momentum), stream)
+            length, n_iter, momentum / (1.0 + momentum), *plan, stream)
     build.check(lib, err, "griffin_lim kernel launch")
     LAUNCHES += 1
     return out.reshape(*lead, length)
