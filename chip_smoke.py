@@ -49,10 +49,15 @@ Phases, each fatal on failure:
      the CPU with its fields in float64, from the same weights and draws;
  12. the hash-encoding forward and backward kernels against the plain
      version and its autograd on the card, at the full-width grid (8 levels
-     x 4 features, 2^19 rows a level) and the three shapes the main path
-     gives them (train step's main field 196,608 rows, grid bake 73,728,
-     a render chunk's main field 1,572,864), and tcnn's 16 x 2 layout at
-     the train step's shape; each timed beside the plain version;
+     x 4 features, 2^19 rows a level): at uniform random points of the
+     three row counts the main path gives them (train step's main field
+     196,608 rows, grid bake 73,728, a render chunk's main field
+     1,572,864) and at tcnn's 16 x 2 layout, then at the main path's own
+     points, taken by a forward hook on the HashTable from a render chunk
+     and from one full-width hash joint step; each timed beside the plain
+     version and its bound, with the table gradient atomics and the
+     forward's L2 sector requests counted from the points (also alone:
+     scripts/hash_check.py);
  13. the full-width hash render (VisionPipeline with encoding="hash") as
      phase 7: 1 hash forward and 2 pe_mlp launches a chunk;
  14. the full-width hash joint step as phase 10: 2 hash forward + 2 hash
@@ -145,8 +150,12 @@ RGB_ABS_TOL = 1e-4  # tiny vision slice, f32, card vs CPU
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # Hash encoding, kernel against the plain version on the same inputs,
 # relative to each output's peak. Forward 1e-6: both sum the weighted
-# corners as the same float32 FMAs in the same order. Table gradient 1e-5:
-# the kernel adds with atomics, in an order that changes from run to run.
+# corners as the same float32 FMAs in the same order. Table gradient 1e-5,
+# against the plain version's summed in float64: the kernel adds with
+# atomics, in an order that changes from run to run. A float32 reference
+# adds its own error, of the gate's order at a render chunk's own points
+# (a coarse row there sums many terms of random sign); it is printed
+# beside.
 # dx 1e-5, on rows clear of the clip bounds (sums over corners and levels
 # in another order).
 HASH_FWD_TOL, HASH_BWD_TOL = 1e-6, 1e-5
@@ -993,18 +1002,24 @@ def hash_bound_ms(spec, n: int, distinct: int, backward: bool,
                                        else "bytes")
 
 
-def hash_check(torch, dev, name, spec, n, seed, need_dx=True):
-    """Phase 12 at one shape: the forward and backward kernels against the
-    plain version and its autograd (index_add_ into the table) on the same
-    inputs: a uniform(-1, 1) table, x in [-0.1, 1.1]^3 with 256 rows at
-    exactly 0 and 256 at exactly 1, a normal cotangent. Forward to
-    HASH_FWD_TOL of the peak; the table gradient and dx (on rows clear of
-    the clip bounds) to HASH_BWD_TOL. Then each timed beside the plain
-    version (plain, kernel, kernel, plain; the backward as the path runs
-    it, without dx at the bake)."""
+def hash_check(torch, dev, name, spec, n, seed, need_dx=True, x=None):
+    """Phase 12 at one point set: the forward and backward kernels against
+    the plain version and its autograd (index_add_ into the table) on the
+    same inputs: a uniform(-1, 1) table, a normal cotangent, and the points
+    x given (a point set of the main path) or, without them, n points in
+    [-0.1, 1.1]^3 with 256 rows at exactly 0 and 256 at exactly 1. Forward
+    to HASH_FWD_TOL of the peak; the table gradient (against the plain
+    version's with the table in float64, so its sums in float64) and dx
+    (on rows clear of the clip bounds) to HASH_BWD_TOL. Then each timed
+    beside the plain version (plain, kernel, kernel, plain; the backward as
+    the path runs it, without dx at the bake), with the atomics the
+    backward makes and the L2 sector requests of the forward's gathers at
+    these points (ops/hashgrid.py::bwd_atomics, fwd_sectors)."""
     from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
     from neraf_tpu_torch.ops.hashgrid import (
+        bwd_atomics,
         clip_unit,
+        fwd_sectors,
         hash_corners,
         hash_encoding_plain,
     )
@@ -1012,25 +1027,35 @@ def hash_check(torch, dev, name, spec, n, seed, need_dx=True):
     L, T, F = spec.num_levels, spec.table_size, spec.features_per_level
     gen = torch.Generator(device=dev).manual_seed(seed)
     table = torch.rand((L, T, F), generator=gen, device=dev) * 2.0 - 1.0
-    x = torch.rand((n, 3), generator=gen, device=dev) * 1.2 - 0.1
-    x[:256], x[256:512] = 0.0, 1.0
+    if x is None:
+        x = torch.rand((n, 3), generator=gen, device=dev) * 1.2 - 0.1
+        x[:256], x[256:512] = 0.0, 1.0
+    n = x.shape[0]
     g = torch.randn((n, spec.out_dim), generator=gen, device=dev)
     tp, xp = table.clone().requires_grad_(), x.clone().requires_grad_()
     ref = hash_encoding_plain(tp, xp, spec)
     ref_dt, ref_dx = torch.autograd.grad(ref, [tp, xp], g, retain_graph=True)
+    t64 = table.double().requires_grad_()
+    ref_dt64 = torch.autograd.grad(hash_encoding_plain(t64, x, spec), t64, g)[0]
+    del t64
     out = hash_cuda._forward(table, x, spec)
     d_table, dx = hash_cuda.hash_encoding_bwd_cuda(table, x, g, spec)
     torch.cuda.synchronize()
     clear = ((x > 0.0) & (x < 1.0)).all(dim=1)
-    peak = lambda t: float(t.abs().max())
-    err = {"forward": float((out - ref.detach()).abs().max()),
-           "d_table": float((d_table - ref_dt).abs().max()),
-           "dx": float((dx - ref_dx)[clear].abs().max()),
-           "dx_all_rows": float((dx - ref_dx).abs().max())}
-    rel = {"forward": err["forward"] / peak(ref.detach()),
-           "d_table": err["d_table"] / peak(ref_dt),
-           "dx": err["dx"] / peak(ref_dx[clear]),
-           "dx_all_rows": err["dx_all_rows"] / peak(ref_dx)}
+    err, rel = {}, {}
+
+    def compare(key, got, want):
+        err[key] = float((got - want).abs().max())
+        rel[key] = err[key] / float(want.abs().max())
+
+    compare("forward", out, ref.detach())
+    compare("d_table", d_table.double(), ref_dt64)
+    compare("dx", dx[clear], ref_dx[clear])
+    # not gated: the kernel against the float32 plain gradient, that
+    # gradient's own error, and dx on every row
+    compare("d_table_vs_f32_plain", d_table, ref_dt)
+    compare("f32_plain_d_table", ref_dt.double(), ref_dt64)
+    compare("dx_all_rows", dx, ref_dx)
     finite = all(bool(torch.isfinite(t).all()) for t in (out, d_table, dx))
     ok = finite and rel["forward"] <= HASH_FWD_TOL and max(
         rel["d_table"], rel["dx"]) <= HASH_BWD_TOL
@@ -1038,7 +1063,9 @@ def hash_check(torch, dev, name, spec, n, seed, need_dx=True):
     mark = torch.zeros(L * T, dtype=torch.bool, device=dev)
     mark[rows.reshape(-1)] = True
     distinct = int(mark.sum())
-    del rows, mark, out, d_table, dx, ref_dt, ref_dx
+    atomics = bwd_atomics(x, spec)
+    sectors = fwd_sectors(x, spec)
+    del rows, mark, out, d_table, dx, ref_dt, ref_dt64, ref_dx
     reps = 5
     with torch.no_grad():
         p1, k1, k2, p2 = (cuda_ms(torch, f, reps) for f in (
@@ -1059,27 +1086,108 @@ def hash_check(torch, dev, name, spec, n, seed, need_dx=True):
            "max_abs_err": err, "rel_err": rel,
            "fwd_ms": (k1 + k2) / 2, "fwd_plain_ms": (p1 + p2) / 2,
            "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+           "fwd_sectors": sectors,
            "bwd_ms": (b1 + b2) / 2, "bwd_plain_ms": (q1 + q2) / 2,
            "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
-           "bwd_need_dx": need_dx}
+           "bwd_need_dx": need_dx, "bwd_atomics": atomics}
     print(f"hash {name} L{L} x F{F}, {n} rows ({distinct} distinct table "
           f"rows): forward max_abs_err {err['forward']:.3e} rel "
           f"{rel['forward']:.3e} (tol {HASH_FWD_TOL}); d_table "
           f"{err['d_table']:.3e} rel {rel['d_table']:.3e}, dx on the "
           f"{int(clear.sum())} rows clear of the bounds {err['dx']:.3e} rel "
           f"{rel['dx']:.3e} (tol {HASH_BWD_TOL}; all rows rel "
-          f"{rel['dx_all_rows']:.3e}); forward kernel {row['fwd_ms']:.3f} ms "
+          f"{rel['dx_all_rows']:.3e}; d_table against the float32 plain "
+          f"{rel['d_table_vs_f32_plain']:.3e}, the float32 plain's own "
+          f"{rel['f32_plain_d_table']:.3e}); "
+          f"forward kernel {row['fwd_ms']:.3f} ms "
           f"[{k1:.3f}, {k2:.3f}] plain {row['fwd_plain_ms']:.3f} ms [{p1:.3f},"
           f" {p2:.3f}] bound {fwd_bound:.4f} ms ({fwd_by}); backward"
           f"{'' if need_dx else ' without dx'} kernel {row['bwd_ms']:.3f} ms "
           f"[{b1:.3f}, {b2:.3f}] plain {row['bwd_plain_ms']:.3f} ms "
-          f"[{q1:.3f}, {q2:.3f}] bound {bwd_bound:.4f} ms ({bwd_by})",
-          flush=True)
+          f"[{q1:.3f}, {q2:.3f}] bound {bwd_bound:.4f} ms ({bwd_by}); "
+          f"table gradient atomics: {atomics['scalar']} scalar (8 L F a "
+          f"row), {atomics['aggregated']} vector grouped by cell, "
+          f"{atomics['distinct']} distinct (warp, level, row); forward L2 "
+          f"sector requests {sum(sectors)} for {8 * L * n} gathers, by level "
+          f"{sectors}", flush=True)
     if not ok:
         fail(f"hash kernels disagree with plain at {name} L{L} F{F}: {rel}")
     del ref, tp, xp, table, x, g
     torch.cuda.empty_cache()
     return row
+
+
+def hash_path_points(torch, hvpipe, arrays, H, W) -> dict:
+    """The points that reach the main field's hash encoding on the main
+    path, taken by a forward hook on its HashTable: the first chunk of
+    phase 13's render of view 0 (32,768 rays x 48 samples), and one
+    full-width hash joint step as phase 14 takes it (the bench.py inputs,
+    the audio branch live, a pipeline of its own from seed 0), whose main
+    field (4096 rays x 48 samples, sample-innermost) and grid bake (18
+    directions x 4096 cells, direction-major) each call it once ->
+    {"render": x, "train_main": x, "bake": x}, each (N, 3) f32."""
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+
+    def capture(module, run) -> list:
+        seen = []
+        hook = module.register_forward_hook(
+            lambda _m, inputs, _o: seen.append(
+                inputs[0].detach().reshape(-1, 3).clone()))
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        return seen
+
+    with torch.no_grad():
+        render = capture(hvpipe.vision_model.field.hash,
+                         lambda: hvpipe.render_image(arrays, 0, H, W))
+    jpipe = build_joint_pipeline(grid_res=128, tiny=False,
+                                 device=hvpipe.device, seed=0, encoding="hash")
+    jpipe.step = 3000
+    cams, audio, images = bench_inputs(torch, jpipe.device)
+    step = capture(jpipe.vision_model.field.hash,
+                   lambda: jpipe.train_step(cams, audio, images))
+    tcfg = jpipe.config
+    want = (tcfg.vision_data.train_rays_per_batch
+            * tcfg.vision_model.num_nerf_samples,
+            tcfg.trainer.grid_bake_cells_per_step * len(jpipe.view_dirs))
+    chunk = (hvpipe.vision_model.config.eval_num_rays_per_chunk
+             * hvpipe.vision_model.config.num_nerf_samples)
+    del jpipe
+    torch.cuda.empty_cache()
+    if tuple(x.shape[0] for x in step) != want or render[0].shape[0] != chunk:
+        fail(f"hash path points: a step called the encoding on "
+             f"{[x.shape[0] for x in step]} rows (expected {want}), a render "
+             f"chunk on {render[0].shape[0]} (expected {chunk})")
+    return {"render": render[0], "train_main": step[0], "bake": step[1]}
+
+
+def hash_phase(torch, dev, hvpipe, arrays, H, W) -> dict:
+    """Phase 12: the hash kernels against the plain version at the full
+    grid, at uniform random points of the main path's three row counts and
+    at tcnn's 16 x 2 layout (the L2's worst case), then at the main path's
+    own points (hash_path_points) -> {name: hash_check's row}."""
+    spec = hvpipe.vision_model.field.hash.spec
+    points = hash_path_points(torch, hvpipe, arrays, H, W)
+    n = {k: x.shape[0] for k, x in points.items()}
+    rows = {
+        "train_main": hash_check(torch, dev, "train_main", spec,
+                                 n["train_main"], 8),
+        "bake": hash_check(torch, dev, "bake", spec, n["bake"], 9,
+                           need_dx=False),
+        "render": hash_check(torch, dev, "render", spec, n["render"], 10),
+        "train_main_tcnn_L16xF2": hash_check(
+            torch, dev, "train_main", dataclasses.replace(
+                spec, num_levels=16, features_per_level=2),
+            n["train_main"], 11),
+    }
+    for seed, (name, x) in enumerate(points.items(), start=12):
+        rows[f"{name}_path"] = hash_check(
+            torch, dev, f"{name} (the path's points)", spec, None, seed,
+            need_dx=name != "bake", x=x)
+    return rows
 
 
 def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
@@ -1519,18 +1627,7 @@ def main() -> int:
     hmodel = hvpipe.vision_model
     hcfg = hmodel.config
     spec = hmodel.field.hash.spec
-    hash_rows = {
-        "train_main": hash_check(torch, dev, "train_main", spec,
-                                 R * hcfg.num_nerf_samples, 8),
-        "bake": hash_check(torch, dev, "bake", spec,
-                           bwd_rows["grid_bake"]["rows"], 9, need_dx=False),
-        "render": hash_check(torch, dev, "render", spec,
-                             chunk * hcfg.num_nerf_samples, 10),
-        "train_main_tcnn_L16xF2": hash_check(
-            torch, dev, "train_main", dataclasses.replace(
-                spec, num_levels=16, features_per_level=2),
-            R * hcfg.num_nerf_samples, 11),
-    }
+    hash_rows = hash_phase(torch, dev, hvpipe, arrays, H, W)
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -1642,7 +1739,13 @@ def main() -> int:
     fwd_bound, fwd_by = pe_fwd_bound_ms(
         (63, 256, 4, 16), 10, pe_rows["main_field"]["rows"])
     bwd_main = bwd_rows["main_field"]["bf16"]
-    h_r, h_t = hash_rows["render"], hash_rows["train_main"]
+    # the hash kernels' rows at the main path's points (a render chunk's,
+    # a step's main field), every point set beside them
+    h_r, h_t = hash_rows["render_path"], hash_rows["train_main_path"]
+    h_sets = {"path_points": {k: r for k, r in hash_rows.items()
+                              if k.endswith("_path")},
+              "random_points": {k: r for k, r in hash_rows.items()
+                                if not k.endswith("_path")}}
     kern = joint["kernels"]
     print(json.dumps({"kernels": [{
         "name": "griffin_lim", "route": "cuda",
@@ -1684,7 +1787,7 @@ def main() -> int:
         "max_abs_err": h_r["max_abs_err"]["forward"], "ms": h_r["fwd_ms"],
         "plain_ms": h_r["fwd_plain_ms"], "bound_ms": h_r["fwd_bound_ms"],
         "bound_by": h_r["fwd_bound_by"], "library_ms": None,
-        "train_step_launches": hjoint["hash_fwd"], "shapes": hash_rows,
+        "train_step_launches": hjoint["hash_fwd"], **h_sets,
         "train_step_device_kernels": {
             "hash_encoding_fwd_kernel":
                 hjoint["kernels"]["hash_encoding_fwd_kernel"]}}, {
@@ -1696,7 +1799,7 @@ def main() -> int:
         "max_abs_err_dx": h_t["max_abs_err"]["dx"], "ms": h_t["bwd_ms"],
         "plain_ms": h_t["bwd_plain_ms"], "bound_ms": h_t["bwd_bound_ms"],
         "bound_by": h_t["bwd_bound_by"], "library_ms": None,
-        "table_costs": costs,
+        **h_sets, "table_costs": costs,
         "train_step_device_kernels": {
             k: hjoint["kernels"][k] for k in (
                 "hash_encoding_bwd_kernel", "FillFunctor",

@@ -4,9 +4,11 @@ forward and backward).
 Replaces neraf_tpu/ops/pallas/hash_gather_attempt.py::pallas_vector_gather,
 the table gather the TPU could not compile, and the XLA encoding around it
 (neraf_tpu/ops/hashgrid.py::hash_encoding with gather_rows' scatter VJP).
-Both kernels are bound by device memory: the forward gathers 8 table rows a
-point and level (the hashed fine levels miss the L2), the backward adds into
-the table's gradient with atomics (see the source's note).
+Both kernels run one thread a point, a warp on 32 consecutive points, over
+the levels: the forward is bound by the L2 sectors of its 8 table rows a
+point and level, the backward by its atomic adds into the table's gradient,
+which a warp's points in one cell make once a corner with one vector atomic
+(see the source's note).
 
 With gradients enabled and the table or x requiring one,
 ``hash_encoding_cuda`` runs through HashEncodingFunction: the forward kernel,

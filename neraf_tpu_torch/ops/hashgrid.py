@@ -137,6 +137,59 @@ def hash_encoding_plain(table: torch.Tensor, x: torch.Tensor,
     return out.permute(1, 0, 2).reshape(*lead, L * F)
 
 
+def bwd_atomics(x: torch.Tensor, spec: HashGridSpec, warp: int = 32) -> dict:
+    """What the backward kernel (csrc/hash_encoding.cu) adds into the table
+    gradient for the points x (..., 3), counted from the points alone, with
+    warps of `warp` consecutive rows:
+
+    - "scalar": 8 L F float atomics a row, one a feature of each corner, as
+      a kernel without grouping or vector atomics would make;
+    - "aggregated": the kernel's vector atomics: a warp's rows whose point
+      lies in one cell of a level form a group, which adds once a corner,
+      so 8 for each distinct (warp, level, cell);
+    - "distinct": the distinct (warp, level, table row) triples, the least
+      that any grouping could make.
+    """
+    xf = clip_unit(x.reshape(-1, 3).float())
+    rows, _ = hash_corners(xf, spec)  # (L, B, 8), each level's rows apart
+    L, B = rows.shape[:2]
+    dev = rows.device
+    res = torch.as_tensor(spec.resolutions(), device=dev)
+    c0 = torch.floor(xf[None] * res.to(xf.dtype)[:, None, None]).long()
+    st = (res.long() + 1)[:, None]
+    cells = c0[..., 0] + c0[..., 1] * st + c0[..., 2] * st * st  # (L, B)
+    n_cells = int(st.max()) ** 3
+    wid = torch.arange(B, device=dev) // warp
+    if (int(wid[-1]) + 1) * L * n_cells >= 2**63:
+        raise ValueError(f"bwd_atomics: {B} rows at {n_cells} cells a level "
+                         "overflow the int64 keys")
+    lvl = torch.arange(L, device=dev)[:, None]
+    per_cell = (wid * L + lvl) * n_cells + cells  # (L, B)
+    per_row = wid[:, None] * (L * spec.table_size) + rows  # (L, B, 8)
+    return {
+        "scalar": 8 * L * spec.features_per_level * B,
+        "aggregated": 8 * int(torch.unique(per_cell).numel()),
+        "distinct": int(torch.unique(per_row).numel()),
+    }
+
+
+def fwd_sectors(x: torch.Tensor, spec: HashGridSpec, warp: int = 32) -> list:
+    """The L2 sector requests of the forward kernel's gathers for the points
+    x (..., 3), counted from the points alone: a warp's load of one corner
+    on one level asks once for each distinct 32-byte sector that its rows'
+    table rows lie in (32 / (4 F) rows a sector) -> for each level, the
+    distinct (warp, corner, sector) triples."""
+    xf = clip_unit(x.reshape(-1, 3).float())
+    rows, _ = hash_corners(xf, spec)  # (L, B, 8), each level's rows apart
+    L, B = rows.shape[:2]
+    sectors = rows // (32 // (4 * spec.features_per_level))
+    n_sectors = int(sectors.max()) + 1
+    wid = torch.arange(B, device=rows.device) // warp
+    corner = torch.arange(8, device=rows.device)
+    key = (wid[:, None] * 8 + corner) * n_sectors + sectors  # (L, B, 8)
+    return [int(torch.unique(key[l]).numel()) for l in range(L)]
+
+
 def hash_encoding(table: torch.Tensor, x: torch.Tensor,
                   spec: HashGridSpec) -> torch.Tensor:
     """The hash encoding: the plain version for a CPU tensor, the CUDA
