@@ -66,15 +66,21 @@ Phases, each fatal on failure:
      its two Adam updates timed alone;
  15. the tiny hash joint step (4 levels, 2^10 rows, resolutions 4-32) card
      against CPU as phase 11, at 2 and at 4 features a level;
- 16. the stem weight-gradient kernel against stem_wgrad_plain in float64 on
-     the same inputs, bf16 and f32, at the step's shape (x 7 x 128^3, g 64
-     x 64^3), a small cube and a D != H != W volume, timed at each beside
-     the plain version and cuDNN's weight gradient;
+ 16. cuDNN's bf16 stem convolution (forward, input gradient, weight
+     gradient) at the step's shape with 7 input channels and with the 8 of
+     the packed volume, on the same inputs, each width held against the
+     other and timed in turns beside its bound, and the pack timed alone;
+     then the stem weight-gradient kernel against stem_wgrad_plain in
+     float64 on the same inputs, bf16 and f32, two calls bitwise equal, at
+     the step's shape (x 7 x 128^3, g 64 x 64^3), a small cube and two D !=
+     H != W volumes (one with 8 input channels), timed at each beside the
+     plain version and cuDNN's weight gradient;
  17. the full-width fourier joint step as phase 10 with
      NERAF_STEM_WGRAD_PALLAS=1: exactly one stem-kernel launch a step (and
      none in phases 10 and 14), its ms per step, device busy time and the
-     stem kernel's device time a step beside cuDNN's weight-gradient
-     kernels, against phase 10's run with the gate off in the same call;
+     stem kernel's three device kernels a step beside cuDNN's weight-gradient
+     kernels, against phase 10's run with the gate off in the same call
+     (both profiles also list any cuDNN kernel on f32 operands, "f32f32");
      then steps of a gate-off and the gate-on pipeline in turns;
  18. the tiny f32 joint step with the gate on, card against CPU, as phase
      11 (the card's stem weight gradient from the f32 kernel, the CPU's
@@ -164,6 +170,11 @@ HASH_FWD_TOL, HASH_BWD_TOL = 1e-6, 1e-5
 # both types differ from float64 only by the kernel's f32 sums over up to
 # 262,144 products a slice and 66 slices (a wrong tap or axis is O(1)).
 STEM_REL_TOL = 1e-4
+# cuDNN's bf16 stem conv at 8 input channels (a zero channel, zero weights)
+# against the same conv at 7, relative to the peak: both round f32 sums of
+# the same bf16 products to bf16 outputs (2^-8 of a value at most), summed
+# in another order; a wrong channel or tap is O(1).
+STEM_CONV_BF16_TOL = 2 ** -7
 H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12  # per second
 EVAL_NOISE, EVAL_MIN_PSNR = 0.02, 30.0  # evaluate_vision against render + noise
 GATE = "NERAF_STEM_WGRAD_PALLAS"
@@ -725,14 +736,15 @@ DEVICE_KERNELS = {"pe_mlp_bf16_kernel": "PE+MLP forward",
                   "pe_mlp_reduce_kernel": "PE+MLP backward reduction",
                   "hash_encoding_fwd_kernel": "hash forward",
                   "hash_encoding_bwd_kernel": "hash backward",
-                  "stem_pack_kernel": "stem wgrad channel pad",
-                  "stem_wgrad_bf16_kernel": "stem wgrad",
+                  "stem_split_kernel": "stem wgrad split copy",
+                  "stem_wgrad_wgmma_kernel": "stem wgrad",
                   "stem_reduce_kernel": "stem wgrad reduction"}
 # PyTorch's and cuDNN's own kernels a step, by a part of their names (not
 # counted again for a wrapper's kernel)
 LIBRARY_KERNELS = {"FillFunctor": "zero fills",
                    "FusedAdamMathFunctor": "fused Adam",
-                   "wgrad": "cuDNN weight gradients"}
+                   "wgrad": "cuDNN weight gradients",
+                   "f32f32": "cuDNN kernels on f32 operands"}
 
 
 def busy_ms(events) -> float:
@@ -778,6 +790,11 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
             found[k]["ms"] += (e.time_range.end - e.time_range.start) / 1e3
     found = {k: {"launches": v["launches"] / n, "ms": v["ms"] / n}
              for k, v in found.items()}
+    f32_names = sorted({e.name for e in events if e.device_type.name == "CUDA"
+                        and "f32f32" in e.name})
+    print(f"{what} profile: cuDNN kernels on f32 operands (f32f32) a step: "
+          f"{found['f32f32']['launches']:g} launches "
+          f"{found['f32f32']['ms']:.3f} ms: {f32_names}", flush=True)
     labels = {**DEVICE_KERNELS, **LIBRARY_KERNELS}
     print(f"{what} profile, {n} steps under torch.profiler: host "
           f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / n:.2f} a step), "
@@ -792,11 +809,8 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
 
 def stem_timings(torch, pipe) -> dict:
     """The ResNet3D forward and forward + backward in train mode over the
-    grid alone (through the stem kernel when the pipeline's gate is on),
-    then cuDNN's stem convolution forward, input gradient and weight
-    gradient (CUDA events)."""
-    import torch.nn.functional as F
-
+    grid alone (through the stem kernel when the pipeline's gate is on;
+    the stem on the packed 8-channel volume), CUDA events."""
     from neraf_tpu_torch.models.grid import grid_to_volume
 
     vol = grid_to_volume(pipe.grid, pipe.grid_res)
@@ -816,25 +830,11 @@ def stem_timings(torch, pipe) -> dict:
         cuda_ms(torch, f, 2)
         res[k] = cuda_ms(torch, f, 5)
     pipe.resnet.zero_grad(set_to_none=True)
-    x = vol.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
-    w = pipe.resnet.conv1.weight.detach().to(torch.bfloat16)
-    gy = torch.randn_like(F.conv3d(x, w, stride=2, padding=2))
-    conv_bwd = lambda mask: torch.ops.aten.convolution_backward(
-        gy, x, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False, (0, 0, 0), 1,
-        mask)
-    stem = {}
-    for k, f in (("forward", lambda: F.conv3d(x, w, stride=2, padding=2)),
-                 ("input gradient", lambda: conv_bwd((True, False, False))),
-                 ("weight gradient", lambda: conv_bwd((False, True, False)))):
-        cuda_ms(torch, f, 2)
-        stem[k] = cuda_ms(torch, f, 10)
     print(f"{pipe.resnet.backbone} train mode over {vol.shape[-1]} x "
           f"{pipe.grid_res}^3, bf16, stem kernel "
           f"{pipe.resnet.stem_wgrad_kernel} (ms, CUDA events): " + ", ".join(
-              f"{k} {v:.3f}" for k, v in res.items())
-          + "; cuDNN stem conv k5/s2: " + ", ".join(
-              f"{k} {v:.3f}" for k, v in stem.items()), flush=True)
-    return {**{f"resnet {k}": v for k, v in res.items()}, **stem}
+              f"{k} {v:.3f}" for k, v in res.items()), flush=True)
+    return {f"resnet {k}": v for k, v in res.items()}
 
 
 def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
@@ -1249,13 +1249,127 @@ def stem_bound_ms(x, g) -> tuple:
                                        else "bytes")
 
 
-def stem_check(torch, dev, name, shape, seed) -> dict:
+def device_kernels(torch, fn) -> list:
+    """The device kernels one call of fn runs, with their ms (profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name[:90], round((e.time_range.end - e.time_range.start) / 1e3,
+                                4))
+            for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def stem_conv_channels(torch, dev, shape=(128, 128, 128)) -> dict:
+    """Phase 16, the 8-channel volume: cuDNN's stem convolution in bf16 at
+    the step's shape (x 1 x 128^3 NDHWC, passed as its channels_last_3d
+    NCDHW view as ResNet3D passes it; g 64 x 64^3 in channels_last_3d), at
+    7 input channels and at the 8 of the packed volume made from the same
+    values (a zero 8th channel, zero weights): the forward, the input
+    gradient and the weight gradient, each width held against the other to
+    STEM_CONV_BF16_TOL of the peak and timed in turns (7, 8, 8, 7) beside
+    the bound of its bf16 operations and bytes, with the device kernels
+    cuDNN runs for it; each with cuDNN's heuristics (the port's setting)
+    and again with torch.backends.cudnn.benchmark on (cuDNN times its
+    algorithms and keeps the fastest). Then the pack itself (the f32
+    7-channel grid to the bf16 8-channel volume) timed alone, and, as a
+    yardstick, cuDNN's k3/s1 conv of the space-to-depth folded volume (64
+    channels over 64^3, the JAX package's stem layout)."""
+    import torch.nn.functional as F
+
+    pack_volume = lambda x, dtype: F.pad(x.to(dtype), (0, 1))
+    pad_weight = lambda w: F.pad(w, (0, 0, 0, 0, 0, 0, 0, 1))
+    gen = torch.Generator(device=dev).manual_seed(160)
+    out_shape = tuple((n - 1) // 2 + 1 for n in shape)
+    grid = torch.rand((1, *shape, 7), generator=gen, device=dev)
+    w7 = 0.05 * torch.randn((64, 7, 5, 5, 5), generator=gen, device=dev)
+    gy = torch.randn((1, 64, *out_shape), generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    bf = torch.bfloat16
+    inputs = {7: (grid.to(bf), w7.to(bf)),
+              8: (pack_volume(grid, bf), pad_weight(w7).to(bf))}
+
+    def ops(x, w):
+        xc = x.permute(0, 4, 1, 2, 3)
+        bwd = lambda mask: torch.ops.aten.convolution_backward(
+            gy, xc, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False,
+            (0, 0, 0), 1, mask)
+        return {"forward": lambda: F.conv3d(xc, w, None, 2, 2),
+                "input gradient": lambda: bwd((True, False, False))[0],
+                "weight gradient": lambda: bwd((False, True, False))[1]}
+
+    runs = {c: ops(*inputs[c]) for c in (7, 8)}
+    xf = torch.randn((1, 64, *out_shape), generator=gen, device=dev).to(
+        bf).contiguous(memory_format=torch.channels_last_3d)
+    wf = (0.05 * torch.randn((64, 64, 3, 3, 3), generator=gen,
+                             device=dev)).to(bf)
+    folded = lambda: F.conv3d(xf, wf, None, 1, 1)
+    row = {}
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        tag = "benchmark" if bench else "heuristics"
+        for k in runs[7]:
+            a, b = runs[7][k](), runs[8][k]()
+            if k != "forward":
+                b = b[:, :7]  # the zero channel's gradient, dropped as the pad does
+            torch.cuda.synchronize()
+            rel = float((a.float() - b.float()).abs().max()
+                        / a.float().abs().max())
+            t7a, t8a, t8b, t7b = (cuda_ms(torch, runs[c][k], 10)
+                                  for c in (7, 8, 8, 7))
+            bounds = {}
+            for c in (7, 8):
+                x, w = inputs[c]
+                flops = 2.0 * 64 * c * 125 * gy[0, 0].numel()
+                nbytes = (x.numel() + w.numel() + gy.numel()) * 2
+                t_ops, t_bytes = flops / H100_BF16, nbytes / H100_BYTES
+                bounds[c] = (max(t_ops, t_bytes) * 1e3,
+                             "operations" if t_ops > t_bytes else "bytes")
+            kern = {c: device_kernels(torch, runs[c][k]) for c in (7, 8)}
+            row[f"{k}, {tag}"] = {
+                "ms_7": (t7a + t7b) / 2, "ms_8": (t8a + t8b) / 2,
+                "turns": [t7a, t8a, t8b, t7b], "rel_err_8_vs_7": rel,
+                "bound_ms_7": bounds[7][0], "bound_ms_8": bounds[8][0],
+                "bound_by": bounds[8][1], "kernels_7": kern[7],
+                "kernels_8": kern[8]}
+            print(f"cuDNN stem conv {k}, bf16, {tag}, 7 vs 8 input channels "
+                  f"on the same inputs: {(t7a + t7b) / 2:.4f} vs "
+                  f"{(t8a + t8b) / 2:.4f} ms (turns 7, 8, 8, 7: {t7a:.4f}, "
+                  f"{t8a:.4f}, {t8b:.4f}, {t7b:.4f}); bound {bounds[7][0]:.4f}"
+                  f" / {bounds[8][0]:.4f} ms ({bounds[8][1]}); 8 vs 7 rel "
+                  f"{rel:.3e} (tol {STEM_CONV_BF16_TOL}); device kernels at 7:"
+                  f" {kern[7]}; at 8: {kern[8]}", flush=True)
+            if not rel <= STEM_CONV_BF16_TOL:
+                fail(f"cuDNN stem conv {k}, {tag}: 8 channels differ from 7 "
+                     f"by {rel}")
+            del a, b
+        folded()
+        ms_f = cuda_ms(torch, folded, 10)
+        row[f"folded k3/s1 forward, {tag}"] = {
+            "ms": ms_f, "kernels": device_kernels(torch, folded)}
+        print(f"cuDNN k3/s1 conv of the space-to-depth folded volume (64 "
+              f"channels over {tuple(out_shape)}), bf16, {tag}: {ms_f:.4f} ms; "
+              f"device kernels {row[f'folded k3/s1 forward, {tag}']['kernels']}",
+              flush=True)
+    torch.backends.cudnn.benchmark = False
+    pack = cuda_ms(torch, lambda: pack_volume(grid, bf), 10)
+    print(f"stem volume pack (f32 7 channels -> bf16 8), alone: {pack:.4f} "
+          "ms", flush=True)
+    row["pack_ms"] = pack
+    return row
+
+
+def stem_check(torch, dev, name, shape, cin, seed) -> dict:
     """Phase 16 at one shape: the stem weight-gradient kernel against the
-    plain version in float64 on the same inputs (x (1, D, H, W, 7), g (1,
-    64, Do, Ho, Wo) in channels_last_3d, as the conv's output cotangent
-    arrives), bf16 and f32, to STEM_REL_TOL of the peak; then the kernel,
-    the plain version (float32 sums) and cuDNN's weight gradient of the same
-    conv on the same inputs timed (plain, kernel, kernel, plain, cuDNN)."""
+    plain version in float64 on the same inputs (x (1, D, H, W, cin): 7
+    channels as the stem gives them, or 8 with a zero 8th; g (1, 64, Do,
+    Ho, Wo) in channels_last_3d, as the conv's output cotangent arrives),
+    bf16 and f32, to STEM_REL_TOL of the peak, and a second call bitwise
+    equal to the first; then the kernel, the plain version (float32 sums)
+    and cuDNN's weight gradient of the same conv on the same inputs timed
+    (plain, kernel, kernel, plain, cuDNN)."""
+    import torch.nn.functional as F
+
     from neraf_tpu_torch.ops.cuda.stem_wgrad import stem_wgrad_cuda
     from neraf_tpu_torch.ops.stem_wgrad import stem_wgrad_plain
 
@@ -1264,19 +1378,22 @@ def stem_check(torch, dev, name, shape, seed) -> dict:
     out_shape = tuple((n - 1) // 2 + 1 for n in shape)
     x0 = torch.randn((1, *shape, 7), generator=gen, device=dev)
     g0 = torch.randn((1, 64, *out_shape), generator=gen, device=dev)
-    row = {"shape": list(shape)}
+    row = {"shape": list(shape), "cin": cin}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        x = x0.to(dtype)
+        x = F.pad(x0.to(dtype), (0, cin - 7))
         g = g0.to(dtype).contiguous(memory_format=torch.channels_last_3d)
         got = stem_wgrad_cuda(x, g)
+        again = stem_wgrad_cuda(x, g)
         ref = stem_wgrad_plain(x.double(), g.double())
         torch.cuda.synchronize()
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             fail(f"stem wgrad {name} {tag}: shape {tuple(got.shape)} or not "
                  "finite")
+        if not torch.equal(got, again):
+            fail(f"stem wgrad {name} {tag}: two calls differ")
         err = float((got.double() - ref).abs().max())
         rel = err / float(ref.abs().max())
-        w = torch.zeros((64, 7, 5, 5, 5), dtype=dtype, device=dev)
+        w = torch.zeros((64, cin, 5, 5, 5), dtype=dtype, device=dev)
         xc = x.permute(0, 4, 1, 2, 3)
         cudnn = lambda: torch.ops.aten.convolution_backward(
             g, xc, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False, (0, 0, 0),
@@ -1292,16 +1409,17 @@ def stem_check(torch, dev, name, shape, seed) -> dict:
         ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
         print(f"stem wgrad {name} x {tuple(x.shape)} g {tuple(g.shape)} {tag}: "
               f"max_abs_err {err:.3e}, rel {rel:.3e} vs float64 (tol "
-              f"{STEM_REL_TOL}); kernel {ms_k:.4f} ms [{k1:.4f}, {k2:.4f}] "
-              f"plain {ms_p:.3f} ms [{p1:.3f}, {p2:.3f}] cuDNN wgrad "
-              f"{c1:.4f} ms; bound {bound:.4f} ms ({by})", flush=True)
+              f"{STEM_REL_TOL}), two calls bitwise equal; kernel "
+              f"{ms_k:.4f} ms [{k1:.4f}, {k2:.4f}] plain {ms_p:.3f} ms "
+              f"[{p1:.3f}, {p2:.3f}] cuDNN wgrad {c1:.4f} ms; bound "
+              f"{bound:.4f} ms ({by})", flush=True)
         if not rel <= STEM_REL_TOL:
             fail(f"stem wgrad kernel disagrees with float64 at {name} {tag}: "
                  f"rel {rel}")
         row[tag] = {"max_abs_err": err, "rel_err": rel, "ms": ms_k,
                     "plain_ms": ms_p, "library_ms": c1, "bound_ms": bound,
                     "bound_by": by}
-        del got, ref, x, g, xc
+        del got, again, ref, x, g, xc
         torch.cuda.empty_cache()
     return row
 
@@ -1684,11 +1802,15 @@ def main() -> int:
         print(f"tiny hash joint F{F}: table gradient "
               f"{worst['field.hash.table']:.3e} of its peak", flush=True)
 
-    # phase 16: the stem weight-gradient kernel against the plain version
-    stem_rows = {name: stem_check(torch, dev, name, shape, seed)
-                 for name, shape, seed in (("step", (128, 128, 128), 16),
-                                           ("cube", (16, 16, 16), 17),
-                                           ("asymmetric", (10, 34, 18), 18))}
+    # phase 16: cuDNN's stem conv at 7 and 8 input channels, then the stem
+    # weight-gradient kernel against the plain version
+    stem_conv_rows = stem_conv_channels(torch, dev)
+    stem_rows = {name: stem_check(torch, dev, name, shape, cin, seed)
+                 for name, shape, cin, seed in (
+                     ("step", (128, 128, 128), 7, 16),
+                     ("cube", (16, 16, 16), 7, 17),
+                     ("asymmetric", (10, 34, 18), 8, 18),
+                     ("asymmetric_w", (10, 18, 34), 7, 19))}
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -1703,7 +1825,7 @@ def main() -> int:
                                               "stem": 1},
                               what="joint step, stem kernel")
     kern_on = sjoint["kernels"]
-    stem_kernels = ("stem_pack_kernel", "stem_wgrad_bf16_kernel",
+    stem_kernels = ("stem_split_kernel", "stem_wgrad_wgmma_kernel",
                     "stem_reduce_kernel")
     stem_dev = sum(kern_on[k]["ms"] for k in stem_kernels)
     wg_on, wg_off = kern_on["wgrad"], joint["kernels"]["wgrad"]
@@ -1823,7 +1945,8 @@ def main() -> int:
         "train_step_busy_ms": {"gate_on": sjoint["busy_ms_per_step"],
                                "gate_off": joint["busy_ms_per_step"]},
         "train_step_turns": turns,
-        "cudnn_stem_ms": joint["stem_ms"],
+        "cudnn_stem_conv_7_vs_8_channels": stem_conv_rows,
+        "gate_off_resnet_ms": joint["stem_ms"],
         "gate_on_resnet_ms": sjoint["stem_ms"]}, {
         "name": "shifted_value_concat", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/shifted_concat.cu",

@@ -2,7 +2,7 @@
 // pe_mlp_bwd.cu: backward): the packed-layout constants, the range-reduced
 // encoding, the Hopper primitives (mbarriers, bulk copies, wgmma), the
 // weight ring and the register-resident wgmma row-tile engine; stem_wgrad.cu
-// uses the mma.sync and ldmatrix wrappers. Everything here has internal
+// uses the primitives, ldmatrix and wgmma_rs_n40. Everything here has internal
 // linkage, so each source gets its own copy.
 //
 // The bf16 row-tile engine (forward kernel, backward row-tile kernel): a
@@ -273,6 +273,21 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
       "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
       "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB));
+}
+
+// stem_wgrad.cu: 5 kh taps x 8 input channels
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)[4],
+    uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19}, {%20, %21, %22, %23}, %24, 1, 1, 1, %25;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB));
 }
 

@@ -170,13 +170,17 @@ class ResNet3D(nn.Module):
             if isinstance(mod, BatchNorm3d):
                 mod.update_stats = on
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem convolution of the NDHWC volume x, before bn1 -> (1, 64,
+        Do, Ho, Wo). It stays on the 7 grid channels: padded to 8, cuDNN's
+        forward took no tensor-core kernel and ran slower (PERF.md)."""
         dtype = self.conv1.weight.dtype
         if self.stem_wgrad_kernel and self.training and torch.is_grad_enabled():
-            x = stem_conv(x.to(dtype), self.conv1.weight)
-        else:
-            x = self.conv1(x.permute(0, 4, 1, 2, 3).to(dtype))
-        x = F.relu(self.bn1(x))
+            return stem_conv(x.to(dtype), self.conv1.weight)
+        return self.conv1(x.permute(0, 4, 1, 2, 3).to(dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.stem(x)))
         x = F.max_pool3d(x, 3, 2, 1)
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)

@@ -7,7 +7,8 @@ gradient from cuDNN's (aten.convolution_backward, only when x needs one),
 over the whole volume: the JAX package's slab-local input VJP is not
 ported, since cuDNN's full-volume input gradient is small on the card
 (PERF.md); the weight gradient from ops/stem_wgrad.py::stem_wgrad, the
-plain version on the CPU and the CUDA kernel on a card, never cuDNN's.
+plain version on the CPU and the CUDA kernel on a card, never cuDNN's (the
+kernel's wrapper pads the 7 grid channels to its 8).
 
 Under autocast, x and the weight are cast to the autocast type before the
 function, as autocast casts a conv's inputs: the weight gradient is summed

@@ -51,8 +51,9 @@ def stem_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def stem_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The stem's weight gradient, f32: the plain version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor (or it raises)."""
+    """The stem's weight gradient (cout, cin, 5, 5, 5), f32: the plain
+    version for a CPU tensor, the CUDA kernel for a CUDA tensor (or it
+    raises)."""
     if x.device.type == "cpu":
         return stem_wgrad_plain(x, g)
     from neraf_tpu_torch.ops.cuda.stem_wgrad import stem_wgrad_cuda

@@ -2,6 +2,7 @@
 
 Bridged weights, random non-trivial batch_stats so BatchNorm's running
 statistics are exercised, a 16^3 grid with the 7 grid channels, f32 on CPU.
+ResNet3D.stem (gate off, gate on, eval) against F.conv3d in float64.
 """
 
 import jax
@@ -9,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from neraf_tpu.models.resnet3d import ResNet3D as JResNet3D
 from neraf_tpu_torch.bridge import load_state_dict, resnet_state_dict
@@ -79,3 +81,31 @@ def test_seeded_init_is_xavier_and_reproducible():
     w = a.conv1.weight.detach()  # (64, 7, 5, 5, 5): fans 7*125 and 64*125
     std = np.sqrt(2.0 / (7 * 125 + 64 * 125))
     assert abs(float(w.std()) / std - 1.0) < 0.05
+
+
+@pytest.mark.parametrize("mode", ["gate_off", "gate_on", "eval"])
+def test_stem_matches_conv3d_in_float64(mode):
+    """ResNet3D.stem on the 7 grid channels (gate off and eval: the
+    nn.Conv3d; gate on: StemConvFunction with the plain weight gradient).
+    In float64 its output, dx and the parameter's gradient equal F.conv3d's
+    autograd to 1e-10 of each peak (only the order of the sums differs)."""
+    net = ResNet3D(backbone="resnet18").double()
+    net.reset_parameters(torch.Generator().manual_seed(3))
+    net.train(mode != "eval")
+    net.stem_wgrad_kernel = mode == "gate_on"
+    rng = np.random.default_rng(11)
+    x0 = torch.from_numpy(rng.uniform(0, 1, size=(1, 12, 10, 14, 7)))
+    g = torch.from_numpy(rng.normal(size=(1, 64, 6, 5, 7)))
+    x, xr = x0.clone().requires_grad_(), x0.clone().requires_grad_()
+    wr = net.conv1.weight.detach().clone().requires_grad_()
+    out = net.stem(x)
+    ref = F.conv3d(xr.permute(0, 4, 1, 2, 3), wr, None, 2, 2)
+    out.backward(g)
+    ref.backward(g)
+    assert net.conv1.weight.grad.shape == (64, 7, 5, 5, 5)
+    for got, want in ((out, ref), (x.grad, xr.grad),
+                      (net.conv1.weight.grad, wr.grad)):
+        assert got.dtype == torch.float64 and got.shape == want.shape
+        got, want = got.detach(), want.detach()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-10, err

@@ -87,13 +87,16 @@ def test_stem_wgrad_dispatches_on_cpu():
 
 @pytest.mark.parametrize("bad,match", [
     ("device", "unsupported device"), ("dtype", "one type"),
-    ("cin", "input channels"), ("cout", "output channels"),
-    ("voxels", "output voxels"), ("batch", "batch-1")])
+    ("cin", "input channels"), ("cin0", "input channels"),
+    ("cout", "output channels"), ("voxels", "output voxels"),
+    ("batch", "batch-1"), ("g_batch", "batch-1")])
 def test_stem_wgrad_cuda_refuses_what_the_kernel_does_not_take(bad, match):
     """Checked before any launch, the device last: meta tensors reach every
-    other check without a card."""
+    other check without a card. The kernel takes 1..8 input channels."""
     x, g = (1, 8, 8, 8, 7), (1, 64, 4, 4, 4)
-    x, g = {"cin": ((1, 8, 8, 8, 9), g), "cout": (x, (1, 32, 4, 4, 4)),
+    x, g = {"cin": ((1, 8, 8, 8, 9), g), "cin0": ((1, 8, 8, 8, 0), g),
+            "cout": (x, (1, 32, 4, 4, 4)),
+            "g_batch": (x, (2, 64, 4, 4, 4)),
             "voxels": (x, (1, 64, 4, 4, 5)),
             "batch": ((2, 8, 8, 8, 7), (2, 64, 4, 4, 4))}.get(bad, (x, g))
     xt, gt = torch.zeros(x, device="meta"), torch.zeros(g, device="meta")
@@ -102,6 +105,20 @@ def test_stem_wgrad_cuda_refuses_what_the_kernel_does_not_take(bad, match):
     with pytest.raises(TypeError if bad == "dtype" else ValueError,
                        match=match):
         sw_cuda.stem_wgrad_cuda(xt, gt)
+
+
+def test_stem_wgrad_plain_of_packed_volume_is_the_7_channel_one():
+    """The weight gradient of the volume padded with a zero 8th channel (the
+    kernel's reading), in float64: its first 7 input channels are the
+    7-channel volume's to 1e-10 of the peak, and the 8th is exactly zero."""
+    x, g = _inputs(12, (10, 12, 8), 64)
+    xt, gt = torch.from_numpy(x).double(), torch.from_numpy(g).double()
+    packed = sw.stem_wgrad_plain(F.pad(xt, (0, 1)), gt)
+    want = sw.stem_wgrad_plain(xt, gt)
+    assert packed.shape == (64, 8, 5, 5, 5)
+    err = float((packed[:, :CIN] - want).abs().max() / want.abs().max())
+    assert err <= 1e-10, err
+    assert float(packed[:, CIN].abs().max()) == 0.0
 
 
 def test_stem_conv_matches_conv3d_autograd():
@@ -196,26 +213,38 @@ def test_joint_pipeline_reads_the_gate_once(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 16, 16), (10, 18, 34), (128, 128, 128)],
-                         ids=["cube", "asymmetric", "step"])
+@pytest.mark.parametrize("cin", [7, 8], ids=["cin7", "packed"])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (10, 18, 34), (10, 34, 18),
+                                   (13, 19, 37), (128, 128, 128)],
+                         ids=["cube", "asymmetric", "asymmetric_h", "ragged",
+                              "step"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_stem_wgrad_kernel_matches_plain_on_card(shape, dtype):
+def test_stem_wgrad_kernel_matches_plain_on_card(shape, dtype, cin):
     """The kernel against the plain version in float64 on the same inputs,
-    to 1e-4 of the peak (f32 sums over up to 262,144 products); one
-    launch."""
+    to 1e-4 of the peak (f32 sums over up to 262,144 products); one launch
+    a call, and a second call bitwise equal to the first (fixed summation
+    order). cin 7, the ResNet's grid channels: the split pass pads them to
+    the kernel's 8; packed: a zero 8th channel given, whose dW channel is
+    exactly zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
     x, g = _inputs(len(shape) + shape[0], shape, 64)
     xt = torch.from_numpy(x).cuda().to(dtype)
+    if cin == 8:
+        xt = F.pad(xt, (0, 1))
     gt = torch.from_numpy(g).cuda().to(dtype)
     n = sw_cuda.LAUNCHES
     got = sw.stem_wgrad(xt, gt)
+    again = sw.stem_wgrad(xt, gt)
     torch.cuda.synchronize()
-    assert sw_cuda.LAUNCHES == n + 1 and got.dtype == torch.float32
+    assert sw_cuda.LAUNCHES == n + 2 and got.dtype == torch.float32
+    assert got.shape == (64, cin, 5, 5, 5) and torch.equal(got, again)
     want = sw.stem_wgrad_plain(xt.double(), gt.double())
     err = float((got.double() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+    if cin == 8:
+        assert float(got[:, 7].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
