@@ -87,7 +87,19 @@ Phases, each fatal on failure:
      from the plain version);
  19. the shifted-slice concat kernel against torch.cat, bitwise, at (8, 19,
      128) t 16, (8, 19, 256) t 16 and (1024, 79, 128) t 78, timed at the
-     last beside torch.cat.
+     last beside torch.cat;
+ 20. the joint pipeline's eval paths on the full-width fourier pipeline
+     (seed 0, bf16, two train steps first) and a synthetic SoundSpaces eval
+     split of 1,024 RIRs (data/synthetic.py): evaluate_audio and
+     evaluate_audio_device at chunks of 512, twice each, with the JAX
+     paths' keys, finite values, 4 and 2 GL launches a sweep and no
+     pe_mlp launch, fps_audio, ms a chunk and the host metrics' seconds;
+     the batched estimators against the host ones per RIR on the GT
+     waveforms (fatal) and on one chunk's predictions (printed);
+     eval_loss_dict (3 pe_mlp launches), eval_image on a 512 x 512 view
+     and one RIR (24), query_grid_full over 2,097,152 cells (512), each
+     timed; the train state bitwise unchanged by the phase; then the tiny
+     f32 eval_loss_dict and the GT estimates, card against CPU.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -1514,7 +1526,313 @@ def table_costs(torch, table) -> dict:
     return {"zero_grad_ms": zero, "adam_ms": adam}
 
 
+# Phase 20: the eval paths. The batched estimators against the host ones
+# on the GT waveforms (decaying RIRs): both integrate the energy in
+# float64, so a crossing sits at the same sample and T60, EDT and C50 agree
+# to float rounding; EVAL_RTOL leaves room for that and fails a wrong
+# search (a sample's shift is 1e-3 of an EDT of 0.05 s at 22,050 Hz only
+# for EDT under ~0.3 s, so any shift there fails). Card against CPU, the
+# estimators' index arithmetic is exact: T60 and EDT equal, C50 within one
+# float32 ulp (float64 sums in another order, rounded to the input's
+# float32: 6e-8 relative on an H100).
+EVAL_RTOL, EVAL_C50_DEVICE_RTOL = 1e-3, 2.0 ** -23
+EVAL_RIRS, EVAL_CHUNK = 1024, 512
+EVAL_KEYS = ("audio_T60_mean_error", "audio_total_invalids_T60", "audio_EDT",
+             "audio_C50")
+HOST_EVAL_KEYS = {f"{k}{s}" for k in EVAL_KEYS for s in ("", "_std")} | {
+    "fps_audio", "num_rays_per_sec_audio"}
+DEVICE_EVAL_KEYS = {*EVAL_KEYS, "audio_mag", "fps_audio",
+                    "num_rays_per_sec_audio"}
+LOSS_KEYS = {"rgb_loss", "interlevel_loss", "distortion_loss", "audio_sc_loss",
+             "audio_mag_loss"}
+
+
+def train_state(torch, pipe) -> dict:
+    """Copies of everything a train step reads and writes: weights,
+    BatchNorm statistics, Adam state, grid, cursor, step, generator."""
+    state = {f"{name}.{k}": v.detach().clone() for name, m in (
+        ("vision", pipe.vision_model), ("audio", pipe.audio_model),
+        ("resnet", pipe.resnet)) for k, v in m.state_dict().items()}
+    for g, opt in pipe.optimizers.items():
+        for i, st in enumerate(opt.opt.state.values()):
+            state.update({f"adam.{g}.{i}.{k}": v.clone() for k, v in st.items()
+                          if torch.is_tensor(v)})
+    state["grid"] = pipe.grid.clone()
+    state["generator"] = pipe.generator.get_state()
+    state["cursor"] = torch.tensor(pipe.cursor)
+    state["step"] = torch.tensor(pipe.step)
+    return state
+
+
+def host_estimates(wavs: np.ndarray, fs: float) -> dict:
+    """Per RIR and channel: the host T60 (30 dB, -1 where it raises), EDT
+    and C50 of (M, C, L) waveforms."""
+    from neraf_tpu_torch.metrics import room_acoustics as ra
+
+    def t60(h):
+        try:
+            return ra.measure_rt60(h, fs, decay_db=30)
+        except (IndexError, ValueError, FloatingPointError):
+            return -1.0
+
+    flat = wavs.reshape(-1, wavs.shape[-1])
+    out = {"t60": [t60(h) for h in flat],
+           "edt": [ra.measure_edt(h, fs) for h in flat],
+           "c50": [ra.measure_clarity(h, fs=fs) for h in flat]}
+    return {k: np.asarray(v).reshape(wavs.shape[:-1]) for k, v in out.items()}
+
+
+def device_estimates(torch, wavs, fs: float) -> dict:
+    from neraf_tpu_torch.metrics import room_acoustics as ra
+
+    return {"t60": ra.batched_rt60(wavs, fs, decay_db=30.0).cpu().numpy(),
+            "edt": ra.batched_edt(wavs, fs).cpu().numpy(),
+            "c50": ra.batched_clarity(wavs, fs).cpu().numpy()}
+
+
+def estimate_gaps(dev: dict, host: dict) -> dict:
+    """Invalid-T60 flags that differ, and the largest relative gaps where
+    both sides are valid (T60) or finite (EDT, C50)."""
+    flips = int(((dev["t60"] < 0) != (host["t60"] < 0)).sum())
+    both = (dev["t60"] >= 0) & (host["t60"] >= 0)
+    rel = lambda a, b, m: float((np.abs(a - b)[m] / np.abs(b)[m]).max()
+                                if m.any() else 0.0)
+    fin = lambda k: np.isfinite(dev[k]) & np.isfinite(host[k])
+    return {"t60_flag_flips": flips, "t60_valid": int(both.sum()),
+            "t60_rel": rel(dev["t60"], host["t60"], both),
+            "edt_rel": rel(dev["edt"], host["edt"], fin("edt")),
+            "edt_nan_flips": int((np.isnan(dev["edt"])
+                                  != np.isnan(host["edt"])).sum()),
+            "c50_rel": rel(dev["c50"], host["c50"], fin("c50"))}
+
+
+def check_eval_dict(out: dict, keys: set, what: str) -> None:
+    """The reference's keys; every value finite except EDT, which the
+    reference's own test lets be NaN on degenerate predictions
+    (tests/test_eval_paths.py:90)."""
+    if set(out) != keys:
+        fail(f"{what}: keys {sorted(out)}, expected {sorted(keys)}")
+    bad = {k: v for k, v in out.items()
+           if not np.isfinite(v) and not k.startswith("audio_EDT")}
+    if bad:
+        fail(f"{what}: not finite {bad}")
+
+
+def counted(torch, what: str, fn, want: dict):
+    """fn() with every launch count set to 0 just before and read just
+    after; fails unless the counts are `want` (others 0) -> (result,
+    counts, seconds by the host clock, the device synchronised)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    expect = {k: want.get(k, 0) for k in counts}
+    if counts != expect:
+        fail(f"{what}: launches {counts}, expected {expect}")
+    return out, counts, dt
+
+
+def eval_phase(torch, dev) -> dict:
+    """Phase 20: the eval paths of the full-width fourier JointPipeline
+    (seed 0, bf16; two train steps first, so that the grid, BatchNorm
+    statistics and Adam state are not their initial values) on a synthetic
+    SoundSpaces eval split of EVAL_RIRS RIRs."""
+    from neraf_tpu_torch.data.synthetic import synth_scene
+    from neraf_tpu_torch.dsp.griffin_lim import random_angles
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+
+    pipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0)
+    cams, audio, images = bench_inputs(torch, dev)
+    pipe.step = 3000  # the audio branch live: the statistics move
+    for i in range(2):
+        check_metrics(pipe.train_step(cams, audio, images), f"eval warm-up {i}")
+    cfg = pipe.audio_model.config
+    t0 = time.perf_counter()
+    ds = synth_scene(EVAL_RIRS, fs=cfg.fs, max_len=cfg.max_len, seed=1)
+    print(f"eval: split of {EVAL_RIRS} synthetic RIRs (binaural, "
+          f"{cfg.n_freq_stft} bins, T {cfg.max_len}, waveforms "
+          f"{ds.waveforms.shape[-1]} samples) built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    before = train_state(torch, pipe)
+    n_chunks = -(-EVAL_RIRS // EVAL_CHUNK)
+    res = {}
+
+    # the audio sweeps, twice each (the first pays the cold start)
+    for name, fn, keys, gl in (
+            ("evaluate_audio", pipe.evaluate_audio, HOST_EVAL_KEYS, 2),
+            ("evaluate_audio_device", pipe.evaluate_audio_device,
+             DEVICE_EVAL_KEYS, 1)):
+        for run in range(2):
+            out, counts, wall = counted(
+                torch, f"{name} {run}", lambda: fn(ds, chunk=EVAL_CHUNK),
+                {"gl": gl * n_chunks})
+            check_eval_dict(out, keys, f"{name} {run}")
+            timed = EVAL_RIRS / out["fps_audio"]
+            print(f"eval {name} run {run}: fps_audio {out['fps_audio']:.2f} "
+                  f"({'render' if gl == 2 else 'whole sweep'} "
+                  f"{timed * 1e3:.2f} ms, {timed * 1e3 / n_chunks:.2f} ms a "
+                  f"chunk of {EVAL_CHUNK}); wall {wall:.3f} s, host metrics "
+                  f"and transfers {wall - timed:.3f} s; launches {counts}; "
+                  f"{json.dumps(out)}", flush=True)
+            res[name] = {"fps_audio": out["fps_audio"], "wall_s": wall,
+                         "ms_per_chunk": timed * 1e3 / n_chunks,
+                         "gl_launches": counts["gl"], "metrics": out}
+
+    # host against device estimators, per RIR: on the GT waveforms (fatal),
+    # then on one chunk's predictions (printed)
+    gt = torch.as_tensor(ds.waveforms, device=dev)
+    t0 = time.perf_counter()
+    host = host_estimates(ds.waveforms, cfg.fs)
+    host_s = time.perf_counter() - t0
+    gaps = estimate_gaps(device_estimates(torch, gt, cfg.fs), host)
+    print(f"eval GT estimates, device vs host ({host_s:.2f} s host), "
+          f"{EVAL_RIRS} x {cfg.mic_ch}: {gaps}", flush=True)
+    if not (gaps["t60_flag_flips"] == 0 and gaps["edt_nan_flips"] == 0
+            and max(gaps["t60_rel"], gaps["edt_rel"], gaps["c50_rel"])
+            <= EVAL_RTOL and gaps["t60_valid"] > 0):
+        fail(f"eval: device and host estimators differ on the GT: {gaps}")
+    o = ds.outputs
+    angles = random_angles((EVAL_CHUNK, *ds.log_stft.shape[1:]),
+                           torch.Generator(device=dev).manual_seed(0), dev)
+    sl = slice(0, EVAL_CHUNK)
+    wav = pipe.render_rir_chunk(o.microphone_poses[sl], o.source_poses[sl],
+                                o.rotations[sl], ds.log_stft[sl], angles)[3]
+    wav = torch.nn.functional.pad(wav, (0, gt.shape[-1] - wav.shape[-1]))
+    pred_gaps = estimate_gaps(device_estimates(torch, wav, cfg.fs),
+                              host_estimates(wav.cpu().numpy(), cfg.fs))
+    print(f"eval prediction estimates, device vs host, {EVAL_CHUNK} x "
+          f"{cfg.mic_ch} (printed, not gated: degenerate untrained RIRs): "
+          f"{pred_gaps}", flush=True)
+
+    # eval_loss_dict at full width
+    losses, counts, dt = counted(
+        torch, "eval_loss_dict",
+        lambda: pipe.eval_loss_dict(cams, audio, images), {"pe_fwd": 3})
+    if set(losses) != LOSS_KEYS | {"audio_mag"} or not all(
+            np.isfinite(v) for v in losses.values()):
+        fail(f"eval_loss_dict: {losses}")
+    print(f"eval_loss_dict ({pipe.config.vision_data.eval_rays_per_batch} "
+          f"rays, {pipe.config.audio_data.batch_size} slices): {dt * 1e3:.2f}"
+          f" ms, launches {counts}; {json.dumps(losses)}", flush=True)
+    res["eval_loss_dict"] = {"pe_launches": counts["pe_fwd"], "ms": dt * 1e3}
+
+    # eval_image: one 512 x 512 view and one RIR
+    H, W = images["images"].shape[1:3]
+    item = {"mic_pose": o.microphone_poses[0], "source_pose": o.source_poses[0],
+            "rot": o.rotations[0], "data": ds.log_stft[0]}
+    n_img_chunks = -(-H * W // pipe.config.vision_model.eval_num_rays_per_chunk)
+    (metrics, imgs), counts, dt = counted(
+        torch, "eval_image",
+        lambda: pipe.eval_image(cams, 0, images["images"][0].cpu().numpy(),
+                                eval_audio_item=item),
+        {"pe_fwd": 3 * n_img_chunks})
+    shapes = {k: v.shape for k, v in imgs.items()}
+    want = {"img": (H, W, 3), "depth": (H, W), "accumulation": (H, W),
+            "grid": (pipe.grid_res, pipe.grid_res, 3),
+            "grid_density": (pipe.grid_res, pipe.grid_res, 3),
+            **{f"comparison_ch_{c}": (cfg.n_freq_stft, 2 * cfg.max_len, 3)
+               for c in range(cfg.mic_ch)}}
+    if shapes != want or not all(np.isfinite(v).all() for v in imgs.values()):
+        fail(f"eval_image: images {shapes}, expected {want}")
+    if not all(np.isfinite(metrics[k]) for k in ("psnr", "ssim", "audio_mag")):
+        fail(f"eval_image: metrics {metrics}")
+    print(f"eval_image ({H} x {W}, {n_img_chunks} chunks, one RIR): "
+          f"{dt * 1e3:.2f} ms, launches {counts}; psnr {metrics['psnr']:.4f} "
+          f"ssim {metrics['ssim']:.4f} audio_mag {metrics['audio_mag']:.4f}; "
+          f"images {shapes}", flush=True)
+    res["eval_image"] = {"pe_launches": counts["pe_fwd"], "ms": dt * 1e3}
+
+    # query_grid_full over every cell
+    n_cells, batch = pipe.cells.shape[0], 4096
+    grid, counts, dt = counted(
+        torch, "query_grid_full", lambda: pipe.query_grid_full(batch),
+        {"pe_fwd": n_cells // batch})
+    if not (bool(torch.isfinite(grid).all()) and bool((grid[:, :3] > 0).all())
+            and bool(((grid[:, 3] >= 0) & (grid[:, 3] <= 1)).all())
+            and torch.equal(grid[:, 4:], pipe.grid[:, 4:])):
+        fail("query_grid_full: a cell not written, or the coordinates moved")
+    print(f"query_grid_full: {n_cells} cells in {n_cells // batch} batches of "
+          f"{batch}: {dt:.3f} s, launches {counts}", flush=True)
+    res["query_grid_full"] = {"pe_launches": counts["pe_fwd"], "s": dt}
+
+    after = train_state(torch, pipe)
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    if moved or set(after) != set(before):
+        fail(f"eval phase changed the train state: {moved[:10]}")
+    print(f"eval: the train state ({len(before)} tensors: weights, BatchNorm "
+          "statistics, Adam state, grid, cursor, step, generator) is bitwise "
+          "unchanged", flush=True)
+    return res
+
+
+def eval_card_vs_cpu(torch) -> dict:
+    """Phase 20's tiny f32 check: eval_loss_dict on the card against the
+    CPU from the same weights, state and draws (the CPU's fields in
+    float64, as phase 11), and the batched estimators' GT estimates on
+    both devices."""
+    from neraf_tpu_torch.data.loader import audio_arrays
+    from neraf_tpu_torch.data.synthetic import synth_scene
+    from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+
+    on = {d: build_joint_pipeline(grid_res=32, tiny=True, device=d, seed=0,
+                                  mixed_precision=False)
+          for d in ("cpu", "cuda")}
+    vm = on["cpu"].vision_model
+    for field in (vm.field, *vm.proposal_networks):
+        field.dtype = torch.float64
+    rng = np.random.default_rng(9)
+    H, W, n_rec = 12, 10, 5
+    cams = synthetic_cameras(8, H, W, seed=3)
+    images = rng.uniform(0.0, 1.0, (8, H, W, 3)).astype(np.float32)
+    split = {"mic_pose": rng.uniform(-2, 2, (n_rec, 3)),
+             "source_pose": rng.uniform(-2, 2, (n_rec, 3)),
+             "rot": rng.uniform(0, 1, (n_rec, 3)),
+             "log_stft": rng.normal(-3, 0.5, (n_rec, 2, 257, 12))}
+    grid = on["cpu"].grid.clone()
+    grid[:, :4] = torch.as_tensor(rng.uniform(0, 1, (grid.shape[0], 4)))
+    cfg = on["cpu"].config
+    R, B = cfg.vision_data.eval_rays_per_batch, cfg.audio_data.batch_size
+    draws = {"cam": rng.integers(0, 8, R), "py": rng.integers(0, H, R),
+             "px": rng.integers(0, W, R), "rec": rng.integers(0, n_rec, B),
+             "t": rng.integers(0, 12, B)}
+    m = {}
+    for d, p in on.items():
+        p.grid = grid.to(d)
+        m[d] = p.eval_loss_dict(camera_arrays(cams, d), audio_arrays(split, d),
+                                {"images": torch.as_tensor(images, device=d)},
+                                draws)
+    ref = m["cpu"]
+    total = ref["rgb_loss"] + ref["audio_mag_loss"]
+    for k, v in ref.items():
+        atol = (TRAIN_LOSS_RTOL * total
+                if k in ("interlevel_loss", "distortion_loss") else 0.0)
+        if not abs(m["cuda"][k] - v) <= TRAIN_LOSS_RTOL * abs(v) + atol:
+            fail(f"tiny eval_loss_dict: {k} card {m['cuda'][k]} vs cpu {v}")
+    ds = synth_scene(16, max_len=60, seed=2)
+    est = {d: device_estimates(torch, torch.as_tensor(ds.waveforms, device=d),
+                               ds.fs) for d in ("cpu", "cuda")}
+    c50_rel = float(np.abs(est["cuda"]["c50"].astype(np.float64)
+                           / est["cpu"]["c50"] - 1).max())
+    same = {k: int((est["cuda"][k] != est["cpu"][k]).sum()) for k in ("t60", "edt")}
+    if any(same.values()) or not c50_rel <= EVAL_C50_DEVICE_RTOL:
+        fail(f"batched GT estimates differ card vs CPU: T60 and EDT at "
+             f"{same} of {est['cpu']['t60'].size}, C50 {c50_rel:.3e} relative")
+    err = {k: abs(m["cuda"][k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+    print(f"tiny eval card vs cpu: eval_loss_dict within {TRAIN_LOSS_RTOL} "
+          f"(relative gaps {json.dumps(err)}); GT T60 and EDT equal "
+          f"({int((est['cpu']['t60'] >= 0).sum())} of "
+          f"{est['cpu']['t60'].size} T60 valid), C50 within {c50_rel:.2e} "
+          f"(tol {EVAL_C50_DEVICE_RTOL:.2e})",
+          flush=True)
+    return err
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1530,6 +1848,7 @@ def main() -> int:
         build_vision_pipeline,
         joint_config,
     )
+    from neraf_tpu_torch.engine.pipeline import gl_waveforms
     from neraf_tpu_torch.ops.cuda import build
     from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
     from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
@@ -1602,7 +1921,7 @@ def main() -> int:
         stages = {
             "grid_feature": lambda: pipe.grid_feature(),
             "render_rirs": lambda: pipe.render_rirs(mic, src, rot),
-            "griffin_lim": lambda: pipe._griffin_lim(mag, ang),
+            "griffin_lim": lambda: gl_waveforms(cfg, mag, ang),
         }
         parts = {k: cuda_ms(torch, f, 3) for k, f in stages.items()}
         print(f"slice breakdown {n} RIRs (ms): " +
@@ -1855,6 +2174,16 @@ def main() -> int:
     # phase 19: the shifted-slice concat against torch.cat
     concat = concat_check(torch, dev)
 
+    # phase 20: the eval paths of the joint pipeline, then the tiny f32
+    # card-vs-CPU check
+    t0 = time.perf_counter()
+    evals = eval_phase(torch, dev)
+    eval_card_vs_cpu(torch)
+    print(f"phase 20: {time.perf_counter() - t0:.2f} s; the run so far "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     gl_row = gl_rows[("soundspaces", 1024)]
     gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
     main_bf16 = pe_rows["main_field"]["bf16"]
@@ -1876,7 +2205,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": gl_row["err"],
         "ms": gl_row["ms"], "plain_ms": gl_row["plain_ms"],
         "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None,
-        "max_abs_err_32_iter": gl_row["err32"], "plan": gl_row["plan"]}, {
+        "max_abs_err_32_iter": gl_row["err32"], "plan": gl_row["plan"],
+        "eval_sweep_launches": {
+            k: evals[k]["gl_launches"]
+            for k in ("evaluate_audio", "evaluate_audio_device")}}, {
         "name": "pe_mlp_fwd", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/pe_mlp.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:373",
@@ -1886,6 +2218,8 @@ def main() -> int:
         "train_step_launches": joint["pe_fwd"], "shapes": pe_rows,
         "hash_render_launches": hvis["launches"]["pe_mlp"],
         "hash_train_step_launches": hjoint["pe_fwd"],
+        "eval_launches": {k: evals[k]["pe_launches"] for k in (
+            "eval_loss_dict", "eval_image", "query_grid_full")},
         "train_step_device_kernels": {"pe_mlp_bf16_kernel":
                                       kern["pe_mlp_bf16_kernel"]}}, {
         "name": "pe_mlp_bwd", "route": "cuda",

@@ -1,1 +1,1 @@
-"""Data: camera arrays, rays, pixel and STFT-slice batches."""
+"""Data: camera arrays, rays, pixel and STFT-slice batches, the audio split and the synthetic validation scenes."""

@@ -1,1 +1,1 @@
-"""Metrics: PSNR, SSIM and the spectral losses."""
+"""Metrics: PSNR, SSIM, the spectral losses, the room-acoustic estimators and the evaluators."""

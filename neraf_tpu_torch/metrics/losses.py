@@ -1,5 +1,6 @@
-"""Spectral losses for acoustic-field training (counterpart of
-neraf_tpu/metrics/losses.py:13-39, the reference's STFTLoss)."""
+"""Spectral losses for acoustic-field training and the quick eval
+(counterpart of neraf_tpu/metrics/losses.py: the reference's STFTLoss and
+the SING spectral loss)."""
 
 from __future__ import annotations
 
@@ -32,3 +33,22 @@ def stft_loss(x_log: torch.Tensor, y_log: torch.Tensor,
         "audio_sc_loss": spectral_convergence_loss(x_mag, y_mag),
         "audio_mag_loss": log_stft_magnitude_loss(x_log, y_log, loss_type),
     }
+
+
+def spectral_loss(a: torch.Tensor, b: torch.Tensor, *, base: str = "l1",
+                  epsilon: float = 1.0, db: bool = False,
+                  stft_input_type: str = "mag") -> torch.Tensor:
+    """SING spectral loss (counterpart of neraf_tpu/metrics/losses.py:42):
+    L1 (base "l1") or MSE between log spectrograms, log(eps + X) for
+    magnitudes (10 log10 in dB mode), the input itself for "log mag"."""
+    def _log_spec(s):
+        if stft_input_type == "log mag":
+            return s
+        if db:
+            return 10.0 * torch.log10(epsilon + s)
+        return torch.log(epsilon + s)
+
+    sa, sb = _log_spec(a), _log_spec(b)
+    if base == "l1":
+        return torch.mean(torch.abs(sa - sb))
+    return torch.mean((sa - sb) ** 2)

@@ -31,7 +31,7 @@ from neraf_tpu.ops import render as jrender
 from neraf_tpu.ops import samplers as jsamplers
 from neraf_tpu_torch.bridge import load_state_dict, resnet_state_dict
 from neraf_tpu_torch.configs import config as tconfig
-from neraf_tpu_torch.data import loader, vision_data
+from neraf_tpu_torch.data import datasets, loader, vision_data
 from neraf_tpu_torch.engine import factory, optimizers, pipeline
 from neraf_tpu_torch.metrics import losses
 from neraf_tpu_torch.models import camera_opt, grid
@@ -68,11 +68,15 @@ def test_config_matches_jax_field_by_field(make, monkeypatch):
 
 
 def test_port_imports_no_jax_and_defaults_to_the_card():
-    """No module of the port, and not chip_smoke.py, imports jax or the JAX
-    package (neraf_tpu); the public builders and pipelines run on the card
-    unless asked for the CPU."""
+    """No module of the port, and not chip_smoke.py or
+    scripts/validate_joint_torch.py, imports jax or the JAX package
+    (neraf_tpu); the port imports neither matplotlib, PIL nor torchaudio,
+    which the card's machine lacks; the public builders and pipelines run
+    on the card unless asked for the CPU."""
     files = sorted((REPO / "neraf_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "scripts" / "validate_joint_torch.py", REPO / "chip_smoke.py"]
+    refused = ("jax", "jaxlib", "flax", "optax", "neraf_tpu", "matplotlib",
+               "PIL", "torchaudio")
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -81,17 +85,25 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                      else [])
             for name in names:
                 root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "flax", "optax", "neraf_tpu"):
+                if root in refused:
                     bad.append(f"{f.relative_to(REPO)}: {name}")
     assert not bad, bad
     assert len(files) > 30
-    names = {str(f.relative_to(REPO / "neraf_tpu_torch")) for f in files[:-1]}
+    names = {str(f.relative_to(REPO / "neraf_tpu_torch")) for f in files[:-2]}
     assert {"ops/hashgrid.py", "ops/cuda/hash_encoding.py"} <= names
+    assert {"dsp/filters.py", "metrics/room_acoustics.py",
+            "metrics/evaluators.py", "data/dataparsers.py", "data/datasets.py",
+            "data/synthetic.py", "viz/panels.py"} <= names
     for fn in (factory.build_render_pipeline, factory.build_vision_pipeline,
                factory.build_joint_pipeline, pipeline.RenderPipeline,
                pipeline.VisionPipeline, pipeline.JointPipeline,
-               vision_data.camera_arrays, loader.audio_arrays):
+               vision_data.camera_arrays, loader.audio_arrays,
+               datasets.AudioSliceDataset.slice_arrays):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    for name in ("render_rirs", "eval_loss_dict", "eval_image", "render_image",
+                 "evaluate_vision", "query_grid_full", "evaluate_audio",
+                 "evaluate_audio_device"):
+        assert callable(getattr(pipeline.JointPipeline, name)), name
 
 
 # ---------------------------------------------------------------- samplers
