@@ -99,7 +99,23 @@ Phases, each fatal on failure:
      eval_loss_dict (3 pe_mlp launches), eval_image on a 512 x 512 view
      and one RIR (24), query_grid_full over 2,097,152 cells (512), each
      timed; the train state bitwise unchanged by the phase; then the tiny
-     f32 eval_loss_dict and the GT estimates, card against CPU.
+     f32 eval_loss_dict and the GT estimates, card against CPU;
+ 21. the CLIs at full width (SoundSpaces office_4's default configuration)
+     on a scene written to a temporary directory by data/synthetic.py (96
+     + 8 synthetic RIR pairs, the sphere's 12 views of 64 x 64, 2 of them
+     eval views): cli.train for 8 steps with every cadence firing (log 2,
+     eval batch and image 4, eval all 8, save 4, audio from step 3), its
+     run directory checked (config.yml, metrics.jsonl's records, finite,
+     checkpoints at steps 4 and 8, eval_images/*.png), its steps', evals'
+     and saves' times printed; step 4's checkpoint loaded into a fresh
+     bundle and saved again, bitwise equal; two --load-dir resumes from
+     step 4 to 8, each model's difference from the straight run beside the
+     two resumes' own (printed, not gated); cli.evaluate on the run's config.yml with the
+     JAX CLI's result keys, finite; then --audio-only (w_field 512,
+     grid-free) for 8 steps and its evaluate. Each run's pe_mlp and GL
+     launches are gated: 4 + 4 a step plus 3 an eval batch, eval image
+     and eval view, 1 GL launch for the on-device eval sweep, 2 for each
+     host sweep.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -1831,6 +1847,244 @@ def eval_card_vs_cpu(torch) -> dict:
     return err
 
 
+# Phase 21: the CLIs at full width on a scene read from disk. Every cadence
+# fires within 8 steps; the audio branch is live from step 3.
+CLI_STEPS = 8
+CLI_SET = ("trainer.start_step_audio=2", "trainer.steps_per_log=2",
+           "trainer.steps_per_eval_batch=4", "trainer.steps_per_eval_image=4",
+           "trainer.steps_per_eval_all_images=8", "trainer.steps_per_save=4")
+CLI_RECORDS = {(2, "train"), (4, "train"), (6, "train"), (8, "train"),
+               (4, "eval_batch"), (8, "eval_batch"), (4, "eval_image"),
+               (8, "eval_image"), (8, "eval_vision"), (8, "eval_audio")}
+VISION_EVAL_KEYS = {"psnr", "ssim", "psnr_std", "num_rays_per_sec", "fps",
+                    "lpips", "lpips_skipped"}
+ENGINE_EVAL_KEYS = HOST_EVAL_KEYS | {"quick_audio_mag"}
+
+
+def finite_record(rec: dict) -> bool:
+    """Every number of a metrics record finite (EDT may be NaN on a
+    degenerate prediction, as check_eval_dict allows)."""
+    return all(np.isfinite(v) for k, v in rec.items()
+               if isinstance(v, float) and not k.startswith("audio_EDT"))
+
+
+def same_tree(torch, a, b, path="") -> list:
+    """The paths at which two loaded checkpoints differ (tensors bitwise:
+    dtype, shape and bytes; everything else by ==)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b), key=str)}"]
+        return [d for k in a for d in same_tree(torch, a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths {len(a)} != {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in same_tree(torch, x, y, f"{path}/{i}")]
+    if torch.is_tensor(a) and torch.is_tensor(b):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return [f"{path}: {a.dtype}{tuple(a.shape)} != {b.dtype}{tuple(b.shape)}"]
+        ab = a.contiguous().reshape(-1).view(torch.uint8)
+        bb = b.contiguous().reshape(-1).view(torch.uint8)
+        return [] if torch.equal(ab, bb) else [f"{path}: bytes differ"]
+    return [] if type(a) is type(b) and a == b else [f"{path}: {a!r} != {b!r}"]
+
+
+def group_gaps(torch, a: dict, b: dict) -> dict:
+    """Per model of two checkpoints (and the grid): the largest difference
+    of any of its tensors relative to that tensor's peak in b (`max_rel`),
+    and ||a - b|| / ||b|| over all its tensors (`rel_l2`)."""
+    def gaps(pairs):
+        pairs = [(x.double(), y.double()) for x, y in pairs]
+        return {"max_rel": max(float((x - y).abs().max()
+                                     / y.abs().max().clamp_min(1e-30))
+                               for x, y in pairs),
+                "rel_l2": float(sum(((x - y) ** 2).sum() for x, y in pairs).sqrt()
+                                / sum((y ** 2).sum() for _, y in pairs).sqrt())}
+
+    out = {name: gaps([(t, b["models"][name][k]) for k, t in sd.items()
+                       if t.is_floating_point()])
+           for name, sd in a["models"].items()}
+    out["grid"] = gaps([(a["grid"], b["grid"])])
+    return out
+
+
+def cli_phase(torch, dev) -> dict:
+    """Phase 21: a SoundSpaces scene (96 + 8 synthetic RIR pairs, the
+    sphere's 12 views of 64 x 64) written to a temporary directory, then
+    cli.train (joint, full width, 8 steps with every cadence), a checkpoint
+    round trip, two --load-dir resumes from step 4, cli.evaluate, and the
+    audio-only train and evaluate; the launch counts of each run gated."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from neraf_tpu_torch.cli import evaluate as cli_evaluate
+    from neraf_tpu_torch.cli import train as cli_train
+    from neraf_tpu_torch.configs.config import load_config
+    from neraf_tpu_torch.data.synthetic import (
+        write_soundspaces_scene,
+        write_vision_scene,
+    )
+    from neraf_tpu_torch.engine.checkpoints import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from neraf_tpu_torch.engine.factory import build_pipeline
+
+    tmp = Path(tempfile.mkdtemp(prefix="neraf_cli_"))
+    try:
+        t0 = time.perf_counter()
+        scene = write_soundspaces_scene(tmp / "scenes", 96, 8, scene="office_4")
+        n_views, n_eval = 12, 2
+        write_vision_scene(scene, n_views=n_views, size=64)
+        print(f"cli: scene written in {time.perf_counter() - t0:.2f} s "
+              f"({scene}: 96 + 8 RIR pairs, {n_views} views of 64 x 64)",
+              flush=True)
+        base = ["--dataset", "SoundSpaces", "--scene", "office_4",
+                "--data-root", str(tmp / "scenes"), "--max-iters",
+                str(CLI_STEPS)]
+        for item in CLI_SET:
+            base += ["--set", item]
+        res, counts = {}, {}
+
+        # the joint run: 4 + 4 pe_mlp launches a step; eval_batch and
+        # eval_image 3 each (4,096 rays, one chunk) at steps 4 and 8,
+        # evaluate_vision 3 a view and evaluate_audio_device one GL launch
+        # (8 RIRs, one chunk) at step 8
+        run1 = tmp / "run1"
+        want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
+                "pe_bwd": 4 * CLI_STEPS, "gl": 1}
+        trainer, counts["train"], wall = counted(
+            torch, "cli train", lambda: cli_train.main(
+                base + ["--run-dir", str(run1)]), want)
+        ckpts = sorted(p.name for p in (run1 / "neraf_models").iterdir())
+        pngs = sorted(p.name for p in (run1 / "eval_images").glob("*.png"))
+        records = [json.loads(line) for line in
+                   (run1 / "metrics.jsonl").read_text().splitlines()]
+        if not (run1 / "config.yml").is_file():
+            fail("cli train: no config.yml")
+        if ckpts != ["step-000000004.pt", "step-000000008.pt"]:
+            fail(f"cli train: checkpoints {ckpts}")
+        if not any(p.startswith("step_0000004_img") for p in pngs) or not any(
+                p.startswith("step_0000008_comparison_ch_0") for p in pngs):
+            fail(f"cli train: eval images {pngs}")
+        got = {(r["step"], r["prefix"]) for r in records}
+        if got != CLI_RECORDS or len(records) != len(CLI_RECORDS):
+            fail(f"cli train: metrics records {sorted(got)}")
+        bad = [r for r in records if not finite_record(r)]
+        if bad:
+            fail(f"cli train: metrics not finite {bad}")
+        times = {}
+        for step, what, dt in trainer.timings:
+            times.setdefault(what, []).append(dt * 1e3)
+        steps_ms = times.pop("step")
+        res["train"] = {
+            "wall_s": wall, "cold_step_ms": steps_ms[0],
+            "warm_step_ms_median": float(np.median(steps_ms[1:])),
+            "warm_step_ms": steps_ms[1:],
+            "eval_ms": {k: v for k, v in times.items() if k != "save"},
+            "save_ms": times["save"],
+            "checkpoint_mb": (run1 / "neraf_models" / ckpts[0]).stat().st_size / 2**20,
+            "launches": counts["train"]}
+        print(f"cli train: {json.dumps(res['train'])}", flush=True)
+        print(f"cli train metrics: {json.dumps(records)}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the checkpoint round trip: step 4 into a fresh bundle, saved again
+        cfg = load_config(run1 / "config.yml")
+        pipe = build_pipeline(cfg, device=dev).pipeline
+        step4 = run1 / "neraf_models" / "step-000000004.pt"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(step4, pipe)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = save_checkpoint(tmp / "again", 4, pipe)
+        save_s = time.perf_counter() - t0
+        load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
+        diffs = same_tree(torch, load(step4), load(again))
+        print(f"cli checkpoint round trip: load {load_s * 1e3:.1f} ms, save "
+              f"{save_s * 1e3:.1f} ms, {len(diffs)} differences", flush=True)
+        if diffs:
+            fail(f"cli checkpoint round trip: {diffs[:10]}")
+        res["round_trip"] = {"load_ms": load_s * 1e3, "save_ms": save_s * 1e3}
+        del pipe
+        torch.cuda.empty_cache()
+
+        # resume from step 4 into a new run directory, to step 8, twice:
+        # the second resume is the yardstick of the card's run-to-run
+        # differences (cuDNN's and the atomics' summation order)
+        (tmp / "from4").mkdir()
+        shutil.copy(step4, tmp / "from4" / step4.name)
+        want = {"pe_fwd": 4 * 4 + 3 + 3 + 3 * n_eval, "pe_bwd": 4 * 4, "gl": 1}
+        name8, walls = "step-000000008.pt", []
+        for run in ("run2", "run2b"):
+            _, counts["resume"], wall = counted(
+                torch, "cli resume", lambda: cli_train.main(
+                    base + ["--run-dir", str(tmp / run), "--load-dir",
+                            str(tmp / "from4")]), want)
+            walls.append(wall)
+        resumed = load(tmp / "run2" / "neraf_models" / name8)
+        gaps = {"resumed_vs_straight": group_gaps(
+                    torch, resumed, load(run1 / "neraf_models" / name8)),
+                "resumed_vs_resumed": group_gaps(
+                    torch, resumed, load(tmp / "run2b" / "neraf_models" / name8))}
+        print(f"cli resume from step 4 to 8: {walls[0]:.2f} s, {walls[1]:.2f} "
+              f"s; step 8 against the straight run and against a second "
+              f"resume, by model (not gated; the card's backward need not "
+              f"be deterministic): {json.dumps(gaps)}", flush=True)
+        res["resume"] = {"wall_s": walls, "gaps": gaps}
+
+        # the eval CLI on the straight run's config.yml (its latest
+        # checkpoint, step 8): 3 pe_mlp launches a view, 2 GL a chunk
+        out_json = tmp / "results.json"
+        results, counts["evaluate"], wall = counted(
+            torch, "cli evaluate", lambda: cli_evaluate.main(
+                ["--load-config", str(run1 / "config.yml"),
+                 "--output-path", str(out_json)]),
+            {"pe_fwd": 3 * n_eval, "gl": 2})
+        saved = json.loads(out_json.read_text())
+        if set(saved) != {"experiment_name", "method_name", "results"} or \
+                set(saved["results"]) != HOST_EVAL_KEYS | VISION_EVAL_KEYS or \
+                not finite_record(saved["results"]):
+            fail(f"cli evaluate: results file {saved}")
+        print(f"cli evaluate: {wall:.2f} s; {json.dumps(saved)}", flush=True)
+        res["evaluate"] = {"wall_s": wall, "results": saved["results"]}
+
+        # the audio-only run at full width (w_field 512, grid-free)
+        run3 = tmp / "run3"
+        trainer, counts["audio_only_train"], wall = counted(
+            torch, "cli audio-only train", lambda: cli_train.main(
+                base + ["--audio-only", "--run-dir", str(run3)]), {"gl": 2})
+        records = [json.loads(line) for line in
+                   (run3 / "metrics.jsonl").read_text().splitlines()]
+        # the Trainer's steps/s over each 2-step log window; the window
+        # ending at step 6 also holds step 4's checkpoint save
+        rates = {r["step"]: r["steps_per_sec"] for r in records
+                 if r["prefix"] == "train" and r["step"] > 2}
+        if {(r["step"], r["prefix"]) for r in records} != {
+                (2, "train"), (4, "train"), (6, "train"), (8, "train"),
+                (8, "eval_audio")} or not all(map(finite_record, records)):
+            fail(f"cli audio-only train: metrics {records}")
+        evaluate_out, counts["audio_only_evaluate"], ewall = counted(
+            torch, "cli audio-only evaluate", lambda: cli_evaluate.main(
+                ["--load-config", str(run3 / "config.yml")]), {"gl": 2})
+        check_eval_dict(evaluate_out, ENGINE_EVAL_KEYS, "cli audio-only evaluate")
+        w = trainer.pipeline.model.config.w_field
+        res["audio_only"] = {"wall_s": wall, "steps_per_s": rates,
+                             "evaluate_s": ewall, "w_field": w}
+        print(f"cli audio-only (w_field {w}, batch "
+              f"{trainer.config.audio_data.batch_size}): train {wall:.2f} s, "
+              f"steps/s by log step {json.dumps(rates)}; evaluate "
+              f"{ewall:.2f} s: {json.dumps(evaluate_out)}", flush=True)
+        res["launches"] = counts
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2184,6 +2438,15 @@ def main() -> int:
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # phase 21: the train and eval CLIs at full width on a scene on disk
+    t0 = time.perf_counter()
+    cli = cli_phase(torch, dev)
+    print(f"phase 21: {time.perf_counter() - t0:.2f} s; the run so far "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    cli_launches = lambda k: {run: c[k] for run, c in cli["launches"].items()}
+
     gl_row = gl_rows[("soundspaces", 1024)]
     gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
     main_bf16 = pe_rows["main_field"]["bf16"]
@@ -2208,7 +2471,8 @@ def main() -> int:
         "max_abs_err_32_iter": gl_row["err32"], "plan": gl_row["plan"],
         "eval_sweep_launches": {
             k: evals[k]["gl_launches"]
-            for k in ("evaluate_audio", "evaluate_audio_device")}}, {
+            for k in ("evaluate_audio", "evaluate_audio_device")},
+        "cli_launches": cli_launches("gl")}, {
         "name": "pe_mlp_fwd", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/pe_mlp.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:373",
@@ -2220,6 +2484,7 @@ def main() -> int:
         "hash_train_step_launches": hjoint["pe_fwd"],
         "eval_launches": {k: evals[k]["pe_launches"] for k in (
             "eval_loss_dict", "eval_image", "query_grid_full")},
+        "cli_launches": cli_launches("pe_fwd"),
         "train_step_device_kernels": {"pe_mlp_bf16_kernel":
                                       kern["pe_mlp_bf16_kernel"]}}, {
         "name": "pe_mlp_bwd", "route": "cuda",
@@ -2231,6 +2496,7 @@ def main() -> int:
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
         "library_ms": None, "shapes": bwd_rows,
         "hash_train_step_launches": hjoint["pe_bwd"],
+        "cli_launches": cli_launches("pe_bwd"),
         # "launches" counts wrapper calls; each launches the row-tile kernel,
         # one dW kernel per layer and the reduction, a step's counts here
         "train_step_device_kernels": {

@@ -10,8 +10,11 @@ the two field by field):
    `audio_fields` warmup set to `start_step_audio`,
 3. the environment variables ``NeRAF_dataset`` and ``NeRAF_scene``.
 
-YAML round-tripping (``save_config`` / ``load_config``) and the dotted-path
-overrides of the CLI are not ported yet: they come with the CLI slice.
+A run's configuration is saved as config.yml and loaded back
+(``save_config`` / ``load_config``): the same file as the JAX package's,
+read and written by configs/yaml_subset.py (PyYAML is not a dependency of
+the port). ``apply_overrides`` applies the CLI's dotted-path ``--set``
+values.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import dataclasses
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Any
+
+from neraf_tpu_torch.configs import yaml_subset
 
 # Per-scene STFT frame counts (reference NeRAF_config.py:43)
 SOUNDSPACES_MAX_LEN = {
@@ -222,3 +228,96 @@ def default_config(dataset: str | None = None, scene: str | None = None,
         cfg.audio_data.data_dir = str(base)
         cfg.vision_data.data_dir = str(base)
     return cfg
+
+
+def _to_dict(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_to_dict(v) for v in obj]
+    return obj
+
+
+def _from_dict(cls, d: dict) -> Any:
+    """The dataclass `cls` from a dict; nested dataclasses are resolved by
+    field name (_NESTED), lists become tuples, unknown keys are ignored."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if f.name in _NESTED and isinstance(v, dict):
+            kwargs[f.name] = _from_dict(_NESTED[f.name], v)
+        elif isinstance(v, list):
+            kwargs[f.name] = tuple(v)
+        else:
+            kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+_NESTED = {
+    "trainer": TrainerConfig,
+    "audio_model": AudioModelConfig,
+    "vision_model": VisionModelConfig,
+    "audio_data": AudioDataConfig,
+    "vision_data": VisionDataConfig,
+    "optimizers": OptimizersConfig,
+    "mesh": MeshConfig,
+    "proposal_networks": OptimizerGroupConfig,
+    "fields": OptimizerGroupConfig,
+    "audio_fields": OptimizerGroupConfig,
+    "camera_opt": OptimizerGroupConfig,
+}
+
+
+def _field_names(obj) -> list:
+    return [f.name for f in dataclasses.fields(obj)] \
+        if dataclasses.is_dataclass(obj) else []
+
+
+def apply_overrides(cfg: ExperimentConfig,
+                    overrides: list[str]) -> ExperimentConfig:
+    """Apply dotted-path ``key=value`` overrides in place (returns cfg), as
+    the JAX package's CLI does: values are YAML 1.1 scalars or flow
+    sequences (``true``, ``1e-3``, ``[16, 12]``, quoted strings), lists
+    become tuples, a numeric field turns a string such as ``1e-3`` into its
+    own type, a str field keeps the literal text of a value that YAML reads
+    as a bool or a number (``streaming=off`` stores "off"). An unknown path
+    raises ValueError with the valid field names."""
+    for item in overrides:
+        path, sep, raw = item.partition("=")
+        if not sep:
+            raise ValueError(f"override {item!r} is not of the form key=value")
+        parts = path.strip().split(".")
+        obj = cfg
+        for i, name in enumerate(parts[:-1]):
+            if name not in _field_names(obj):
+                raise ValueError(
+                    f"override path {'.'.join(parts[:i + 1])!r} not found; "
+                    f"valid fields here: {_field_names(obj)}")
+            obj = getattr(obj, name)
+        leaf = parts[-1]
+        if leaf not in _field_names(obj):
+            raise ValueError(f"override field {path!r} not found; valid "
+                             f"fields: {_field_names(obj)}")
+        value = yaml_subset.parse_scalar(raw)
+        if isinstance(value, list):
+            value = tuple(value)
+        current = getattr(obj, leaf)
+        if isinstance(value, str) and isinstance(current, (int, float)) \
+                and not isinstance(current, bool):
+            value = type(current)(float(value))
+        elif isinstance(current, str) and not isinstance(value, str) \
+                and value is not None:
+            value = raw.strip()
+        setattr(obj, leaf, value)
+    return cfg
+
+
+def save_config(cfg: ExperimentConfig, path: str | Path) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(yaml_subset.dump(_to_dict(cfg)))
+
+
+def load_config(path: str | Path) -> ExperimentConfig:
+    return _from_dict(ExperimentConfig, yaml_subset.load(Path(path).read_text()))

@@ -1,16 +1,155 @@
-"""Camera arrays, ray generation and pixel sampling (counterpart of
-neraf_tpu/data/vision_data.py:168-240). Loading transforms.json comes with
-the data slice; `camera_arrays` takes any object with the CameraSet fields
-(c2w (N, 3, 4), fx, fy, cx, cy (N,), distortion (N, 6), numpy arrays).
+"""The vision data stack (counterpart of neraf_tpu/data/vision_data.py):
+a Nerfstudio-format scene (transforms.json and its images) loaded with the
+reference's pose preprocessing (orient the mean up-vector to +z, centre on
+the mean camera position, scale into the unit box) and its 'fraction' and
+'filename' eval splits; camera arrays, ray generation and pixel sampling.
+`camera_arrays` takes a CameraSet or any object with its fields (c2w
+(N, 3, 4), fx, fy, cx, cy (N,), distortion (N, 6), numpy arrays). The pose
+math runs in float64, as in the JAX package; the cameras are float32.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+from neraf_tpu_torch.utils.png import read_rgb, resize_bilinear
+
+
+@dataclasses.dataclass
+class CameraSet:
+    """Per-frame pinhole cameras (OpenGL convention: -z forward, y up)."""
+
+    c2w: np.ndarray  # (N, 3, 4)
+    fx: np.ndarray  # (N,)
+    fy: np.ndarray
+    cx: np.ndarray
+    cy: np.ndarray
+    width: int
+    height: int
+    distortion: np.ndarray  # (N, 6) k1 k2 k3 k4 p1 p2
+    scale_factor: float = 1.0  # applied pose scale (dataparser_scale)
+
+    def __len__(self):
+        return self.c2w.shape[0]
+
+
+@dataclasses.dataclass
+class VisionDataset:
+    cameras: CameraSet
+    images: np.ndarray  # (N, H, W, 3) float32 in [0,1]
+    indices: np.ndarray  # (N,) original frame indices
+    aabb: np.ndarray  # (2, 3) scene box
+
+
+def _auto_orient_and_center(poses: np.ndarray):
+    """nerfstudio's auto_orient_and_center_poses(method='up',
+    center='poses'): rotate the mean camera up-vector onto +z, centre on the
+    mean camera position -> (oriented (N, 3, 4), the (3, 4) transform)."""
+    translation = poses[:, :3, 3].mean(axis=0)
+
+    up = poses[:, :3, 1].mean(axis=0)
+    up = up / np.linalg.norm(up)
+    target = np.array([0.0, 0.0, 1.0])
+
+    v = np.cross(up, target)
+    s = np.linalg.norm(v)
+    c = float(np.dot(up, target))
+    if s < 1e-8:
+        rot = np.eye(3) if c > 0 else np.diag([1.0, -1.0, -1.0])
+    else:
+        vx = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+        rot = np.eye(3) + vx + vx @ vx * ((1 - c) / (s**2))
+
+    transform = np.concatenate([rot, rot @ -translation[:, None]], axis=1)  # (3,4)
+    ones = np.tile(np.array([0, 0, 0, 1.0]), (poses.shape[0], 1, 1))
+    poses_h = np.concatenate([poses[:, :3, :], ones], axis=1)
+    oriented = np.einsum("ij,njk->nik", np.concatenate([transform, [[0, 0, 0, 1]]]), poses_h)
+    return oriented[:, :3, :], transform
+
+
+def _split_indices(frames: list, split: str, eval_mode: str,
+                   train_split_fraction: float) -> np.ndarray:
+    """'filename': frames whose file_path holds "train" are the train split
+    (fraction splitting when none does); 'fraction': nerfstudio's evenly
+    spaced train frames, the rest eval (the last train view when none is
+    left)."""
+    n = len(frames)
+    if eval_mode == "filename":
+        is_train = np.array(["train" in str(f["file_path"]) for f in frames])
+        if is_train.any():
+            return np.where(is_train if split == "train" else ~is_train)[0]
+    num_train = int(np.ceil(n * train_split_fraction))
+    train_idx = np.unique(np.linspace(0, n - 1, num_train, dtype=int))
+    if split == "train":
+        return train_idx
+    idx = np.setdiff1d(np.arange(n), train_idx)
+    return idx if idx.size else train_idx[-1:]
+
+
+def load_transforms(
+    data_dir: str | Path,
+    split: str = "train",
+    eval_mode: str = "fraction",
+    train_split_fraction: float = 0.9,
+    downscale_factor: int = 1,
+) -> VisionDataset:
+    """Load a Nerfstudio-format scene (transforms.json + images)."""
+    data_dir = Path(data_dir)
+    with open(data_dir / "transforms.json") as f:
+        meta = json.load(f)
+    frames = meta["frames"]
+
+    def get(frame, key, default=0.0):
+        return frame.get(key, meta.get(key, default))
+
+    poses = np.array([f["transform_matrix"] for f in frames], dtype=np.float64)
+    fx = np.array([get(f, "fl_x") for f in frames])
+    fy = np.array([get(f, "fl_y") for f in frames])
+    cx = np.array([get(f, "cx") for f in frames])
+    cy = np.array([get(f, "cy") for f in frames])
+    width = int(get(frames[0], "w", 0) or meta.get("w"))
+    height = int(get(frames[0], "h", 0) or meta.get("h"))
+    dist = np.array([
+        [get(f, k) for k in ("k1", "k2", "k3", "k4", "p1", "p2")] for f in frames
+    ])
+
+    poses3, _ = _auto_orient_and_center(poses[:, :3, :])
+    scale = 1.0 / max(float(np.max(np.abs(poses3[:, :3, 3]))), 1e-8)
+    poses3 = poses3.copy()
+    poses3[:, :3, 3] *= scale
+
+    idx = _split_indices(frames, split, eval_mode, train_split_fraction)
+
+    if downscale_factor > 1:
+        fx, fy = fx / downscale_factor, fy / downscale_factor
+        cx, cy = cx / downscale_factor, cy / downscale_factor
+        width, height = width // downscale_factor, height // downscale_factor
+
+    imgs = []
+    for i in idx:
+        img = read_rgb(data_dir / frames[i]["file_path"])
+        if downscale_factor > 1:
+            img = resize_bilinear(img, width, height)
+        imgs.append(img.astype(np.float32) / 255.0)
+    images = np.stack(imgs) if imgs else np.zeros((0, height, width, 3), np.float32)
+
+    cameras = CameraSet(
+        c2w=poses3[idx].astype(np.float32),
+        fx=fx[idx].astype(np.float32), fy=fy[idx].astype(np.float32),
+        cx=cx[idx].astype(np.float32), cy=cy[idx].astype(np.float32),
+        width=width, height=height,
+        distortion=dist[idx].astype(np.float32),
+        scale_factor=scale,
+    )
+    aabb = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])  # nerfstudio scene box
+    return VisionDataset(cameras=cameras, images=images, indices=idx, aabb=aabb)
 
 
 def synthetic_cameras(n: int, height: int, width: int, hfov_deg: float = 90.0,

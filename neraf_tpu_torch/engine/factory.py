@@ -19,6 +19,12 @@ levels, two hashed), base MLP 2 x 16. The proposals stay fourier.
 The joint train step trains both: full as __graft_entry__ and bench.py
 (4096 rays, 2048 STFT slices and 4096 grid cells a step, audio from step
 2001); tiny with 64 rays, 32 slices and 256 cells a step, audio from step 2.
+
+build_pipeline is the CLI's (counterpart of neraf_tpu/engine/factory.py):
+any ExperimentConfig, with the scene read from disk: the number of cameras
+from the train split, the audio AABB from the audio parser, grid_res =
+round(1 / grid_step), bf16 under trainer.mixed_precision, weights and the
+train generator from config.seed.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 
+import numpy as np
 import torch
 
 from neraf_tpu_torch.configs.config import (
@@ -33,6 +40,12 @@ from neraf_tpu_torch.configs.config import (
     ExperimentConfig,
     VisionModelConfig,
 )
+from neraf_tpu_torch.data.datasets import (
+    AudioSliceDataset,
+    load_raf_dataset,
+    load_soundspaces_dataset,
+)
+from neraf_tpu_torch.data.vision_data import VisionDataset, load_transforms
 from neraf_tpu_torch.bridge import (
     load_joint_state,
     load_render_params,
@@ -158,18 +171,68 @@ def build_joint_pipeline(grid_res: int = 128, tiny: bool = False,
     cfg = joint_config(tiny, encoding) if config is None else copy.deepcopy(config)
     if mixed_precision is not None:
         cfg.trainer.mixed_precision = mixed_precision
+    pipe = _joint_pipeline(cfg, NUM_CAMERAS, AUDIO_AABB, grid_res, device, seed)
+    if state is not None:
+        load_joint_state(pipe, state)
+    return pipe
+
+
+def _joint_pipeline(cfg: ExperimentConfig, num_cameras: int, audio_aabb,
+                    grid_res: int, device, seed: int) -> JointPipeline:
+    """The three models' weights from `seed` (vision, ResNet, acoustic
+    field, in that order, from one CPU torch.Generator) in a JointPipeline
+    whose train generator is seeded the same."""
     dtype = torch.bfloat16 if cfg.trainer.mixed_precision else torch.float32
     acfg = cfg.audio_model
     resnet = ResNet3D(backbone=acfg.resnet_backbone, n_features=acfg.n_features)
-    audio_model = AudioModel(acfg, grid_feature_dim=resnet.feature_dim)
-    vision = VisionModel(cfg.vision_model, num_cameras=NUM_CAMERAS, near=NEAR,
+    audio_model = AudioModel(
+        acfg, grid_feature_dim=resnet.feature_dim if acfg.use_grid else 0)
+    vision = VisionModel(cfg.vision_model, num_cameras=num_cameras, near=NEAR,
                          far=FAR, dtype=dtype)
     gen = torch.Generator().manual_seed(seed)
     vision.reset_parameters(gen)
     resnet.reset_parameters(gen)
     audio_model.field.reset_parameters(gen)
-    pipe = JointPipeline(cfg, vision, audio_model, resnet, AUDIO_AABB,
+    return JointPipeline(cfg, vision, audio_model, resnet, audio_aabb,
                          VISION_AABB, grid_res, device=device, seed=seed)
-    if state is not None:
-        load_joint_state(pipe, state)
-    return pipe
+
+
+@dataclasses.dataclass
+class PipelineBundle:
+    pipeline: JointPipeline
+    vision_train: VisionDataset | None
+    vision_eval: VisionDataset | None
+    audio_train: AudioSliceDataset
+    audio_eval: AudioSliceDataset
+
+
+def load_audio_split(cfg: ExperimentConfig, split: str) -> AudioSliceDataset:
+    acfg = cfg.audio_data
+    if cfg.dataset == "RAF":
+        return load_raf_dataset(acfg.data_dir, split, fs=acfg.fs)
+    return load_soundspaces_dataset(
+        acfg.data_dir, split, fs=acfg.fs, max_len=acfg.max_len, hop_len=acfg.hop_len)
+
+
+def build_pipeline(cfg: ExperimentConfig, device="cuda") -> PipelineBundle:
+    """Load the scene's splits from disk and build the joint pipeline on
+    `device` (module docstring); without a vision data_dir there are no
+    vision splits and one camera."""
+    audio_train = load_audio_split(cfg, "train")
+    audio_eval = load_audio_split(cfg, "test")
+
+    vision_train = vision_eval = None
+    num_cameras = 1
+    if cfg.vision_data.data_dir:
+        vcfg = cfg.vision_data
+        vision_train, vision_eval = (load_transforms(
+            vcfg.data_dir, split, eval_mode=vcfg.eval_mode,
+            train_split_fraction=vcfg.train_split_fraction,
+            downscale_factor=vcfg.downscale_factor) for split in ("train", "eval"))
+        num_cameras = len(vision_train.cameras)
+
+    pipeline = _joint_pipeline(
+        cfg, num_cameras, np.asarray(audio_train.outputs.aabb, np.float32),
+        int(round(1.0 / cfg.audio_model.grid_step)), device, cfg.seed)
+    return PipelineBundle(pipeline, vision_train, vision_eval, audio_train,
+                          audio_eval)

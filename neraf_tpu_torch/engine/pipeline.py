@@ -282,6 +282,12 @@ class JointPipeline:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.profile = None  # a list: train_step appends (stage, CUDA event)
 
+    @property
+    def models(self) -> dict:
+        """The modules a checkpoint holds (engine/checkpoints.py)."""
+        return {"vision_model": self.vision_model,
+                "audio_model": self.audio_model, "resnet": self.resnet}
+
     def _mark(self, stage: str) -> None:
         if self.profile is not None:
             ev = torch.cuda.Event(enable_timing=True)

@@ -68,15 +68,17 @@ def test_config_matches_jax_field_by_field(make, monkeypatch):
 
 
 def test_port_imports_no_jax_and_defaults_to_the_card():
-    """No module of the port, and not chip_smoke.py or
-    scripts/validate_joint_torch.py, imports jax or the JAX package
-    (neraf_tpu); the port imports neither matplotlib, PIL nor torchaudio,
-    which the card's machine lacks; the public builders and pipelines run
-    on the card unless asked for the CPU."""
+    """No module of the port, and not chip_smoke.py,
+    scripts/validate_joint_torch.py or scripts/validate_audio_torch.py,
+    imports jax or the JAX package (neraf_tpu); the port imports neither
+    matplotlib, PIL, torchaudio, yaml, tensorboard nor orbax, which the
+    card's machine lacks; the public builders, pipelines, engines and CLIs
+    run on the card unless asked for the CPU."""
     files = sorted((REPO / "neraf_tpu_torch").rglob("*.py")) + [
-        REPO / "scripts" / "validate_joint_torch.py", REPO / "chip_smoke.py"]
+        REPO / "scripts" / "validate_joint_torch.py",
+        REPO / "scripts" / "validate_audio_torch.py", REPO / "chip_smoke.py"]
     refused = ("jax", "jaxlib", "flax", "optax", "neraf_tpu", "matplotlib",
-               "PIL", "torchaudio")
+               "PIL", "torchaudio", "yaml", "tensorboard", "orbax")
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -89,16 +91,26 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                     bad.append(f"{f.relative_to(REPO)}: {name}")
     assert not bad, bad
     assert len(files) > 30
-    names = {str(f.relative_to(REPO / "neraf_tpu_torch")) for f in files[:-2]}
+    names = {str(f.relative_to(REPO / "neraf_tpu_torch")) for f in files[:-3]}
     assert {"ops/hashgrid.py", "ops/cuda/hash_encoding.py"} <= names
     assert {"dsp/filters.py", "metrics/room_acoustics.py",
             "metrics/evaluators.py", "data/dataparsers.py", "data/datasets.py",
             "data/synthetic.py", "viz/panels.py"} <= names
+    assert {"cli/train.py", "cli/evaluate.py", "engine/trainer.py",
+            "engine/checkpoints.py", "engine/audio_engine.py",
+            "configs/config.py", "configs/yaml_subset.py", "utils/png.py",
+            "utils/wav.py", "utils/writer.py", "dsp/resample.py",
+            "data/streaming.py"} <= names
+    from neraf_tpu_torch.cli import evaluate as cli_evaluate
+    from neraf_tpu_torch.cli import train as cli_train
+    from neraf_tpu_torch.engine.audio_engine import AudioEngine
+
     for fn in (factory.build_render_pipeline, factory.build_vision_pipeline,
-               factory.build_joint_pipeline, pipeline.RenderPipeline,
-               pipeline.VisionPipeline, pipeline.JointPipeline,
-               vision_data.camera_arrays, loader.audio_arrays,
-               datasets.AudioSliceDataset.slice_arrays):
+               factory.build_joint_pipeline, factory.build_pipeline,
+               pipeline.RenderPipeline, pipeline.VisionPipeline,
+               pipeline.JointPipeline, AudioEngine, cli_train.main,
+               cli_evaluate.main, vision_data.camera_arrays,
+               loader.audio_arrays, datasets.AudioSliceDataset.slice_arrays):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     for name in ("render_rirs", "eval_loss_dict", "eval_image", "render_image",
                  "evaluate_vision", "query_grid_full", "evaluate_audio",
