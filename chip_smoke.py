@@ -15,7 +15,9 @@ Phases, each fatal on failure:
   4. the full-width render slice (resnet50 over a 7x128^3 grid, w_field 512,
      T 78) serving three requests of 64 RIRs and two of 512 through
      render_waveforms (the first request pays the cold start), with the
-     kernel launch counter read around the run;
+     kernel launch counter read around the run; then each request's stages
+     timed (the grid feature, whose s2d stem folds the grid, beside its
+     first device kernels and any on f32 operands);
   5. the tiny slice in float32 on the card against the same slice on the CPU;
   6. the fused PE+MLP kernel against pe_mlp_plain on the card, in bf16 and
      f32, at the proposal-0 shape (8,388,608 rows, 39 -> 128 -> 128 -> 1)
@@ -42,11 +44,16 @@ Phases, each fatal on failure:
      cursor, step and grid advanced as the JAX step does them, exactly 4
      forward and 4 backward pe_mlp launches a step and no GL launch, ms per
      step, rays/s, peak memory and a per-stage breakdown by CUDA events;
+     the pre-folded grid state equal to the fold of the flat grid, bitwise;
      then 3 steps under torch.profiler (device busy time, idle share, the
-     PE+MLP wrappers' device kernels a step) and the ResNet and its stem
-     convolution timed alone;
+     PE+MLP wrappers' device kernels a step, and the stem's device kernels
+     a step, read from its forward and backward ranges, none on f32
+     operands) and the ResNet over the folded state timed alone;
  11. the tiny joint step in float32 on the card against the same step on
-     the CPU with its fields in float64, from the same weights and draws;
+     the CPU with its fields in float64 and on a float32 CPU pipeline, from
+     the same weights and draws, all on the pre-folded grid path; the
+     ReLU kinks between the card and each reference printed, and the
+     tensors upstream of one held by the other reference;
  12. the hash-encoding forward and backward kernels against the plain
      version and its autograd on the card, at the full-width grid (8 levels
      x 4 features, 2^19 rows a level): at uniform random points of the
@@ -66,25 +73,31 @@ Phases, each fatal on failure:
      its two Adam updates timed alone;
  15. the tiny hash joint step (4 levels, 2^10 rows, resolutions 4-32) card
      against CPU as phase 11, at 2 and at 4 features a level;
- 16. cuDNN's bf16 stem convolution (forward, input gradient, weight
-     gradient) at the step's shape with 7 input channels and with the 8 of
-     the packed volume, on the same inputs, each width held against the
-     other and timed in turns beside its bound, and the pack timed alone;
-     then the stem weight-gradient kernel against stem_wgrad_plain in
-     float64 on the same inputs, bf16 and f32, two calls bitwise equal, at
-     the step's shape (x 7 x 128^3, g 64 x 64^3), a small cube and two D !=
-     H != W volumes (one with 8 input channels), timed at each beside the
-     plain version and cuDNN's weight gradient;
+ 16. the folded stem at the step's shape (a 7 x 128^3 grid, folded to 56 x
+     64^3, bf16): the fold of the flat grid, cuDNN's folded conv forward,
+     its weight gradient (the gate-off path) and its full-volume input
+     gradient, and StemConvBaked's slab input gradient, each timed beside
+     its bound with its device kernels named; the s2d stem's forward
+     against the direct conv in float64 (f32 and bf16), and the slab input
+     gradient against the full-volume input gradient restricted to the
+     slab (f32 and bf16, a slab inside the volume and one at its corner);
+     then the stem weight-gradient kernel on the folded volume against
+     stem_wgrad_folded_plain in float64 on the same inputs, bf16 and f32,
+     two calls bitwise equal, at the step's shape (xf 56 x 64^3, g 64 x
+     64^3), a small cube and two D != H != W volumes (one with 8 input
+     channels), timed at each beside the plain version and cuDNN's weight
+     gradient of the folded conv, with its three device kernels' times;
  17. the full-width fourier joint step as phase 10 with
      NERAF_STEM_WGRAD_PALLAS=1: exactly one stem-kernel launch a step (and
      none in phases 10 and 14), its ms per step, device busy time and the
      stem kernel's three device kernels a step beside cuDNN's weight-gradient
-     kernels, against phase 10's run with the gate off in the same call
-     (both profiles also list any cuDNN kernel on f32 operands, "f32f32");
-     then steps of a gate-off and the gate-on pipeline in turns;
+     kernels and the stem's device kernels a step, against phase 10's run
+     with the gate off in the same call (both profiles also list any cuDNN
+     kernel on f32 operands, "f32f32"); then steps of a gate-off and the
+     gate-on pipeline in turns;
  18. the tiny f32 joint step with the gate on, card against CPU, as phase
-     11 (the card's stem weight gradient from the f32 kernel, the CPU's
-     from the plain version);
+     11 (the card's stem weight gradient from the f32 kernel on the folded
+     volume, the CPU's from the plain version);
  19. the shifted-slice concat kernel against torch.cat, bitwise, at (8, 19,
      128) t 16, (8, 19, 256) t 16 and (1024, 79, 128) t 78, timed at the
      last beside torch.cat;
@@ -124,6 +137,7 @@ kernels with their launch counts, errors and times.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -177,10 +191,14 @@ RGB_ABS_TOL = 1e-4  # tiny vision slice, f32, card vs CPU
 # the fields in float64), each step from the same state. Losses 1e-4
 # relative, the interlevel and distortion terms also 1e-4 of the total
 # (differences of f32 cumulative sums). Every gradient to TRAIN_GRAD_TOL of
-# its tensor's peak (measured on an H100: 1.6e-4 at most). The CPU's fields
-# run in float64 because positions enter the encoding at up to 2^8 turns,
-# which the card's kernels reduce exactly and a float32 chain rounds by
-# ~1e-4 rad. The grid and the BatchNorm statistics to 1e-4 of their peak.
+# its tensor's peak (measured on an H100: 2.3e-4 at most), against the CPU
+# with its fields in float64 and against a plain float32 CPU pipeline, but
+# a tensor upstream of a kink between the card and one of them (a ReLU
+# input that changes sign at the noise floor, relu_flips), which the other
+# must hold. The CPU's fields run in float64 because positions enter the
+# encoding at up to 2^8 turns, which the card's kernels reduce exactly and
+# a float32 chain rounds by ~1e-4 rad. The grid and the BatchNorm
+# statistics to 1e-4 of their peak.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # Hash encoding, kernel against the plain version on the same inputs,
 # relative to each output's peak. Forward 1e-6: both sum the weighted
@@ -198,10 +216,18 @@ HASH_FWD_TOL, HASH_BWD_TOL = 1e-6, 1e-5
 # both types differ from float64 only by the kernel's f32 sums over up to
 # 262,144 products a slice and 66 slices (a wrong tap or axis is O(1)).
 STEM_REL_TOL = 1e-4
-# cuDNN's bf16 stem conv at 8 input channels (a zero channel, zero weights)
-# against the same conv at 7, relative to the peak: both round f32 sums of
-# the same bf16 products to bf16 outputs (2^-8 of a value at most), summed
-# in another order; a wrong channel or tap is O(1).
+# Phase 16's volumes for the stem kernel, folded (D, H, W) with the grid
+# channels and a seed: the step's, a small cube, and two D != H != W (one
+# with a zero 8th channel)
+STEM_SHAPES = (("step", (64, 64, 64), 7, 16), ("cube", (8, 8, 8), 7, 17),
+               ("asymmetric", (5, 17, 9), 8, 18),
+               ("asymmetric_w", (5, 9, 17), 7, 19))
+# The folded stem in bf16 against a reference on the same bf16 inputs,
+# relative to the peak: the s2d stem's forward against the direct conv in
+# float64, and the slab input gradient against cuDNN's full-volume input
+# gradient (both round f32 sums of the same bf16 products to bf16 outputs,
+# 2^-8 of a value at most, summed in another order); a wrong channel, tap
+# or offset is O(1). In f32 (TF32 off) both are held to STEM_REL_TOL.
 STEM_CONV_BF16_TOL = 2 ** -7
 H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12  # per second
 EVAL_NOISE, EVAL_MIN_PSNR = 0.02, 30.0  # evaluate_vision against render + noise
@@ -724,6 +750,13 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = 1 + n_settle + n_warm
+    from neraf_tpu_torch.models.grid import fold_grid
+
+    if pipe.grid_folded is None or not torch.equal(
+            pipe.grid_folded, fold_grid(pipe.grid, pipe.grid_res,
+                                        pipe.folded_dtype)):
+        fail(f"{what}: the pre-folded grid is not the fold of the grid "
+             f"after {steps} steps")
     want = {k: per_step.get(k, 0) * steps for k in counts}
     if counts != want:
         fail(f"{what}: launches {counts} in {steps} steps, expected {want}")
@@ -747,10 +780,11 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
     print(f"{what} breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}",
         flush=True)
-    kernels, busy = profile_steps(torch, pipe, cams, audio, images, what)
+    kernels, busy, stem_kernels = profile_steps(torch, pipe, cams, audio,
+                                                images, what)
     return {"ms_per_step": ms, "cold_ms": times[0] * 1e3, **counts,
             "peak_gib": peak / 2**30, "parts": parts, "kernels": kernels,
-            "busy_ms_per_step": busy,
+            "busy_ms_per_step": busy, "stem_kernels": stem_kernels,
             "stem_ms": stem_timings(torch, pipe) if stem else None}
 
 
@@ -788,13 +822,58 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
+def range_kernels(events, name: str, n: int) -> dict:
+    """The device kernels launched inside the profiler ranges called `name`
+    (by the CPU ops under them) -> {kernel name: [launches, ms]} a step of
+    n steps."""
+    out = {}
+
+    def walk(e):
+        for k in e.kernels:
+            row = out.setdefault(k.name[:100], [0, 0.0])
+            row[0] += 1 / n
+            row[1] += k.duration / 1e3 / n
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.name == name:
+            walk(e)
+    return out
+
+
+def stem_profile(events, what: str, n: int) -> dict:
+    """The stem's device kernels a step from StemConvBaked's forward and
+    backward ranges, printed; fatal if one runs on f32 operands
+    ("f32f32") -> {"forward": .., "backward": .., "ms": total a step}."""
+    from neraf_tpu_torch.ops.baked_stem import PROFILE_BACKWARD, PROFILE_FORWARD
+
+    rows = {"forward": range_kernels(events, PROFILE_FORWARD, n),
+            "backward": range_kernels(events, PROFILE_BACKWARD, n)}
+    rows["ms"] = sum(v[1] for k in ("forward", "backward")
+                     for v in rows[k].values())
+    fmt = lambda d: "; ".join(f"{k} x{v[0]:g} {v[1]:.4f} ms"
+                              for k, v in d.items())
+    print(f"{what} profile: the stem's device kernels a step ({rows['ms']:.4f}"
+          f" ms): forward: {fmt(rows['forward'])} | backward: "
+          f"{fmt(rows['backward'])}", flush=True)
+    if not rows["forward"] or not rows["backward"]:
+        fail(f"{what}: no device kernel under the stem's profiler ranges")
+    f32 = [k for part in ("forward", "backward") for k in rows[part]
+           if "f32f32" in k]
+    if f32:
+        fail(f"{what}: the stem runs kernels on f32 operands: {f32}")
+    return rows
+
+
 def profile_steps(torch, pipe, cams, audio, images, what: str,
-                  n: int = 3) -> dict:
+                  n: int = 3) -> tuple:
     """torch.profiler over n joint steps: the device's busy time (union of
     its kernels' intervals) against the host clock, the kernels with the
     most device time, and the launches and device ms a step of each of the
     wrappers' device kernels and of the zero fills and fused Adam ->
-    {kernel: {"launches": per step, "ms": per step}}."""
+    ({kernel: {"launches": per step, "ms": per step}}, busy ms a step,
+    the stem's device kernels a step, stem_profile)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -832,50 +911,135 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
               for k, v in found.items() if v["launches"]), flush=True)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=15, max_name_column_width=70))
-    return found, busy / n
+    return found, busy / n, stem_profile(events, what, n)
 
 
 def stem_timings(torch, pipe) -> dict:
-    """The ResNet3D forward and forward + backward in train mode over the
-    grid alone (through the stem kernel when the pipeline's gate is on;
-    the stem on the packed 8-channel volume), CUDA events."""
-    from neraf_tpu_torch.models.grid import grid_to_volume
+    """The ResNet3D forward and forward + backward (its weights' gradients
+    and the slab's) in train mode over the pipeline's pre-folded grid
+    alone, the stem baked with the slab of the next cursor batch as a step
+    takes it (the state already holds its values), CUDA events."""
+    from neraf_tpu_torch.models.grid import folded_slab
 
-    vol = grid_to_volume(pipe.grid, pipe.grid_res)
+    vol = pipe.grid_folded
+    bake = pipe.config.trainer.grid_bake_cells_per_step
     pipe.resnet.set_update_stats(False)
 
-    def resnet_step():
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            feat = pipe.resnet(vol)
-        feat.sum().backward()
-
     def resnet_fwd():
+        fresh = pipe.grid[pipe.cursor:pipe.cursor + bake, :4].detach()
+        slab = folded_slab(fresh.requires_grad_(), pipe.cursor, pipe.cells,
+                           pipe.grid_res, vol.dtype)
         with torch.autocast("cuda", dtype=torch.bfloat16):
-            pipe.resnet(vol)
+            return pipe.resnet(vol, bake_slab=(*slab, False))
+
+    def resnet_step():
+        resnet_fwd().sum().backward()
 
     res = {}
     for k, f in (("forward", resnet_fwd), ("forward + backward", resnet_step)):
         cuda_ms(torch, f, 2)
         res[k] = cuda_ms(torch, f, 5)
     pipe.resnet.zero_grad(set_to_none=True)
-    print(f"{pipe.resnet.backbone} train mode over {vol.shape[-1]} x "
-          f"{pipe.grid_res}^3, bf16, stem kernel "
-          f"{pipe.resnet.stem_wgrad_kernel} (ms, CUDA events): " + ", ".join(
+    print(f"{pipe.resnet.backbone} train mode over the folded state "
+          f"{tuple(vol.shape)}, bf16 (ms, CUDA events): " + ", ".join(
               f"{k} {v:.3f}" for k, v in res.items()), flush=True)
     return {f"resnet {k}": v for k, v in res.items()}
 
 
+@contextlib.contextmanager
+def relu_inputs(torch, modules: dict):
+    """Record the input of every ReLU and LeakyReLU that `modules` ({label:
+    module}) call with gradients on -> a list of (label, input on the CPU,
+    the input's grad_fn), in call order."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    funcs, calls, where = {F.relu, torch.relu, F.leaky_relu}, [], [None]
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if where[0] and func in funcs and torch.is_grad_enabled():
+                calls.append((where[0], args[0].detach().cpu(),
+                              args[0].grad_fn))
+            return func(*args, **(kwargs or {}))
+
+    hooks = []
+    for label, mod in modules.items():
+        hooks.append(mod.register_forward_pre_hook(
+            lambda *_, label=label: where.__setitem__(0, label)))
+        hooks.append(mod.register_forward_hook(
+            lambda *_: where.__setitem__(0, None)))
+    try:
+        with Record():
+            yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def leaf_names(fn, names: dict) -> set:
+    """The names ({id(tensor): name}) of the leaf tensors that autograd
+    node `fn` reaches: those whose gradient passes through its output."""
+    out, seen, todo = set(), set(), [fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        var = getattr(node, "variable", None)
+        if var is not None and id(var) in names:
+            out.add(names[id(var)])
+        todo.extend(n for n, _ in node.next_functions)
+    return out
+
+
+def relu_flips(torch, card, ref, names, what) -> tuple:
+    """The kinks between the card's and a reference's run of one step
+    (relu_inputs' records): the units of a ReLU or LeakyReLU whose input
+    has a different sign on the two sides. A flipped unit passes its whole
+    gradient on one side and none (or a tenth) on the other, so every
+    tensor upstream of it may move by far more than the rounding that
+    flipped it. A flip at an input further than TRAIN_LOSS_RTOL of the
+    input's peak from 0 is no kink and fails -> (printable lines, the names
+    of the tensors whose gradient passes through a flipped unit, from the
+    reference's graph)."""
+    if [(a, x.shape) for a, x, _ in card] != [(a, x.shape) for a, x, _ in ref]:
+        fail(f"{what}: the card and the CPU called different ReLUs")
+    lines, below = [], set()
+    for i, ((label, xc, _), (_, xr, fn)) in enumerate(zip(card, ref)):
+        flip = (xc > 0) != (xr > 0)
+        n = int(flip.sum())
+        if not n:
+            continue
+        near = float(torch.maximum(xc.double().abs(),
+                                   xr.double().abs())[flip].max())
+        peak = float(xr.abs().max())
+        if near > TRAIN_LOSS_RTOL * peak:
+            fail(f"{what}: {label} ReLU {i} {tuple(xr.shape)} flips {n} "
+                 f"units at |input| up to {near:.3e} of a peak {peak:.3e}")
+        up = leaf_names(fn, names)
+        below |= up
+        lines.append(f"{label} ReLU {i} {tuple(xr.shape)}: {n} units, "
+                     f"|input| <= {near:.2e} (peak {peak:.2e}), its gradient "
+                     f"reaching {len(up)} tensors")
+    return lines, below
+
+
 def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
-    """Phases 11 and 15: three tiny f32 steps on the card and on the CPU
-    from the same weights and draws, each step from the CPU pipeline's
-    state, at the tiny configuration or `config`. The CPU reference
-    computes the fields' MLPs (proposals and main field) in float64, so
-    that the fourier encoding's angles, up to 2^8 turns, are exact as the
-    card's kernels reduce them; a plain float32 CPU pipeline is run beside
-    them and its distance to the card printed, ungated."""
+    """Phases 11, 15 and 18: three tiny f32 steps on the card and on two
+    CPU references from the same weights and draws, each step from the
+    first reference's state, at the tiny configuration or `config`. The
+    first computes the fields' MLPs (proposals and main field) in float64,
+    so that the fourier encoding's angles, up to 2^8 turns, are exact as
+    the card's kernels reduce them; the second is a plain float32 CPU
+    pipeline. Every gradient is held to TRAIN_GRAD_TOL of its peak against
+    both, except a tensor upstream of a kink (relu_flips) between the card
+    and that reference at that step; such a tensor must be held by the
+    other reference, and each exemption is printed with its kinks."""
     from neraf_tpu_torch.data.loader import audio_arrays
     from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
     from neraf_tpu_torch.engine.factory import build_joint_pipeline
+    from neraf_tpu_torch.models.grid import fold_grid
 
     dev = {"cpu": "cpu", "cuda": "cuda", "cpu_f32": "cpu"}
     on = {d: build_joint_pipeline(grid_res=32, tiny=True, device=v, seed=0,
@@ -897,17 +1061,17 @@ def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
             for d in ("cpu", "cuda")}
     cfg = on["cpu"].config
     R, B = cfg.vision_data.train_rays_per_batch, cfg.audio_data.batch_size
-    worst = {"cpu": {}, "cpu_f32": {}}
+    refs = ("cpu", "cpu_f32")
+    worst = {d: {} for d in refs}
 
-    def grads(p):
-        named = {**{f"field.{k}": t for k, t in
-                    p.vision_model.field.named_parameters()},
-                 **{f"proposal_networks.{k}": t for k, t in
-                    p.vision_model.proposal_networks.named_parameters()},
-                 "camera_opt": p.vision_model.camera_opt,
-                 **{f"audio.{k}": t for k, t in p.audio_model.named_parameters()},
-                 **{f"resnet.{k}": t for k, t in p.resnet.named_parameters()}}
-        return {k: t.grad.cpu() for k, t in named.items()}
+    def params(p):
+        return {**{f"field.{k}": t for k, t in
+                   p.vision_model.field.named_parameters()},
+                **{f"proposal_networks.{k}": t for k, t in
+                   p.vision_model.proposal_networks.named_parameters()},
+                "camera_opt": p.vision_model.camera_opt,
+                **{f"audio.{k}": t for k, t in p.audio_model.named_parameters()},
+                **{f"resnet.{k}": t for k, t in p.resnet.named_parameters()}}
 
     for step in range(3):
         ref = on["cpu"]
@@ -921,21 +1085,53 @@ def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
                  "t": rng.integers(0, 12, B)}
         draws.update({k: rng.uniform(0, 1, (R, 1)).astype(np.float32)
                       for k in ("u_init", "u_pdf0", "u_pdf1")})
-        m = {d: p.train_step(*data[dev[d]], draws=draws) for d, p in on.items()}
+        m, calls = {}, {}
+        for d, p in on.items():
+            with relu_inputs(torch, {"resnet": p.resnet,
+                                     "audio": p.audio_model}) as calls[d]:
+                m[d] = p.train_step(*data[dev[d]], draws=draws)
         for k, v in m["cpu"].items():
             atol = (TRAIN_LOSS_RTOL * m["cpu"]["total_loss"]
                     if k in ("interlevel_loss", "distortion_loss") else 0.0)
             if not abs(m["cuda"][k] - v) <= TRAIN_LOSS_RTOL * abs(v) + atol:
                 fail(f"{what} step {step}: {k} card {m['cuda'][k]} vs "
                      f"cpu {v}")
-        g = {d: grads(p) for d, p in on.items()}
-        for d in worst:
-            for k, r in g[d].items():
-                err = float((g["cuda"][k] - r).abs().max()
-                            / r.abs().max().clamp_min(1e-30))
-                worst[d][k] = max(worst[d].get(k, 0.0), err)
+        g = {d: {k: t.grad.cpu() for k, t in params(p).items()}
+             for d, p in on.items()}
+        err, over, kinked = {}, {}, {}
+        for d in refs:
+            names = {id(t): k for k, t in params(on[d]).items()}
+            lines, kinked[d] = relu_flips(torch, calls["cuda"], calls[d],
+                                          names, f"{what} step {step}")
+            for line in lines:
+                print(f"{what} step {step}, kink card vs {d}: {line}",
+                      flush=True)
+            err[d] = {k: float((g["cuda"][k] - r).abs().max()
+                               / r.abs().max().clamp_min(1e-30))
+                      for k, r in g[d].items()}
+            over[d] = {k for k, e in err[d].items() if e > TRAIN_GRAD_TOL}
+            for k, e in err[d].items():
+                worst[d][k] = max(worst[d].get(k, 0.0), e)
+        fmt = lambda d, ks: ", ".join(f"{k} {err[d][k]:.3e}"
+                                      for k in sorted(ks))
+        for d, o in zip(refs, refs[::-1]):
+            if over[d] - kinked[d]:
+                fail(f"{what} step {step}: gradients differ card vs {d} "
+                     f"(tol {TRAIN_GRAD_TOL}): {fmt(d, over[d] - kinked[d])}")
+            if over[d] & over[o]:
+                fail(f"{what} step {step}: gradients held by neither "
+                     f"reference: {fmt(d, over[d] & over[o])}")
+            if over[d]:
+                print(f"{what} step {step}: beyond tol against {d} only "
+                      f"upstream of its kinks: {fmt(d, over[d])}; against "
+                      f"{o}: {fmt(o, over[d])}", flush=True)
         stats = {d: {k: v.cpu() for k, v in p.resnet.state_dict().items()
                      if "running" in k} for d, p in on.items()}
+        for d, p in on.items():
+            if p.grid_folded is None or not torch.equal(
+                    p.grid_folded, fold_grid(p.grid, 32, p.folded_dtype)):
+                fail(f"{what} step {step}: the {d} pipeline is not on the "
+                     "pre-folded grid path")
         state_err = max([float((on["cuda"].grid.cpu() - ref.grid).abs().max()
                                / ref.grid.abs().max())] + [
             float((stats["cuda"][k] - v).abs().max() / v.abs().max())
@@ -947,11 +1143,10 @@ def tiny_joint_card_vs_cpu(torch, what: str = "tiny joint", config=None):
     fmt = lambda kvs: ", ".join(f"{k} {v:.3e}" for k, v in kvs)
     print(f"{what} card vs cpu (fields in float64), 3 steps: losses "
           f"within {TRAIN_LOSS_RTOL}; gradients of each tensor's peak, "
-          f"largest {fmt(top['cpu'])} (tol {TRAIN_GRAD_TOL}); grid and BN "
-          f"statistics within 1e-4. Beside it, card vs a float32 CPU "
-          f"pipeline: largest {fmt(top['cpu_f32'])}", flush=True)
-    if top["cpu"][0][1] > TRAIN_GRAD_TOL:
-        fail(f"{what} step gradients differ card vs CPU: " + fmt(top["cpu"]))
+          f"largest {fmt(top['cpu'])}; card vs a float32 CPU pipeline: "
+          f"largest {fmt(top['cpu_f32'])} (tol {TRAIN_GRAD_TOL} against "
+          f"both but upstream of a kink); grid and BN statistics within "
+          f"1e-4", flush=True)
     return worst["cpu"]
 
 
@@ -1264,15 +1459,25 @@ def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
             "ms": img_times, "peak_gib": peak / 2**30, "eval": ev}
 
 
-def stem_bound_ms(x, g) -> tuple:
-    """The least time of the stem weight gradient: its products (2 cout cin
-    125 per output voxel) at the peak rate of x's type, against the bytes
-    of x, g and the f32 dW."""
-    cin, cout = x.shape[-1], g.shape[1]
+def stem_bound_ms(xf, g) -> tuple:
+    """The least time of the stem weight gradient from the folded volume
+    xf (1, D, H, W, 8 cin): the direct conv's products (2 cout cin 125 per
+    output voxel; the folded conv's 91 zero taps a channel are no work of
+    the function) at the peak rate of xf's type, against the bytes of xf,
+    g and the f32 dW."""
+    cin, cout = xf.shape[-1] // 8, g.shape[1]
     flops = 2.0 * cout * cin * 125 * g[0, 0].numel()
-    nbytes = (x.numel() + g.numel()) * x.element_size() + cout * cin * 125 * 4
-    rate = H100_BF16 if x.element_size() == 2 else H100_F32
+    nbytes = (xf.numel() + g.numel()) * xf.element_size() + cout * cin * 125 * 4
+    rate = H100_BF16 if xf.element_size() == 2 else H100_F32
     t_ops, t_bytes = flops / rate, nbytes / H100_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """max(bf16 operations at the peak, bytes at the memory rate), in ms,
+    and which of the two it is."""
+    t_ops, t_bytes = flops / H100_BF16, nbytes / H100_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -1288,131 +1493,197 @@ def device_kernels(torch, fn) -> list:
             for e in prof.events() if e.device_type.name == "CUDA"]
 
 
-def stem_conv_channels(torch, dev, shape=(128, 128, 128)) -> dict:
-    """Phase 16, the 8-channel volume: cuDNN's stem convolution in bf16 at
-    the step's shape (x 1 x 128^3 NDHWC, passed as its channels_last_3d
-    NCDHW view as ResNet3D passes it; g 64 x 64^3 in channels_last_3d), at
-    7 input channels and at the 8 of the packed volume made from the same
-    values (a zero 8th channel, zero weights): the forward, the input
-    gradient and the weight gradient, each width held against the other to
-    STEM_CONV_BF16_TOL of the peak and timed in turns (7, 8, 8, 7) beside
-    the bound of its bf16 operations and bytes, with the device kernels
-    cuDNN runs for it; each with cuDNN's heuristics (the port's setting)
-    and again with torch.backends.cudnn.benchmark on (cuDNN times its
-    algorithms and keeps the fastest). Then the pack itself (the f32
-    7-channel grid to the bf16 8-channel volume) timed alone, and, as a
-    yardstick, cuDNN's k3/s1 conv of the space-to-depth folded volume (64
-    channels over 64^3, the JAX package's stem layout)."""
+def rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def stem_folded(torch, dev, R: int = 128, bake: int = 4096) -> dict:
+    """Phase 16, the folded stem at the step's shape: a random f32 grid of
+    R^3 cells, folded to (1, R/2, R/2, R/2, 56) bf16 as the pipeline folds
+    it, the stem weight (64, 7, 5, 5, 5) and a cotangent of the conv's
+    output in channels_last_3d. Timed (CUDA events, each beside its bound
+    and with its device kernels): the fold of the flat grid; cuDNN's folded
+    conv forward, its weight gradient (the gate-off path) and its
+    full-volume input gradient; StemConvBaked's slab input gradient at the
+    step's slab (B = bake cells: (1, 1, B/2R, R/2, 28)). Checked: the s2d
+    stem (ResNet3D.stem) against the direct conv in float64, f32 (TF32 off)
+    to STEM_REL_TOL and bf16 to STEM_CONV_BF16_TOL of the peak; the slab
+    input gradient against the full-volume input gradient restricted to the
+    slab, at a slab inside the volume and at its corner, f32 to
+    STEM_REL_TOL and bf16 to STEM_CONV_BF16_TOL (both round f32 sums of
+    the same bf16 products to bf16)."""
     import torch.nn.functional as F
 
-    pack_volume = lambda x, dtype: F.pad(x.to(dtype), (0, 1))
-    pad_weight = lambda w: F.pad(w, (0, 0, 0, 0, 0, 0, 0, 1))
-    gen = torch.Generator(device=dev).manual_seed(160)
-    out_shape = tuple((n - 1) // 2 + 1 for n in shape)
-    grid = torch.rand((1, *shape, 7), generator=gen, device=dev)
-    w7 = 0.05 * torch.randn((64, 7, 5, 5, 5), generator=gen, device=dev)
-    gy = torch.randn((1, 64, *out_shape), generator=gen, device=dev).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    from neraf_tpu_torch.models.grid import cell_centers, fold_grid, folded_slab
+    from neraf_tpu_torch.models.resnet3d import ResNet3D
+    from neraf_tpu_torch.ops.baked_stem import slab_input_grad
+    from neraf_tpu_torch.ops.stem_wgrad import fold_weight
+
+    torch.backends.cudnn.allow_tf32 = False
     bf = torch.bfloat16
-    inputs = {7: (grid.to(bf), w7.to(bf)),
-              8: (pack_volume(grid, bf), pad_weight(w7).to(bf))}
-
-    def ops(x, w):
-        xc = x.permute(0, 4, 1, 2, 3)
-        bwd = lambda mask: torch.ops.aten.convolution_backward(
-            gy, xc, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False,
-            (0, 0, 0), 1, mask)
-        return {"forward": lambda: F.conv3d(xc, w, None, 2, 2),
-                "input gradient": lambda: bwd((True, False, False))[0],
-                "weight gradient": lambda: bwd((False, True, False))[1]}
-
-    runs = {c: ops(*inputs[c]) for c in (7, 8)}
-    xf = torch.randn((1, 64, *out_shape), generator=gen, device=dev).to(
-        bf).contiguous(memory_format=torch.channels_last_3d)
-    wf = (0.05 * torch.randn((64, 64, 3, 3, 3), generator=gen,
-                             device=dev)).to(bf)
-    folded = lambda: F.conv3d(xf, wf, None, 1, 1)
+    gen = torch.Generator(device=dev).manual_seed(160)
+    grid = torch.rand((R ** 3, 7), generator=gen, device=dev)
+    w = 0.05 * torch.randn((64, 7, 5, 5, 5), generator=gen, device=dev)
+    h = R // 2
+    gy32 = torch.randn((1, 64, h, h, h), generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last_3d)
     row = {}
-    for bench in (False, True):
-        torch.backends.cudnn.benchmark = bench
-        tag = "benchmark" if bench else "heuristics"
-        for k in runs[7]:
-            a, b = runs[7][k](), runs[8][k]()
-            if k != "forward":
-                b = b[:, :7]  # the zero channel's gradient, dropped as the pad does
-            torch.cuda.synchronize()
-            rel = float((a.float() - b.float()).abs().max()
-                        / a.float().abs().max())
-            t7a, t8a, t8b, t7b = (cuda_ms(torch, runs[c][k], 10)
-                                  for c in (7, 8, 8, 7))
-            bounds = {}
-            for c in (7, 8):
-                x, w = inputs[c]
-                flops = 2.0 * 64 * c * 125 * gy[0, 0].numel()
-                nbytes = (x.numel() + w.numel() + gy.numel()) * 2
-                t_ops, t_bytes = flops / H100_BF16, nbytes / H100_BYTES
-                bounds[c] = (max(t_ops, t_bytes) * 1e3,
-                             "operations" if t_ops > t_bytes else "bytes")
-            kern = {c: device_kernels(torch, runs[c][k]) for c in (7, 8)}
-            row[f"{k}, {tag}"] = {
-                "ms_7": (t7a + t7b) / 2, "ms_8": (t8a + t8b) / 2,
-                "turns": [t7a, t8a, t8b, t7b], "rel_err_8_vs_7": rel,
-                "bound_ms_7": bounds[7][0], "bound_ms_8": bounds[8][0],
-                "bound_by": bounds[8][1], "kernels_7": kern[7],
-                "kernels_8": kern[8]}
-            print(f"cuDNN stem conv {k}, bf16, {tag}, 7 vs 8 input channels "
-                  f"on the same inputs: {(t7a + t7b) / 2:.4f} vs "
-                  f"{(t8a + t8b) / 2:.4f} ms (turns 7, 8, 8, 7: {t7a:.4f}, "
-                  f"{t8a:.4f}, {t8b:.4f}, {t7b:.4f}); bound {bounds[7][0]:.4f}"
-                  f" / {bounds[8][0]:.4f} ms ({bounds[8][1]}); 8 vs 7 rel "
-                  f"{rel:.3e} (tol {STEM_CONV_BF16_TOL}); device kernels at 7:"
-                  f" {kern[7]}; at 8: {kern[8]}", flush=True)
-            if not rel <= STEM_CONV_BF16_TOL:
-                fail(f"cuDNN stem conv {k}, {tag}: 8 channels differ from 7 "
-                     f"by {rel}")
-            del a, b
-        folded()
-        ms_f = cuda_ms(torch, folded, 10)
-        row[f"folded k3/s1 forward, {tag}"] = {
-            "ms": ms_f, "kernels": device_kernels(torch, folded)}
-        print(f"cuDNN k3/s1 conv of the space-to-depth folded volume (64 "
-              f"channels over {tuple(out_shape)}), bf16, {tag}: {ms_f:.4f} ms; "
-              f"device kernels {row[f'folded k3/s1 forward, {tag}']['kernels']}",
-              flush=True)
+
+    # the s2d stem against the direct conv, float64
+    net = ResNet3D(backbone="resnet18").to(dev)
+    with torch.no_grad():
+        net.conv1.weight.copy_(w)
+        vol = grid.reshape(1, R, R, R, 7)
+        ref = F.conv3d(vol.permute(0, 4, 1, 2, 3).double(), w.double(), None,
+                       2, 2)
+        s32 = net.stem(vol)
+        with torch.autocast("cuda", dtype=bf):
+            s16 = net.stem(vol)
+    e32 = rel_err(s32, ref)
+    # the bf16 reference: the direct conv of the bf16-rounded inputs
+    with torch.no_grad():
+        ref16 = F.conv3d(vol.to(bf).permute(0, 4, 1, 2, 3).double(),
+                         w.to(bf).double(), None, 2, 2)
+    e16 = rel_err(s16, ref16)
+    print(f"s2d stem forward against the direct conv in float64 at "
+          f"{tuple(vol.shape)}: f32 rel {e32:.3e} (tol {STEM_REL_TOL}), bf16 "
+          f"rel {e16:.3e} (tol {STEM_CONV_BF16_TOL}); output {s16.dtype} "
+          f"{tuple(s16.shape)}", flush=True)
+    if not (e32 <= STEM_REL_TOL and e16 <= STEM_CONV_BF16_TOL):
+        fail(f"s2d stem forward differs from the direct conv: f32 {e32}, "
+             f"bf16 {e16}")
+    row["s2d_vs_direct_rel"] = {"f32": e32, "bf16": e16}
+    del net, ref, ref16, s32, s16
+
+    xf = fold_grid(grid, R, bf)
+    wp = fold_weight(w.to(bf))
+    gy = gy32.to(bf)
+    xcl = xf.permute(0, 4, 1, 2, 3)
+    conv_bwd = lambda g, x, mask: torch.ops.aten.convolution_backward(
+        g, x, wp if x.dtype == bf else wp.float(), None, (1,) * 3, (1,) * 3,
+        (1,) * 3, False, (0,) * 3, 1, mask)
+    nb = 2  # bytes of bf16
+    vox = h ** 3
+    flops = 2.0 * 64 * 56 * 27 * vox  # the folded conv's products
+    ny = bake // R
+    slab_shape = (1, 1, ny // 2, h, 28)
+    cells = torch.as_tensor(cell_centers(R), device=dev)
+    cursor = (R // 2 + 1) * R * R + (R // 2) * R  # an odd plane, mid rows
+    _, d0, h0, ch = folded_slab(torch.zeros((bake, 4), device=dev), cursor,
+                                cells, R, bf)
+    slab_flops = 2.0 * 28 * 64 * 27 * (ny // 2) * h
+    slab_bytes = (64 * 3 * (ny // 2 + 2) * h + 28 * 64 * 27
+                  + 28 * (ny // 2) * h) * nb
+    runs = {
+        "fold of the flat grid": (
+            lambda: fold_grid(grid, R, bf),
+            bound_ms(0.0, grid.numel() * 4 + xf.numel() * nb)),
+        "folded conv forward": (
+            lambda: F.conv3d(xcl, wp, None, 1, 1),
+            bound_ms(flops, (xf.numel() + wp.numel() + gy.numel()) * nb)),
+        "folded conv weight gradient (gate off)": (
+            lambda: conv_bwd(gy, xcl, (False, True, False))[1],
+            bound_ms(flops, (xf.numel() + gy.numel() + wp.numel()) * nb)),
+        "folded conv full-volume input gradient": (
+            lambda: conv_bwd(gy, xcl, (True, False, False))[0],
+            bound_ms(flops, (xf.numel() + gy.numel() + wp.numel()) * nb)),
+        "slab input gradient": (
+            lambda: slab_input_grad(gy, wp, slab_shape, d0, h0, ch),
+            bound_ms(slab_flops, slab_bytes)),
+    }
+    for k, (fn, (bound, by)) in runs.items():
+        fn()
+        t1, t2 = cuda_ms(torch, fn, 10), cuda_ms(torch, fn, 10)
+        kern = device_kernels(torch, fn)
+        row[k] = {"ms": (t1 + t2) / 2, "runs": [t1, t2], "bound_ms": bound,
+                  "bound_by": by, "kernels": kern}
+        print(f"stem, {k}, bf16, step's shape: {(t1 + t2) / 2:.4f} ms [{t1:.4f}"
+              f", {t2:.4f}]; bound {bound:.4f} ms ({by}); device kernels "
+              f"{kern}", flush=True)
+        f32 = [n for n, _ in kern if "f32f32" in n]
+        if f32 and k != "fold of the flat grid":
+            fail(f"stem, {k}: cuDNN ran kernels on f32 operands: {f32}")
+
+    # yardsticks off the path: the folded conv forward with 8 zero channels
+    # (64 in all) and under cudnn.benchmark
+    x64 = F.pad(xf, (0, 8)).permute(0, 4, 1, 2, 3)
+    w64 = F.pad(wp, (0, 0, 0, 0, 0, 0, 0, 8))
+    yard = {"64 channels": lambda: F.conv3d(x64, w64, None, 1, 1),
+            "56 channels, cudnn.benchmark": runs["folded conv forward"][0]}
+    for k, fn in yard.items():
+        torch.backends.cudnn.benchmark = "benchmark" in k
+        fn()
+        t1, t2 = cuda_ms(torch, fn, 10), cuda_ms(torch, fn, 10)
+        kern = device_kernels(torch, fn)
+        row[f"yardstick: folded conv forward, {k}"] = {
+            "ms": (t1 + t2) / 2, "runs": [t1, t2], "kernels": kern}
+        print(f"stem yardstick (off the path): folded conv forward, {k}: "
+              f"{(t1 + t2) / 2:.4f} ms [{t1:.4f}, {t2:.4f}]; device kernels "
+              f"{kern}", flush=True)
     torch.backends.cudnn.benchmark = False
-    pack = cuda_ms(torch, lambda: pack_volume(grid, bf), 10)
-    print(f"stem volume pack (f32 7 channels -> bf16 8), alone: {pack:.4f} "
-          "ms", flush=True)
-    row["pack_ms"] = pack
+    del x64, w64
+
+    # the slab gradient against the full-volume one restricted to the slab
+    corner = folded_slab(torch.zeros((bake, 4), device=dev), 0, cells, R,
+                         bf)[1:]
+    for where, (sd0, sh0, sch) in (("inside", (d0, h0, ch)),
+                                   ("corner", corner)):
+        for dtype, tol in ((torch.float32, STEM_REL_TOL),
+                           (bf, STEM_CONV_BF16_TOL)):
+            g_t = gy32.to(dtype)
+            full = conv_bwd(g_t, xcl.to(dtype), (True, False, False))[0]
+            want = full[:, sch:sch + 28, sd0, sh0:sh0 + ny // 2].permute(
+                0, 2, 3, 1).reshape(slab_shape)
+            got = slab_input_grad(g_t, wp.to(dtype), slab_shape, sd0, sh0,
+                                  sch)
+            err = rel_err(got, want)
+            tag = f"{where} {str(dtype)[6:]}"
+            row[f"slab_vs_full_rel {tag}"] = err
+            print(f"stem slab input gradient {tuple(got.shape)} at {where} "
+                  f"(d0 {sd0}, h0 {sh0}, channels {sch}), {dtype}: rel "
+                  f"{err:.3e} of the full-volume gradient's peak on the slab "
+                  f"(tol {tol})", flush=True)
+            if not err <= tol:
+                fail(f"stem slab input gradient {tag} differs from the "
+                     f"full-volume gradient: {err}")
     return row
 
 
 def stem_check(torch, dev, name, shape, cin, seed) -> dict:
-    """Phase 16 at one shape: the stem weight-gradient kernel against the
-    plain version in float64 on the same inputs (x (1, D, H, W, cin): 7
-    channels as the stem gives them, or 8 with a zero 8th; g (1, 64, Do,
-    Ho, Wo) in channels_last_3d, as the conv's output cotangent arrives),
-    bf16 and f32, to STEM_REL_TOL of the peak, and a second call bitwise
-    equal to the first; then the kernel, the plain version (float32 sums)
-    and cuDNN's weight gradient of the same conv on the same inputs timed
-    (plain, kernel, kernel, plain, cuDNN)."""
+    """Phase 16 at one shape: the stem weight-gradient kernel on the folded
+    volume (xf (1, D, H, W, 8 cin) the fold of a random grid volume of 7
+    channels, or 8 with a zero 8th; g (1, 64, D, H, W) in channels_last_3d,
+    as the folded conv's output cotangent arrives) against
+    stem_wgrad_folded_plain in float64 on the same inputs, unfolded, bf16
+    and f32, to STEM_REL_TOL of the peak, and a second call bitwise equal to
+    the first; then the kernel, the plain version (float32 sums, unfolded)
+    and cuDNN's weight gradient of the folded conv on the same inputs timed
+    (plain, kernel, kernel, plain, cuDNN), and the kernel's three device
+    kernels of one call."""
     import torch.nn.functional as F
 
+    from neraf_tpu_torch.models.grid import fold_volume
     from neraf_tpu_torch.ops.cuda.stem_wgrad import stem_wgrad_cuda
-    from neraf_tpu_torch.ops.stem_wgrad import stem_wgrad_plain
+    from neraf_tpu_torch.ops.stem_wgrad import (
+        fold_weight,
+        stem_wgrad_folded_plain,
+        stem_wgrad_unfold,
+    )
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
-    out_shape = tuple((n - 1) // 2 + 1 for n in shape)
-    x0 = torch.randn((1, *shape, 7), generator=gen, device=dev)
-    g0 = torch.randn((1, 64, *out_shape), generator=gen, device=dev)
+    x0 = torch.randn((1, *(2 * n for n in shape), 7), generator=gen,
+                     device=dev)
+    g0 = torch.randn((1, 64, *shape), generator=gen, device=dev)
     row = {"shape": list(shape), "cin": cin}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        x = F.pad(x0.to(dtype), (0, cin - 7))
+        xf = fold_volume(F.pad(x0, (0, cin - 7)), dtype)
         g = g0.to(dtype).contiguous(memory_format=torch.channels_last_3d)
-        got = stem_wgrad_cuda(x, g)
-        again = stem_wgrad_cuda(x, g)
-        ref = stem_wgrad_plain(x.double(), g.double())
+        got = stem_wgrad_cuda(xf, g)
+        again = stem_wgrad_cuda(xf, g)
+        ref = stem_wgrad_unfold(stem_wgrad_folded_plain(xf.double(),
+                                                        g.double()))
         torch.cuda.synchronize()
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             fail(f"stem wgrad {name} {tag}: shape {tuple(got.shape)} or not "
@@ -1421,33 +1692,36 @@ def stem_check(torch, dev, name, shape, cin, seed) -> dict:
             fail(f"stem wgrad {name} {tag}: two calls differ")
         err = float((got.double() - ref).abs().max())
         rel = err / float(ref.abs().max())
-        w = torch.zeros((64, cin, 5, 5, 5), dtype=dtype, device=dev)
-        xc = x.permute(0, 4, 1, 2, 3)
+        wp = fold_weight(torch.zeros((64, cin, 5, 5, 5), dtype=dtype,
+                                     device=dev))
+        xc = xf.permute(0, 4, 1, 2, 3)
         cudnn = lambda: torch.ops.aten.convolution_backward(
-            g, xc, w, None, (2, 2, 2), (2, 2, 2), (1, 1, 1), False, (0, 0, 0),
+            g, xc, wp, None, (1,) * 3, (1,) * 3, (1,) * 3, False, (0,) * 3,
             1, (False, True, False))
         reps = 10
-        run_k = lambda: stem_wgrad_cuda(x, g)
-        run_p = lambda: stem_wgrad_plain(x, g)
+        run_k = lambda: stem_wgrad_cuda(xf, g)
+        run_p = lambda: stem_wgrad_unfold(stem_wgrad_folded_plain(xf, g))
         for f in (run_k, run_p, cudnn):
             f()
         p1, k1, k2, p2, c1 = (cuda_ms(torch, f, reps) for f in (
             run_p, run_k, run_k, run_p, cudnn))
-        bound, by = stem_bound_ms(x, g)
+        kern = device_kernels(torch, run_k)
+        bound, by = stem_bound_ms(xf, g)
         ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"stem wgrad {name} x {tuple(x.shape)} g {tuple(g.shape)} {tag}: "
-              f"max_abs_err {err:.3e}, rel {rel:.3e} vs float64 (tol "
+        print(f"stem wgrad {name} xf {tuple(xf.shape)} g {tuple(g.shape)} "
+              f"{tag}: max_abs_err {err:.3e}, rel {rel:.3e} vs float64 (tol "
               f"{STEM_REL_TOL}), two calls bitwise equal; kernel "
               f"{ms_k:.4f} ms [{k1:.4f}, {k2:.4f}] plain {ms_p:.3f} ms "
-              f"[{p1:.3f}, {p2:.3f}] cuDNN wgrad {c1:.4f} ms; bound "
-              f"{bound:.4f} ms ({by})", flush=True)
+              f"[{p1:.3f}, {p2:.3f}] cuDNN wgrad of the folded conv "
+              f"{c1:.4f} ms; bound {bound:.4f} ms ({by}); device kernels "
+              f"{kern}", flush=True)
         if not rel <= STEM_REL_TOL:
             fail(f"stem wgrad kernel disagrees with float64 at {name} {tag}: "
                  f"rel {rel}")
         row[tag] = {"max_abs_err": err, "rel_err": rel, "ms": ms_k,
                     "plain_ms": ms_p, "library_ms": c1, "bound_ms": bound,
-                    "bound_by": by}
-        del got, again, ref, x, g, xc
+                    "bound_by": by, "kernels": kern}
+        del got, again, ref, xf, g, xc
         torch.cuda.empty_cache()
     return row
 
@@ -1574,6 +1848,7 @@ def train_state(torch, pipe) -> dict:
             state.update({f"adam.{g}.{i}.{k}": v.clone() for k, v in st.items()
                           if torch.is_tensor(v)})
     state["grid"] = pipe.grid.clone()
+    state["grid_folded"] = pipe.grid_folded.clone()
     state["generator"] = pipe.generator.get_state()
     state["cursor"] = torch.tensor(pipe.cursor)
     state["step"] = torch.tensor(pipe.step)
@@ -2180,6 +2455,13 @@ def main() -> int:
         parts = {k: cuda_ms(torch, f, 3) for k, f in stages.items()}
         print(f"slice breakdown {n} RIRs (ms): " +
               ", ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    # the grid feature folds the grid in its s2d stem: its first device
+    # kernels (the cast, the fold, the stem conv) and any on f32 operands
+    feat_kernels = device_kernels(torch, pipe.grid_feature)
+    print(f"grid feature: {len(feat_kernels)} device kernels, "
+          f"{sum(ms for _, ms in feat_kernels):.3f} ms; the first four "
+          f"{feat_kernels[:4]}; on f32 operands "
+          f"{[k for k in feat_kernels if 'f32f32' in k[0]]}", flush=True)
 
     # phase 5: tiny slice, f32 without TF32, card against CPU
     on = {d: build_render_pipeline(grid_res=16, tiny=True, device=d, seed=0,
@@ -2375,15 +2657,11 @@ def main() -> int:
         print(f"tiny hash joint F{F}: table gradient "
               f"{worst['field.hash.table']:.3e} of its peak", flush=True)
 
-    # phase 16: cuDNN's stem conv at 7 and 8 input channels, then the stem
-    # weight-gradient kernel against the plain version
-    stem_conv_rows = stem_conv_channels(torch, dev)
+    # phase 16: the folded stem's pieces at the step's shape, then the stem
+    # weight-gradient kernel on the folded volume against the plain version
+    stem_folded_rows = stem_folded(torch, dev, 128, bake)
     stem_rows = {name: stem_check(torch, dev, name, shape, cin, seed)
-                 for name, shape, cin, seed in (
-                     ("step", (128, 128, 128), 7, 16),
-                     ("cube", (16, 16, 16), 7, 17),
-                     ("asymmetric", (10, 34, 18), 8, 18),
-                     ("asymmetric_w", (10, 18, 34), 7, 19))}
+                 for name, shape, cin, seed in STEM_SHAPES}
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -2392,7 +2670,7 @@ def main() -> int:
     with stem_gate():
         sjpipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev,
                                       seed=0)
-    if not sjpipe.resnet.stem_wgrad_kernel:
+    if not sjpipe.stem_wgrad_kernel:
         fail(f"{GATE}=1 did not put the joint step's stem on the kernel")
     sjoint = joint_step_phase(torch, sjpipe, {"pe_fwd": 4, "pe_bwd": 4,
                                               "stem": 1},
@@ -2408,8 +2686,9 @@ def main() -> int:
           f"{joint['busy_ms_per_step']:.3f} ms a step; the stem kernel's "
           f"three device kernels {stem_dev:.4f} ms a step; cuDNN weight "
           f"gradients {wg_on['ms']:.3f} ms a step in {wg_on['launches']:g} "
-          f"kernels vs {wg_off['ms']:.3f} in {wg_off['launches']:g}",
-          flush=True)
+          f"kernels vs {wg_off['ms']:.3f} in {wg_off['launches']:g}; the "
+          f"stem's device kernels {sjoint['stem_kernels']['ms']:.4f} vs "
+          f"{joint['stem_kernels']['ms']:.4f} ms a step", flush=True)
     opipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0)
     turns = step_turns(torch, opipe, sjpipe)
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
@@ -2545,7 +2824,9 @@ def main() -> int:
         "train_step_busy_ms": {"gate_on": sjoint["busy_ms_per_step"],
                                "gate_off": joint["busy_ms_per_step"]},
         "train_step_turns": turns,
-        "cudnn_stem_conv_7_vs_8_channels": stem_conv_rows,
+        "folded_stem": stem_folded_rows,
+        "train_step_stem_kernels": {"gate_on": sjoint["stem_kernels"],
+                                    "gate_off": joint["stem_kernels"]},
         "gate_off_resnet_ms": joint["stem_ms"],
         "gate_on_resnet_ms": sjoint["stem_ms"]}, {
         "name": "shifted_value_concat", "route": "cuda",

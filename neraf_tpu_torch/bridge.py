@@ -11,8 +11,8 @@ Layouts:
 
 - Dense kernel (in, out) -> Linear weight (out, in); bias as is;
 - Conv kernel DHWIO -> Conv3d weight OIDHW (the stem's conv1/kernel too:
-  its weight gradient from the stem kernel, NERAF_STEM_WGRAD_PALLAS=1,
-  updates the same parameter, so the bridge needs nothing more);
+  both packages keep the direct (5, 5, 5, 7, 64) layout and fold it inside
+  the s2d stem, so the bridge needs nothing more);
 - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var;
 - Embed embedding (num_cameras, dim) -> Embedding weight as is;
@@ -154,7 +154,9 @@ def load_joint_state(pipeline, state) -> None:
     """Fill a JointPipeline from a JAX JointTrainState (or anything with its
     params, batch_stats, grid, cursor and step): every weight in place (the
     optimizers keep their parameters and moments), the BatchNorm running
-    statistics, the grid, the cursor and the step."""
+    statistics, the grid (the pipeline refolds its grid_folded from it; the
+    JAX state's own folded copy is the same values and is not read), the
+    cursor and the step."""
     load_vision_params(pipeline.vision_model, state.params)
     load_render_params(pipeline.resnet, pipeline.audio_model.field,
                        state.params, state.batch_stats)

@@ -2,32 +2,41 @@
 //
 // Replaces neraf_tpu/ops/pallas/stem_wgrad_kernel.py::stem_wgrad_pallas
 // (kernel body :34-58), which the JAX package runs inside the joint train
-// step's backward when NERAF_STEM_WGRAD_PALLAS=1. The port's stem is the
-// direct conv3d, kernel 5, stride 2, padding 2, of a batch-1 NDHWC volume
-// into 64 channels (Do, Ho, Wo) = ((D-1)/2 + 1, ...). For x (D, H, W, cin
-// <= 8; the ResNet's 7 grid channels) and the output cotangent g (Do, Ho,
-// Wo, 64), channels innermost, it returns
+// step's backward when NERAF_STEM_WGRAD_PALLAS=1. Like it, this kernel reads
+// the space-to-depth FOLDED volume the stem's conv takes: xf (Df, Hf, Wf,
+// 8 cin), cin <= 8 (the grid's 7), channel ((d % 2) 4 + (h % 2) 2 + w % 2)
+// cin + c of folded voxel (d / 2, h / 2, w / 2) being x[d, h, w, c] of the
+// grid volume x (D, H, W) = 2 (Df, Hf, Wf); and the cotangent g (Df, Hf,
+// Wf, 64) of the folded conv's output (kernel 3, stride 1, padding 1),
+// channels innermost. The TPU kernel returns the folded conv's weight
+// gradient (3, 3, 3, 8 cin, 64); this one returns the same function
+// unfolded to the direct conv's (kernel 5, stride 2, padding 2) Conv3d
+// layout,
 //   dW[co, ci, kd, kh, kw] = sum_{d,h,w} g[d, h, w, co]
 //                            * x[2d+kd-2, 2h+kh-2, 2w+kw-2, ci]
-// (x zero outside the volume) in float32, in the (64, 8, 5, 5, 5) layout of
-// a Conv3d weight over x padded to 8 channels (the wrapper keeps cin). The
-// TPU kernel computes the same function on the space-to-depth folded volume
-// (k3/s1 over 56 channels, the 6th tap of each axis a zero pad); its halo
-// DMA per depth block and 128-lane channel padding are Mosaic constraints
-// and are not carried over.
+// (x zero outside the volume) in float32, (64, 8, 5, 5, 5) over x padded to
+// 8 channels (the wrapper keeps cin): folded tap k and block position r are
+// direct tap 2 k + r, and the 91 folded taps a channel that meet the
+// weight fold's zero 6th tap are not computed. The TPU kernel's halo DMA
+// per depth block and 128-lane channel padding are Mosaic constraints and
+// are not carried over.
 //
-// What bounds it on the H100: the tensor cores. The step's shape (7 x 128^3)
-// is 29.4 GFLOP of bf16 products for the 7 real channels (0.030 ms at 989
-// TFLOP/s; 33.6 GFLOP, 0.034 ms, for the 8 multiplied) against 67 MB of x,
-// g and dW (0.020 ms at 3.35 TB/s).
+// What bounds it on the H100: the tensor cores. The step's shape (xf 56 x
+// 64^3) is 29.4 GFLOP of bf16 products for the 7 real channels (0.030 ms at
+// 989 TFLOP/s; 33.6 GFLOP, 0.034 ms, for the 8 multiplied) against 63 MB of
+// xf, g and dW (0.019 ms at 3.35 TB/s).
 //
 // As a product it is M = 64 output channels by N = 1000 (125 taps x 8
 // channels) over K = Do Ho Wo output voxels (262,144 at the step), split-K
 // over slices of the output voxels. Three launches:
-//  1. stem_split_kernel copies x into a scratch volume (D, H, 2, ceil(W/2),
-//     8): the channels padded to 8 (16 bytes a voxel in bf16) and the even
-//     and odd w positions of each (d, h) line apart, each parity's line
-//     contiguous. A stride-2 conv reads every other w position for a tap,
+//  1. stem_split_kernel unfolds xf into a scratch volume (D, H, 2, W/2,
+//     8): each voxel of x its own 16-byte row, the channels padded to 8,
+//     and the even and odd w positions of each (d, h) line apart, each
+//     parity's line contiguous. Each thread takes one of a folded voxel's
+//     8 channel blocks (cin channels), so that a warp reads 4 whole folded
+//     voxels (448 contiguous bytes in bf16) and writes rows of 8 lines;
+//     the block's position in the 2^3 block names its line (d, h) and its
+//     parity. A stride-2 conv reads every other w position for a tap,
 //     and wgmma's B wants 16-byte rows one after the other; the split,
 //     made once, lets one TMA box row carry a parity's whole line (288
 //     bytes) where boxes of 16-byte voxels, gathered at a stride of two,
@@ -452,30 +461,31 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   }
 }
 
-// x (D, H, W, cin <= 8) -> xs (D, H, 2, ceil(W / 2), 8): thread (d, h, k)
-// reads the voxels w = 2k, 2k + 1 and writes them to the even and odd lines;
-// the channels past cin, and the odd line's last position when W is odd,
-// zero.
+// xf (Df, Hf, Wf, 8 cin) folded -> xs (2 Df, 2 Hf, 2, Wf, 8): thread i =
+// 8 v + b takes block b = (fd, fh, fw) of folded voxel v = (dd Hf + hh) Wf
+// + k, the cin channels of x[2 dd + fd, 2 hh + fh, 2 k + fw] (consecutive
+// threads read consecutive blocks), and writes them as that voxel's row
+// of line (2 dd + fd, 2 hh + fh), parity fw, position k, the channels past
+// cin zero.
 template <typename T>
-__global__ void stem_split_kernel(const T* __restrict__ x, T* __restrict__ xs,
-                                  int D, int H, int W, int cin) {
-  const int wh = (W + 1) / 2;
+__global__ void stem_split_kernel(const T* __restrict__ xf, T* __restrict__ xs,
+                                  int Df, int Hf, int Wf, int cin) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= (long long)D * H * wh) return;
-  const int k = int(i % wh);
-  const long long line = i / wh;  // d H + h
+  if (i >= (long long)Df * Hf * Wf * 8) return;
+  const int b = int(i & 7);
+  const long long v = i >> 3;
+  const int k = int(v % Wf);
+  const long long dh = v / Wf;  // dd Hf + hh
+  const int hh = int(dh % Hf), dd = int(dh / Hf);
+  const long long line = (2LL * dd + (b >> 2)) * (2 * Hf) + 2 * hh + ((b >> 1) & 1);
+  const T* src = xf + i * cin;
+  __align__(16) T row[kCin];
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int w = 2 * k + p;
-    __align__(16) T row[kCin];
+  for (int c = 0; c < kCin; ++c) row[c] = c < cin ? src[c] : T(0.0f);
+  const uint4* from = reinterpret_cast<const uint4*>(row);
+  uint4* dst = reinterpret_cast<uint4*>(xs + ((line * 2 + (b & 1)) * Wf + k) * kCin);
 #pragma unroll
-    for (int c = 0; c < kCin; ++c)
-      row[c] = w < W && c < cin ? x[(line * W + w) * cin + c] : T(0.0f);
-    const uint4* src = reinterpret_cast<const uint4*>(row);
-    uint4* dst = reinterpret_cast<uint4*>(xs + ((line * 2 + p) * wh + k) * kCin);
-#pragma unroll
-    for (int q = 0; q < int(kCin * sizeof(T) / 16); ++q) dst[q] = src[q];
-  }
+  for (int q = 0; q < int(kCin * sizeof(T) / 16); ++q) dst[q] = from[q];
 }
 
 // The sum over the slices c of part[c * kTotal + i], c in order, to out[i]
@@ -578,11 +588,11 @@ cudaError_t launch_f32(const float* xs, const float* g, float* part,
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* xs, const void* g, float* part,
+cudaError_t launch(const void* xf, void* xs, const void* g, float* part,
                    float* out, int cin, const StemGeo& s, cudaStream_t st) {
-  const long long n = (long long)s.D * s.H * ((s.W + 1) / 2);
+  const long long n = (long long)s.Do * s.Ho * s.Wo * 8;
   stem_split_kernel<T><<<unsigned((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const T*>(x), static_cast<T*>(xs), s.D, s.H, s.W, cin);
+      static_cast<const T*>(xf), static_cast<T*>(xs), s.Do, s.Ho, s.Wo, cin);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (sizeof(T) == 2)
@@ -597,28 +607,27 @@ cudaError_t launch(const void* x, void* xs, const void* g, float* part,
 
 extern "C" {
 
-// Launches the stem weight gradient on `stream`: x (D, H, W, cin <= 8) and
-// g (Do, Ho, Wo, 64), both contiguous, bf16 (bf16 != 0) or f32, -> out (64,
-// 8, 5, 5, 5) f32 (the channels past cin zero). xs (D H 2 ceil(W / 2) 8
-// elements of x's type) and part (slices x 64 x 8 x 125 f32) are scratch;
-// slices must not exceed the bricks (the wrapper's launch plan). Returns
-// the first cudaError_t.
-int neraf_stem_wgrad_launch(const void* x, const void* g, void* xs,
-                            float* part, float* out, int D, int H, int W,
+// Launches the stem weight gradient on `stream`: the folded volume xf (Df,
+// Hf, Wf, 8 cin), cin <= 8, and g (Do, Ho, Wo, 64) = (Df, Hf, Wf, 64), both
+// contiguous, bf16 (bf16 != 0) or f32, -> out (64, 8, 5, 5, 5) f32 (the
+// channels past cin zero). xs (8 Df Hf 2 Wf 8 elements of xf's type) and
+// part (slices x 64 x 8 x 125 f32) are scratch; slices must not exceed the
+// bricks (the wrapper's launch plan). Returns the first cudaError_t.
+int neraf_stem_wgrad_launch(const void* xf, const void* g, void* xs,
+                            float* part, float* out, int Df, int Hf, int Wf,
                             int cin, int Do, int Ho, int Wo, int slices,
                             int bf16, void* stream) {
-  if (D < 1 || H < 1 || W < 1 || cin < 1 || cin > kCin ||
-      Do != (D - 1) / 2 + 1 || Ho != (H - 1) / 2 + 1 || Wo != (W - 1) / 2 + 1 ||
-      slices < 1)
+  if (Df < 1 || Hf < 1 || Wf < 1 || cin < 1 || cin > kCin || Do != Df ||
+      Ho != Hf || Wo != Wf || slices < 1)
     return int(cudaErrorInvalidValue);
-  StemGeo s{D, H, W, Do, Ho, Wo, 0, 0, 0, slices};
+  StemGeo s{2 * Df, 2 * Hf, 2 * Wf, Do, Ho, Wo, 0, 0, 0, slices};
   s.nbw = (Wo + kBW - 1) / kBW;
   const int bd = bf16 ? Bb::BD : Bf::BD, bh = bf16 ? Bb::BH : Bf::BH;
   s.nbh = (Ho + bh - 1) / bh;
   s.nbricks = ((Do + bd - 1) / bd) * s.nbh * s.nbw;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(bf16 ? launch<__nv_bfloat16>(x, xs, g, part, out, cin, s, st)
-                  : launch<float>(x, xs, g, part, out, cin, s, st));
+  return int(bf16 ? launch<__nv_bfloat16>(xf, xs, g, part, out, cin, s, st)
+                  : launch<float>(xf, xs, g, part, out, cin, s, st));
 }
 
 }  // extern "C"

@@ -10,7 +10,10 @@ weights_only=True:
   step tensors) and its update count, which sets the learning rate;
 - generator: the train generator's state, so that a resumed run draws what
   the straight run draws;
-- step, and for a joint pipeline the grid and the bake cursor.
+- step, and for a joint pipeline the flat grid and the bake cursor. The
+  pipeline's pre-folded grid is derived state: no checkpoint holds it, and
+  assigning the restored grid refolds it (JointPipeline.grid), as the JAX
+  package refolds on restore (neraf_tpu/engine/checkpoints.py:19, 66-92).
 A save writes a temporary file and renames it, so a crash mid-save leaves
 the last complete checkpoint as the latest one.
 """
@@ -43,7 +46,8 @@ def train_state(obj) -> dict:
 def load_train_state(obj, state: dict) -> None:
     """Restore `state` into obj in place: modules strictly, the Adam states
     onto the same parameters (build obj on its device first: a card's Adam
-    is the fused one), counts, generator, step, grid and cursor."""
+    is the fused one), counts, generator, step, grid (a JointPipeline
+    refolds its grid_folded from it) and cursor."""
     for k, m in obj.models.items():
         m.load_state_dict(state["models"][k], strict=True)
     for k, o in obj.optimizers.items():

@@ -7,7 +7,8 @@ VisionPipeline images (render_image, evaluate_vision); the JAX package's
 JointPipeline owns all three.
 
 One RIR request (mic poses, source poses, orientations) is served as
-  1. the scene grid through ResNet3D in eval mode -> one descriptor,
+  1. the scene grid through ResNet3D in eval mode -> one descriptor (its
+     s2d stem folds the flat grid once a request),
   2. the acoustic field over all T STFT frames of every RIR -> log-mags,
   3. log_to_magnitude,
   4. Griffin-Lim -> waveform (the CUDA kernel on a card).
@@ -44,9 +45,12 @@ from neraf_tpu_torch.metrics.room_acoustics import (
 from neraf_tpu_torch.models.audio import AudioModel
 from neraf_tpu_torch.models.grid import (
     bake_cells,
+    bake_cells_folded,
     cell_centers,
     compute_fresh_cells,
     fixed_viewing_directions,
+    fold_grid,
+    folded_bake_supported,
     grid_to_volume,
     init_grid,
     single_viewing_direction,
@@ -226,10 +230,25 @@ class JointPipeline:
     state (weights, Adam moments, grid, cursor, step, generator) lives in
     the pipeline and is updated in place.
 
-    The ResNet stem's weight gradient: with NERAF_STEM_WGRAD_PALLAS=1 in
-    the environment when the pipeline is built (the reference's own gate,
-    neraf_tpu/engine/pipeline.py:88-100, read once here), the stem runs
-    through ops/stem_conv.py and its weight gradient is the CUDA kernel
+    The pre-folded grid (neraf_tpu/engine/pipeline.py:170-176, 345-371):
+    when one cursor batch is one slab of the space-to-depth folded volume
+    (models/grid.py::folded_bake_supported; R 128 at 4096 cells does),
+    `grid_folded` holds the folded copy of the grid in the ResNet's compute
+    dtype (bf16 with mixed precision, else f32). A step then bakes the
+    detached fresh cells into the flat grid (bookkeeping: checkpoints and
+    the eval paths read it), splices the live slab into `grid_folded` in
+    place, and runs the ResNet on the folded state through
+    ops/baked_stem.py (the slab's input gradient alone). Otherwise
+    `grid_folded` is None and the step splices the live cells into the
+    flat grid, whose volume the s2d stem folds, as the reference's other
+    branch does. `grid_folded` is derived state: assigning `grid` (a
+    checkpoint's restore, bridge.load_joint_state) refolds it, and no
+    checkpoint holds it.
+
+    The stem's weight gradient on the folded path: with
+    NERAF_STEM_WGRAD_PALLAS=1 in the environment when the pipeline is
+    built (the reference's own gate, neraf_tpu/engine/pipeline.py:88-100,
+    read once here into `stem_wgrad_kernel`), the CUDA kernel
     csrc/stem_wgrad.cu on a card (the plain version on the CPU), once a
     step; otherwise, the default as in the reference, cuDNN's.
     """
@@ -245,22 +264,24 @@ class JointPipeline:
         self.vision_model = vision_model.to(self.device).train()
         self.audio_model = audio_model.to(self.device).train()
         self.resnet = resnet.to(self.device).train()
-        self.resnet.stem_wgrad_kernel = (
+        self.stem_wgrad_kernel = (
             os.environ.get("NERAF_STEM_WGRAD_PALLAS", "0") == "1")
         as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                            device=self.device)
         self.audio_aabb, self.vision_aabb = as_f32(audio_aabb), as_f32(vision_aabb)
         self.grid_res = grid_res
-        # an empty grid at cursor and step 0; bridge.load_joint_state
-        # restores a JAX state's
-        self.grid = as_f32(init_grid(grid_res))
-        self.cursor, self.step = 0, 0
         self.cells = as_f32(cell_centers(grid_res))
         bake = config.trainer.grid_bake_cells_per_step
         # the bake splices one contiguous batch: it must tile the grid
         assert bake > 0 and self.cells.shape[0] % bake == 0, (
             f"grid_bake_cells_per_step={bake} must divide grid_res^3="
             f"{self.cells.shape[0]}: the bake would double-write cells")
+        self.folded_bake = folded_bake_supported(grid_res, bake)
+        self.folded_dtype = torch.bfloat16 if self.mixed else torch.float32
+        # an empty grid at cursor and step 0; bridge.load_joint_state
+        # restores a JAX state's
+        self.grid = as_f32(init_grid(grid_res))
+        self.cursor, self.step = 0, 0
         self.view_dirs = (
             fixed_viewing_directions(self.device)
             if config.audio_model.use_multiple_viewing_directions
@@ -281,6 +302,18 @@ class JointPipeline:
         }
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.profile = None  # a list: train_step appends (stage, CUDA event)
+
+    @property
+    def grid(self) -> torch.Tensor:
+        """The flat (R^3, 7) f32 grid."""
+        return self._grid
+
+    @grid.setter
+    def grid(self, grid: torch.Tensor) -> None:
+        """Set the flat grid and refold grid_folded from it."""
+        self._grid = grid
+        self.grid_folded = (fold_grid(grid, self.grid_res, self.folded_dtype)
+                            if self.folded_bake else None)
 
     @property
     def models(self) -> dict:
@@ -343,11 +376,21 @@ class JointPipeline:
         fresh = compute_fresh_cells(
             self.vision_model.query_density_rgb, self.cursor, self.cells,
             self.vision_aabb, tcfg.grid_bake_cells_per_step, self.view_dirs)
-        grid, cursor = bake_cells(self.grid, self.cursor, fresh)
+        if self.grid_folded is not None:
+            # the flat grid is bookkeeping; the live slab is spliced into
+            # the folded state, which is not written again before backward
+            grid, cursor = bake_cells(self.grid, self.cursor, fresh.detach())
+            slab = bake_cells_folded(self.grid_folded, self.cursor, fresh,
+                                     self.cells, self.grid_res)
+            vol, stem_args = self.grid_folded, {
+                "bake_slab": (*slab, self.stem_wgrad_kernel)}
+        else:
+            grid, cursor = bake_cells(self.grid, self.cursor, fresh)
+            vol, stem_args = grid_to_volume(grid, self.grid_res), {}
         self._mark("bake")
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.mixed):
-            feat = self.resnet(grid_to_volume(grid, self.grid_res))[0]
+            feat = self.resnet(vol, **stem_args)[0]
             self._mark("resnet_forward")
             aout = self.audio_model(batch, self.audio_aabb,
                                     grid_feature=feat.float())
@@ -368,7 +411,8 @@ class JointPipeline:
             opt.step()
         self._mark("optimizers")
 
-        self.grid, self.cursor = grid.detach(), cursor
+        # grid_folded already holds the fresh cells: no refold
+        self._grid, self.cursor = grid.detach(), cursor
         self.step += 1
         values = torch.stack([v.detach().float()
                               for v in (*losses.values(), total)]).tolist()
@@ -407,7 +451,8 @@ class JointPipeline:
 
     def _grid_feature_eval(self) -> torch.Tensor:
         """The scene descriptor, eval-mode BatchNorm, under the step's
-        autocast (call inside _eval_mode)."""
+        autocast (call inside _eval_mode); the s2d stem folds the flat grid,
+        as the reference's eval paths do."""
         with self._autocast():
             return self.resnet(grid_to_volume(self.grid, self.grid_res))[0].float()
 

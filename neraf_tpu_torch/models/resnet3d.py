@@ -3,24 +3,30 @@
 conv5^3/s2 -> BN/ReLU -> maxpool3/s2 -> residual stages [layer1..3(,4)] ->
 average pool over the remaining volume -> one (feature_dim,) descriptor.
 The input is an NDHWC volume, as in the JAX package; it is permuted to NCDHW
-inside. The stem is the direct k5/s2 convolution and the max pool the joint
-3^3 window (the JAX package's s2d stem and separable pool are TPU layout
-devices with the same forward values; the separable pool routes a gradient
-on an exact tie to another element).
+inside. The max pool is the joint 3^3 window (the JAX package's separable
+pool has the same forward values and routes a gradient on an exact tie to
+another element).
 
-With `stem_wgrad_kernel` set (the joint step sets it from
-NERAF_STEM_WGRAD_PALLAS=1), the stem runs in train mode with gradients
-enabled through ops/stem_conv.py::StemConvFunction, on the NDHWC volume
-itself: the same forward, the input gradient from cuDNN's, and the weight
-gradient from ops/stem_wgrad.py, the CUDA kernel on a card (the counterpart
-of the JAX package's Pallas stem weight gradient). Eval mode, and the
-render path, keep the plain nn.Conv3d.
+The stem (ResNet3D.stem, the JAX package's _StemConv) keeps its weight in
+the direct layout, conv1.weight (64, 7, 5, 5, 5), and runs space-to-depth
+folded, the reference's default: the volume cast to the compute dtype,
+each 2^3 block folded into 56 channels (models/grid.py::fold_volume) and
+one conv, kernel 3, stride 1, with the folded weight
+(ops/stem_wgrad.py::fold_weight); the same function as the direct conv up
+to the order of its sums. A volume with an odd side takes the direct conv.
+The joint step hands the stem the pre-folded grid with the live slab of
+its fresh cells (bake_slab), which goes through
+ops/baked_stem.py::StemConvBaked: the input gradient of the slab alone
+and, with the slab's use_kernel flag (NERAF_STEM_WGRAD_PALLAS=1), the
+weight gradient from the CUDA kernel csrc/stem_wgrad.cu on a card (the
+plain version on the CPU).
 
 BatchNorm (eps 1e-5) follows flax: in eval mode it uses the running
-statistics; in train mode (the joint step) it normalises with the batch-1
-statistics over D, H and W and, while `update_stats` is set, moves the
-running statistics by momentum 0.1 (flax's 0.9) towards the batch mean and
-the BIASED batch variance, where nn.BatchNorm3d would take the unbiased one.
+statistics in flax's own arithmetic; in train mode (the joint step) it
+normalises with the batch-1 statistics over D, H and W and, while
+`update_stats` is set, moves the running statistics by momentum 0.1
+(flax's 0.9) towards the batch mean and the BIASED batch variance, where
+nn.BatchNorm3d would take the unbiased one.
 """
 
 from __future__ import annotations
@@ -29,17 +35,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neraf_tpu_torch.ops.stem_conv import stem_conv
+from neraf_tpu_torch.models.grid import fold_volume
+from neraf_tpu_torch.ops.baked_stem import stem_conv_baked
+from neraf_tpu_torch.ops.stem_wgrad import fold_weight
 
 
 class BatchNorm3d(nn.BatchNorm3d):
-    """nn.BatchNorm3d with flax's train-mode running-statistics update."""
+    """nn.BatchNorm3d with flax's eval arithmetic and train-mode
+    running-statistics update.
+
+    Eval mode computes (x - mean) * (rsqrt(var + eps) * scale) + bias, as
+    flax's BatchNorm does, in x's type promoted with the statistics'
+    (float32 for a bf16 x) and returned in x's type, as flax returns its
+    compute dtype."""
 
     update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean.view(shape)) * mul.view(shape)
+                    + self.bias.view(shape)).to(x.dtype)
         # native_batch_norm, not F.batch_norm: it returns the batch mean and
         # inverse std it normalised with (the biased variance, with no second
         # pass over x), and takes a 1^3 volume (layer3 of a 16^3 grid), one
@@ -119,11 +136,7 @@ class ResNet3D(nn.Module):
     """(N, D, H, W, C_in) NDHWC -> (N, feature_dim) float32.
 
     layer4 runs only when n_features == 2048. Built in eval mode.
-    stem_wgrad_kernel: the stem's weight gradient from the kernel (module
-    docstring); batch 1 only.
     """
-
-    stem_wgrad_kernel = False
 
     def __init__(self, backbone: str = "resnet50", n_features: int = 1024,
                  in_channels: int = 7):
@@ -170,17 +183,28 @@ class ResNet3D(nn.Module):
             if isinstance(mod, BatchNorm3d):
                 mod.update_stats = on
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
-        """The stem convolution of the NDHWC volume x, before bn1 -> (1, 64,
-        Do, Ho, Wo). It stays on the 7 grid channels: padded to 8, cuDNN's
-        forward took no tensor-core kernel and ran slower (PERF.md)."""
-        dtype = self.conv1.weight.dtype
-        if self.stem_wgrad_kernel and self.training and torch.is_grad_enabled():
-            return stem_conv(x.to(dtype), self.conv1.weight)
-        return self.conv1(x.permute(0, 4, 1, 2, 3).to(dtype))
+    def stem(self, x: torch.Tensor, bake_slab=None) -> torch.Tensor:
+        """The stem convolution, before bn1 -> (1, 64, Do, Ho, Wo).
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.stem(x)))
+        x: the NDHWC volume (1, D, H, W, 7); with bake_slab, the folded
+        state (1, D/2, H/2, W/2, 56) in the compute dtype and (slab, d0,
+        h0, ch_off, use_kernel) of the live slab spliced into it
+        (models/grid.py::bake_cells_folded), for StemConvBaked."""
+        w = self.conv1.weight
+        if bake_slab is not None:
+            slab, d0, h0, ch_off, use_kernel = bake_slab
+            return stem_conv_baked(x, slab, d0, h0, ch_off, w, use_kernel)
+        dev = x.device.type
+        dtype = (torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev)
+                 else w.dtype)
+        if any(n % 2 for n in x.shape[1:4]):
+            return self.conv1(x.permute(0, 4, 1, 2, 3).to(dtype))
+        return F.conv3d(fold_volume(x, dtype).permute(0, 4, 1, 2, 3),
+                        fold_weight(w.to(dtype)), None, 1, 1)
+
+    def forward(self, x: torch.Tensor, bake_slab=None) -> torch.Tensor:
+        """x as ResNet3D.stem takes it -> (1, feature_dim) float32."""
+        x = F.relu(self.bn1(self.stem(x, bake_slab)))
         x = F.max_pool3d(x, 3, 2, 1)
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)

@@ -1,8 +1,10 @@
 """The port's eval-mode ResNet3D against flax ResNet3D.apply(train=False).
 
 Bridged weights, random non-trivial batch_stats so BatchNorm's running
-statistics are exercised, a 16^3 grid with the 7 grid channels, f32 on CPU.
-ResNet3D.stem (gate off, gate on, eval) against F.conv3d in float64.
+statistics are exercised, a 16^3 grid with the 7 grid channels, f32 on CPU;
+both stems are the space-to-depth folded one (flax's stem_impl "s2d").
+ResNet3D.stem (the s2d stem in train and eval mode, the baked stem with the
+kernel gate on) against the direct F.conv3d in float64.
 """
 
 import jax
@@ -14,6 +16,11 @@ import torch.nn.functional as F
 
 from neraf_tpu.models.resnet3d import ResNet3D as JResNet3D
 from neraf_tpu_torch.bridge import load_state_dict, resnet_state_dict
+from neraf_tpu_torch.models.grid import (
+    bake_cells_folded,
+    cell_centers,
+    fold_volume,
+)
 from neraf_tpu_torch.models.resnet3d import ResNet3D
 
 
@@ -85,21 +92,40 @@ def test_seeded_init_is_xavier_and_reproducible():
 
 @pytest.mark.parametrize("mode", ["gate_off", "gate_on", "eval"])
 def test_stem_matches_conv3d_in_float64(mode):
-    """ResNet3D.stem on the 7 grid channels (gate off and eval: the
-    nn.Conv3d; gate on: StemConvFunction with the plain weight gradient).
-    In float64 its output, dx and the parameter's gradient equal F.conv3d's
-    autograd to 1e-10 of each peak (only the order of the sums differs)."""
+    """ResNet3D.stem on the 7 grid channels against the direct conv (kernel
+    5, stride 2, padding 2) and its autograd in float64, each of the
+    output, the input gradient and the parameter's gradient to 1e-10 of its
+    peak (only the order of the sums differs). gate_off and eval: the s2d
+    stem of an NDHWC volume with D != H != W, the input gradient through
+    the fold. gate_on: the baked stem over the folded 16^3 grid with one
+    cursor batch's slab live and the weight gradient from stem_wgrad's
+    plain version; the input gradient is the fresh cells', against the
+    direct conv's gradient of the same cells."""
     net = ResNet3D(backbone="resnet18").double()
     net.reset_parameters(torch.Generator().manual_seed(3))
     net.train(mode != "eval")
-    net.stem_wgrad_kernel = mode == "gate_on"
     rng = np.random.default_rng(11)
-    x0 = torch.from_numpy(rng.uniform(0, 1, size=(1, 12, 10, 14, 7)))
-    g = torch.from_numpy(rng.normal(size=(1, 64, 6, 5, 7)))
-    x, xr = x0.clone().requires_grad_(), x0.clone().requires_grad_()
     wr = net.conv1.weight.detach().clone().requires_grad_()
-    out = net.stem(x)
-    ref = F.conv3d(xr.permute(0, 4, 1, 2, 3), wr, None, 2, 2)
+    if mode == "gate_on":
+        R, B, cursor = 16, 64, 5 * 256 + 96
+        grid = torch.from_numpy(rng.uniform(0, 1, size=(R ** 3, 7)))
+        grid[:, 4:] = torch.from_numpy(cell_centers(R))  # as the slab's xyz
+        fresh0 = torch.from_numpy(rng.uniform(0, 1, size=(B, 4)))
+        g = torch.from_numpy(rng.normal(size=(1, 64, 8, 8, 8)))
+        x, xr = fresh0.clone().requires_grad_(), fresh0.clone().requires_grad_()
+        nf = fold_volume(grid.reshape(1, R, R, R, 7))
+        slab = bake_cells_folded(nf, cursor, x, grid[:, 4:], R)
+        out = net.stem(nf, bake_slab=(*slab, True))
+        vol = torch.cat([grid[:cursor], torch.cat(
+            [xr, grid[cursor:cursor + B, 4:]], -1), grid[cursor + B:]])
+        ref = F.conv3d(vol.reshape(1, R, R, R, 7).permute(0, 4, 1, 2, 3), wr,
+                       None, 2, 2)
+    else:
+        x0 = torch.from_numpy(rng.uniform(0, 1, size=(1, 12, 10, 14, 7)))
+        g = torch.from_numpy(rng.normal(size=(1, 64, 6, 5, 7)))
+        x, xr = x0.clone().requires_grad_(), x0.clone().requires_grad_()
+        out = net.stem(x)
+        ref = F.conv3d(xr.permute(0, 4, 1, 2, 3), wr, None, 2, 2)
     out.backward(g)
     ref.backward(g)
     assert net.conv1.weight.grad.shape == (64, 7, 5, 5, 5)

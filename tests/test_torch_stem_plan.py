@@ -1,8 +1,10 @@
 """The stem weight-gradient kernel's plan (csrc/stem_wgrad.cu, bf16 wgmma),
 emulated in numpy on the CPU, where the kernel cannot run.
 
-The emulation walks what the kernel walks: the split copy of x (channels
-padded to 8, the even and odd w positions of each (d, h) line apart);
+The emulation walks what the kernel walks: the split copy that unfolds the
+space-to-depth folded volume xf (each thread one of a folded voxel's 8
+channel blocks, written as its grid voxel's row: channels padded to 8, the
+even and odd w positions of each (d, h) line apart);
 launch_plan's slices of the output bricks; each brick staged as the
 producer's two TMA boxes land it (the input brick, box (d 7, h 11, 2
 parities, 18 positions x 8 channels) of the split volume, zeros outside
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from neraf_tpu_torch.models.grid import fold_volume
 from neraf_tpu_torch.ops.cuda.stem_wgrad import launch_plan
 from neraf_tpu_torch.ops.stem_wgrad import stem_wgrad_plain
 
@@ -52,7 +55,13 @@ def test_constants_are_the_sources():
                  "wgmma_desc(smem, 128, Stage::kLine)",
                  "pw[((first + j) * 20 + e) * 128] = acc[j][e]",
                  "16u * uint32_t((wq * 2 + (mat & 1)) ^ r8)",
-                 "CU_TENSOR_MAP_SWIZZLE_128B"):
+                 "CU_TENSOR_MAP_SWIZZLE_128B",
+                 # the split copy's thread map (split() below)
+                 "const int b = int(i & 7);",
+                 "line = (2LL * dd + (b >> 2)) * (2 * Hf) + 2 * hh + "
+                 "((b >> 1) & 1);",
+                 "const T* src = xf + i * cin;",
+                 "xs + ((line * 2 + (b & 1)) * Wf + k) * kCin"):
         assert line in SRC, line
     assert "stem_pack_kernel" not in SRC
     assert G_OFF == 45056
@@ -122,13 +131,25 @@ def group_bytes(G):
     return 16 * xrow(kd, 0, kw)
 
 
-def split(x):
-    """stem_split_kernel: x (D, H, W, cin) -> (D, H, 2, ceil(W / 2), 8),
-    the channels past cin and the odd line's last position (W odd) zero."""
-    D, H, W, cin = x.shape
-    xs = np.zeros((D, H, 2, (W + 1) // 2, CIN))
-    xs[:, :, 0, :, :cin] = x[:, :, 0::2]
-    xs[:, :, 1, :W // 2, :cin] = x[:, :, 1::2]
+def split(xf):
+    """stem_split_kernel: xf (Df, Hf, Wf, 8 cin) folded -> (2 Df, 2 Hf, 2,
+    Wf, 8), thread by thread: thread i = 8 v + b reads cin channels from
+    element i cin of xf and writes the row of line (2 dd + fd, 2 hh + fh),
+    parity fw, position k, b = (fd, fh, fw) and v = (dd Hf + hh) Wf + k;
+    the channels past cin zero. Every row is written exactly once."""
+    Df, Hf, Wf, c8 = xf.shape
+    cin = c8 // 8
+    flat = xf.reshape(-1)
+    xs = np.full((2 * Df, 2 * Hf, 2, Wf, CIN), np.nan)
+    for i in range(Df * Hf * Wf * 8):
+        b, v = i & 7, i >> 3
+        k, dh = v % Wf, v // Wf
+        hh, dd = dh % Hf, dh // Hf
+        d, h = 2 * dd + (b >> 2), 2 * hh + ((b >> 1) & 1)
+        assert np.isnan(xs[d, h, b & 1, k]).all()
+        xs[d, h, b & 1, k] = np.pad(flat[i * cin:(i + 1) * cin],
+                                    (0, CIN - cin))
+    assert not np.isnan(xs).any()
     return xs
 
 
@@ -171,10 +192,11 @@ def b_tile(xs_flat, start):
     return xs_flat[byte // 2], byte // 16
 
 
-def emulate(x, g):
-    """x (D, H, W, cin), g (Do, Ho, Wo, 64) float64 -> dW (64, 8, 125) in
-    the kernel's plan and order, with the plan's invariants asserted."""
-    D, H, W, _ = x.shape
+def emulate(xf, g):
+    """xf (Df, Hf, Wf, 8 cin) folded, g (Df, Hf, Wf, 64) float64 -> dW (64,
+    8, 125) in the kernel's plan and order, with the plan's invariants
+    asserted."""
+    D, H, W = (2 * n for n in xf.shape[:3])
     Do, Ho, Wo, _ = g.shape
     plan = launch_plan((Do, Ho, Wo), True, SMS)
     BD, BH, _ = plan["brick"]
@@ -184,7 +206,7 @@ def emulate(x, g):
     rows_of = [xrow(i, j, k) for i in range(ID) for j in range(IH)
                for k in range(2 * BW + 3)]
     assert len(set(rows_of)) == len(rows_of) and max(rows_of) < G_OFF // 16
-    xsplit = split(x)
+    xsplit = split(xf)
     wh = xsplit.shape[3]
     covered = np.zeros((Do, Ho, Wo), np.int64)
     partials = np.zeros((plan["slices"], GROUPS * 20 * 128))
@@ -259,14 +281,16 @@ def emulate(x, g):
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 16), (10, 34, 18), (10, 18, 34),
-                                   (13, 19, 37)],
+                                   (14, 20, 38)],
                          ids=["cube", "asymmetric", "asymmetric_w", "ragged"])
 def test_emulated_plan_matches_plain_float64(shape):
+    """The grid volume of `shape` folded as the stem folds it; ragged: the
+    (7, 10, 19) output bricks are cut at every edge."""
     rng = np.random.default_rng(sum(shape))
     out_shape = tuple((n - 1) // 2 + 1 for n in shape)
     x = rng.normal(size=(*shape, 7))  # the ResNet's 7 grid channels
     g = rng.normal(size=(*out_shape, COUT))
-    got = emulate(x, g)
+    got = emulate(fold_volume(torch.from_numpy(x)[None])[0].numpy(), g)
     want = stem_wgrad_plain(
         torch.from_numpy(x)[None],
         torch.from_numpy(np.ascontiguousarray(g.transpose(3, 0, 1, 2)))[None])

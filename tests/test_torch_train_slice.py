@@ -23,9 +23,12 @@ BatchNorm statistics, grid, cursor, step; the port's Adam moments and
 counts carry over): Adam's first updates are ~lr sign(g), so float-level
 gradient differences would otherwise become lr-sized weight differences.
 Adam and its schedule are held against optax in tests/test_torch_train.py.
-One more fourier step runs with NERAF_STEM_WGRAD_PALLAS=1 on both sides, from
-step 2 so that the audio branch is live: the port's stem weight gradient is
-then ops/stem_wgrad.py's (plain on the CPU, once a step), held against the
+At 32^3 and 256 cells a step both packages take the pre-folded grid path
+(one cursor batch is one slab of the folded volume): after every step the
+port's grid_folded is fold_grid(grid) bitwise. One more fourier step runs
+with NERAF_STEM_WGRAD_PALLAS=1 on both sides, from step 2 so that the audio
+branch is live: the port's stem weight gradient is then ops/stem_wgrad.py's
+(plain on the CPU, once a step, on the folded volume), held against the
 JAX step's at the same tolerances. And one fourier step, from step 2, with
 use_single_jitter=False: each sampler then jitters with one uniform per bin
 edge, (R, S + 1), drawn as the JAX samplers draw them.
@@ -55,6 +58,7 @@ import torch
 from neraf_tpu.configs.config import AudioModelConfig, ExperimentConfig
 from neraf_tpu.data.vision_data import camera_arrays as jcamera_arrays
 from neraf_tpu.data.vision_data import sample_pixel_batch as jsample_pixel_batch
+import neraf_tpu.models.grid as jg
 from neraf_tpu.engine.pipeline import JointPipeline as JJointPipeline
 from neraf_tpu.models.audio import AudioModel as JAudioModel
 from neraf_tpu.models.resnet3d import ResNet3D as JResNet3D
@@ -74,6 +78,7 @@ from neraf_tpu_torch.engine.factory import (
     joint_config,
     vision_model_config,
 )
+from neraf_tpu_torch.models.grid import fold_grid
 from neraf_tpu_torch.ops import stem_wgrad
 
 GRID_RES, H, W, N_REC, STEPS = 32, 12, 10, 5, 3
@@ -97,7 +102,7 @@ def _recording(inner):
     return optax.GradientTransformation(init, update)
 
 
-def _jax_config(encoding, single_jitter=True):
+def _jax_config(encoding, single_jitter=True, bake=256):
     cfg = ExperimentConfig(dataset="SoundSpaces")
     cfg.vision_model = dataclasses.replace(
         vision_model_config(tiny=True, encoding=encoding),
@@ -107,7 +112,7 @@ def _jax_config(encoding, single_jitter=True):
         n_features=1024, resnet_backbone="resnet18").resolve()
     cfg.trainer.mixed_precision = False
     cfg.trainer.start_step_audio = 1
-    cfg.trainer.grid_bake_cells_per_step = 256
+    cfg.trainer.grid_bake_cells_per_step = bake
     cfg.vision_data.train_rays_per_batch = 64
     cfg.audio_data.batch_size = 32
     return cfg
@@ -174,10 +179,14 @@ def _bn_stats(port):
             if k.endswith(("running_mean", "running_var"))}
 
 
-def _run_steps(encoding, steps, start_step=0, single_jitter=True):
+def _run_steps(encoding, steps, start_step=0, single_jitter=True,
+               grid_res=GRID_RES, bake=256, fill_grid=False):
     """`steps` joint steps of both packages from one JAX init_state, its
-    step counter set to `start_step` -> a list of each step's results."""
-    cfg = _jax_config(encoding, single_jitter)
+    step counter set to `start_step`, on a grid_res^3 grid baking `bake`
+    cells a step (with fill_grid, every cell's rgb and alpha first set to
+    seeded uniforms, as a trained grid has them) -> a list of each step's
+    results."""
+    cfg = _jax_config(encoding, single_jitter, bake)
     feat_dim = JResNet3D(backbone="resnet18", n_features=1024).feature_dim
     jpipe = JJointPipeline(
         config=cfg,
@@ -187,15 +196,22 @@ def _run_steps(encoding, steps, start_step=0, single_jitter=True):
                                 grid_feature_dim=feat_dim),
         audio_aabb=jnp.asarray([[-3.0, -3.0, -3.0], [3.0, 3.0, 3.0]]),
         vision_aabb=jnp.asarray([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]),
-        grid_res=GRID_RES)
+        grid_res=grid_res)
     for attr in ("opt_prop", "opt_fields", "opt_cam", "opt_audio"):
         setattr(jpipe, attr, _recording(getattr(jpipe, attr)))
     state = jpipe.init_state(seed=3)
     state = state._replace(step=jnp.asarray(start_step, jnp.int32))
+    if fill_grid:
+        grid = np.array(state.grid)
+        grid[:, :4] = np.random.default_rng(13).uniform(size=(len(grid), 4))
+        folded = (None if state.grid_folded is None else jg.fold_grid(
+            jnp.asarray(grid), grid_res, state.grid_folded.dtype))
+        state = state._replace(grid=jnp.asarray(grid), grid_folded=folded)
     pcfg = joint_config(tiny=True, encoding=encoding)
+    pcfg.trainer.grid_bake_cells_per_step = bake
     pcfg.vision_model = dataclasses.replace(pcfg.vision_model,
                                             use_single_jitter=single_jitter)
-    port = build_joint_pipeline(grid_res=GRID_RES, tiny=True, device="cpu",
+    port = build_joint_pipeline(grid_res=grid_res, tiny=True, device="cpu",
                                 mixed_precision=False, state=state,
                                 config=pcfg)
 
@@ -225,7 +241,12 @@ def _run_steps(encoding, steps, start_step=0, single_jitter=True):
                     "stats": {k: v.numpy() for k, v in tree_to_state_dict(
                         state.batch_stats).items()}},
             "port": {"metrics": pm, "grads": _port_grads(port),
-                     "grid": port.grid.numpy().copy(), "cursor": port.cursor,
+                     "grid": port.grid.numpy().copy(),
+                     "folded": port.grid_folded is not None,
+                     "folded_is_grid": port.grid_folded is not None and bool(
+                         torch.equal(port.grid_folded,
+                                     fold_grid(port.grid, grid_res))),
+                     "cursor": port.cursor,
                      "step": port.step, "stats": _bn_stats(port)},
         })
     return out
@@ -241,10 +262,10 @@ def gate_run():
     """One fourier step with NERAF_STEM_WGRAD_PALLAS=1 on both sides, from
     step 2 (the audio branch live, so a gradient reaches the stem): the JAX
     step takes the folded stem_conv_baked with XLA's weight gradient on the
-    CPU (baked_stem.py:81-93), the port StemConvFunction with the plain
-    stem_wgrad, whose calls are counted."""
+    CPU (baked_stem.py:81-93), the port StemConvBaked with the plain
+    stem_wgrad of the folded volume, whose calls are counted."""
     calls = []
-    plain = stem_wgrad.stem_wgrad_plain
+    plain = stem_wgrad.stem_wgrad_folded_plain
 
     def counted(x, g):
         calls.append(tuple(x.shape))
@@ -252,7 +273,7 @@ def gate_run():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NERAF_STEM_WGRAD_PALLAS", "1")
-        mp.setattr(stem_wgrad, "stem_wgrad_plain", counted)
+        mp.setattr(stem_wgrad, "stem_wgrad_folded_plain", counted)
         (run,) = _run_steps("fourier", 1, start_step=2)
     return run, calls
 
@@ -303,6 +324,7 @@ def _check_state(run, n_steps, step, live):
     j, p = run["jax"], run["port"]
     assert p["cursor"] == j["cursor"] == 256 * n_steps
     assert p["step"] == j["step"] == step
+    assert p["folded_is_grid"]  # the folded path, its state the grid's fold
     _close_to_peak(p["grid"], j["grid"], "grid")
     baked = np.abs(p["grid"][:, :4]).sum(-1) > 0
     assert baked.sum() == 256 * n_steps and baked[:256 * n_steps].all()
@@ -346,7 +368,9 @@ def test_stem_gate_grid_cursor_and_bn_stats_match_jax(gate_run):
 
 
 def test_stem_gate_runs_the_stem_weight_gradient_once_a_step(gate_run):
-    assert gate_run[1] == [(1, GRID_RES, GRID_RES, GRID_RES, 7)]
+    """Once, on the folded volume (1, R/2, R/2, R/2, 56)."""
+    half = GRID_RES // 2
+    assert gate_run[1] == [(1, half, half, half, 56)]
 
 
 def test_per_edge_jitter_losses_match_jax(jitter_run):
