@@ -128,7 +128,29 @@ Phases, each fatal on failure:
      grid-free) for 8 steps and its evaluate. Each run's pe_mlp and GL
      launches are gated: 4 + 4 a step plus 3 an eval batch, eval image
      and eval view, 1 GL launch for the on-device eval sweep, 2 for each
-     host sweep.
+     host sweep;
+ 22. the serving and tool entry points on phase 21's run directory, each
+     run's launches gated: cli.render over the eval views (3 pe_mlp
+     launches a 4,096-ray view), each PNG and depth map bitwise the
+     pipeline's own render_image; a 2-step hash run (2 + 2 hash and 2 + 2
+     pe_mlp launches a step) and cli.render on it (1 hash + 2 pe_mlp a
+     view); cli.loudness at 48 x 48 (2,304 RIRs in one sweep, no GL and no
+     pe_mlp launch), the map finite and its PNG 512 x 512, and the sweep
+     timed alone; a 16-pose trajectory (its 32 channels through one GL
+     launch, then a 3 s moving-listener track, card against CPU); the
+     standalone viewer (cli.viewer, port 0), twice (cold, then warm): /,
+     three /render at 128 x 128 and one at 512 x 512 (3 and 24 pe_mlp),
+     three /rir (one with a source override) and a POST /auralize of a 5 s
+     dry WAV at 44.1 kHz (1 GL each), /state, each status, content type,
+     payload and wall time, then the requests' stages timed on the
+     viewer's pipeline; kernel #1 at 2 and 32 channels against
+     griffin_lim_plain under phase 3's gates, timed beside its bound;
+     cli.train --viewer-port 0 for 8 steps with a client's /render, /rir
+     and /state answered during the run, its step-8 checkpoint against
+     phase 21's run without the viewer beside a second run without it
+     (the card's run-to-run spread); process_scene on 96 seeded
+     binaural wavs at 44.1 kHz on the card, timed, each spectrogram held
+     to process_rir_wav on the CPU.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -141,9 +163,12 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -2183,16 +2208,13 @@ def group_gaps(torch, a: dict, b: dict) -> dict:
     return out
 
 
-def cli_phase(torch, dev) -> dict:
+def cli_phase(torch, dev, tmp) -> dict:
     """Phase 21: a SoundSpaces scene (96 + 8 synthetic RIR pairs, the
-    sphere's 12 views of 64 x 64) written to a temporary directory, then
-    cli.train (joint, full width, 8 steps with every cadence), a checkpoint
-    round trip, two --load-dir resumes from step 4, cli.evaluate, and the
-    audio-only train and evaluate; the launch counts of each run gated."""
-    import shutil
-    import tempfile
-    from pathlib import Path
-
+    sphere's 12 views of 64 x 64) written under `tmp`, then cli.train
+    (joint, full width, 8 steps with every cadence, in tmp/run1), a
+    checkpoint round trip, two --load-dir resumes from step 4, cli.evaluate,
+    and the audio-only train and evaluate; the launch counts of each run
+    gated."""
     from neraf_tpu_torch.cli import evaluate as cli_evaluate
     from neraf_tpu_torch.cli import train as cli_train
     from neraf_tpu_torch.configs.config import load_config
@@ -2206,158 +2228,625 @@ def cli_phase(torch, dev) -> dict:
     )
     from neraf_tpu_torch.engine.factory import build_pipeline
 
-    tmp = Path(tempfile.mkdtemp(prefix="neraf_cli_"))
+    t0 = time.perf_counter()
+    scene = write_soundspaces_scene(tmp / "scenes", 96, 8, scene="office_4")
+    n_views, n_eval = 12, 2
+    write_vision_scene(scene, n_views=n_views, size=64)
+    print(f"cli: scene written in {time.perf_counter() - t0:.2f} s "
+          f"({scene}: 96 + 8 RIR pairs, {n_views} views of 64 x 64)",
+          flush=True)
+    base = ["--dataset", "SoundSpaces", "--scene", "office_4",
+            "--data-root", str(tmp / "scenes"), "--max-iters",
+            str(CLI_STEPS)]
+    for item in CLI_SET:
+        base += ["--set", item]
+    res, counts = {}, {}
+
+    # the joint run: 4 + 4 pe_mlp launches a step; eval_batch and
+    # eval_image 3 each (4,096 rays, one chunk) at steps 4 and 8,
+    # evaluate_vision 3 a view and evaluate_audio_device one GL launch
+    # (8 RIRs, one chunk) at step 8
+    run1 = tmp / "run1"
+    want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
+            "pe_bwd": 4 * CLI_STEPS, "gl": 1}
+    trainer, counts["train"], wall = counted(
+        torch, "cli train", lambda: cli_train.main(
+            base + ["--run-dir", str(run1)]), want)
+    ckpts = sorted(p.name for p in (run1 / "neraf_models").iterdir())
+    pngs = sorted(p.name for p in (run1 / "eval_images").glob("*.png"))
+    records = [json.loads(line) for line in
+               (run1 / "metrics.jsonl").read_text().splitlines()]
+    if not (run1 / "config.yml").is_file():
+        fail("cli train: no config.yml")
+    if ckpts != ["step-000000004.pt", "step-000000008.pt"]:
+        fail(f"cli train: checkpoints {ckpts}")
+    if not any(p.startswith("step_0000004_img") for p in pngs) or not any(
+            p.startswith("step_0000008_comparison_ch_0") for p in pngs):
+        fail(f"cli train: eval images {pngs}")
+    got = {(r["step"], r["prefix"]) for r in records}
+    if got != CLI_RECORDS or len(records) != len(CLI_RECORDS):
+        fail(f"cli train: metrics records {sorted(got)}")
+    bad = [r for r in records if not finite_record(r)]
+    if bad:
+        fail(f"cli train: metrics not finite {bad}")
+    times = {}
+    for step, what, dt in trainer.timings:
+        times.setdefault(what, []).append(dt * 1e3)
+    steps_ms = times.pop("step")
+    res["train"] = {
+        "wall_s": wall, "cold_step_ms": steps_ms[0],
+        "warm_step_ms_median": float(np.median(steps_ms[1:])),
+        "warm_step_ms": steps_ms[1:],
+        "eval_ms": {k: v for k, v in times.items() if k != "save"},
+        "save_ms": times["save"],
+        "checkpoint_mb": (run1 / "neraf_models" / ckpts[0]).stat().st_size / 2**20,
+        "launches": counts["train"]}
+    print(f"cli train: {json.dumps(res['train'])}", flush=True)
+    print(f"cli train metrics: {json.dumps(records)}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the checkpoint round trip: step 4 into a fresh bundle, saved again
+    cfg = load_config(run1 / "config.yml")
+    pipe = build_pipeline(cfg, device=dev).pipeline
+    step4 = run1 / "neraf_models" / "step-000000004.pt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_checkpoint(step4, pipe)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = save_checkpoint(tmp / "again", 4, pipe)
+    save_s = time.perf_counter() - t0
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
+    diffs = same_tree(torch, load(step4), load(again))
+    print(f"cli checkpoint round trip: load {load_s * 1e3:.1f} ms, save "
+          f"{save_s * 1e3:.1f} ms, {len(diffs)} differences", flush=True)
+    if diffs:
+        fail(f"cli checkpoint round trip: {diffs[:10]}")
+    res["round_trip"] = {"load_ms": load_s * 1e3, "save_ms": save_s * 1e3}
+    del pipe
+    torch.cuda.empty_cache()
+
+    # resume from step 4 into a new run directory, to step 8, twice:
+    # the second resume is the yardstick of the card's run-to-run
+    # differences (cuDNN's and the atomics' summation order)
+    (tmp / "from4").mkdir()
+    shutil.copy(step4, tmp / "from4" / step4.name)
+    want = {"pe_fwd": 4 * 4 + 3 + 3 + 3 * n_eval, "pe_bwd": 4 * 4, "gl": 1}
+    name8, walls = "step-000000008.pt", []
+    for run in ("run2", "run2b"):
+        _, counts["resume"], wall = counted(
+            torch, "cli resume", lambda: cli_train.main(
+                base + ["--run-dir", str(tmp / run), "--load-dir",
+                        str(tmp / "from4")]), want)
+        walls.append(wall)
+    resumed = load(tmp / "run2" / "neraf_models" / name8)
+    gaps = {"resumed_vs_straight": group_gaps(
+                torch, resumed, load(run1 / "neraf_models" / name8)),
+            "resumed_vs_resumed": group_gaps(
+                torch, resumed, load(tmp / "run2b" / "neraf_models" / name8))}
+    print(f"cli resume from step 4 to 8: {walls[0]:.2f} s, {walls[1]:.2f} "
+          f"s; step 8 against the straight run and against a second "
+          f"resume, by model (not gated; the card's backward need not "
+          f"be deterministic): {json.dumps(gaps)}", flush=True)
+    res["resume"] = {"wall_s": walls, "gaps": gaps}
+
+    # the eval CLI on the straight run's config.yml (its latest
+    # checkpoint, step 8): 3 pe_mlp launches a view, 2 GL a chunk
+    out_json = tmp / "results.json"
+    results, counts["evaluate"], wall = counted(
+        torch, "cli evaluate", lambda: cli_evaluate.main(
+            ["--load-config", str(run1 / "config.yml"),
+             "--output-path", str(out_json)]),
+        {"pe_fwd": 3 * n_eval, "gl": 2})
+    saved = json.loads(out_json.read_text())
+    if set(saved) != {"experiment_name", "method_name", "results"} or \
+            set(saved["results"]) != HOST_EVAL_KEYS | VISION_EVAL_KEYS or \
+            not finite_record(saved["results"]):
+        fail(f"cli evaluate: results file {saved}")
+    print(f"cli evaluate: {wall:.2f} s; {json.dumps(saved)}", flush=True)
+    res["evaluate"] = {"wall_s": wall, "results": saved["results"]}
+
+    # the audio-only run at full width (w_field 512, grid-free)
+    run3 = tmp / "run3"
+    trainer, counts["audio_only_train"], wall = counted(
+        torch, "cli audio-only train", lambda: cli_train.main(
+            base + ["--audio-only", "--run-dir", str(run3)]), {"gl": 2})
+    records = [json.loads(line) for line in
+               (run3 / "metrics.jsonl").read_text().splitlines()]
+    # the Trainer's steps/s over each 2-step log window; the window
+    # ending at step 6 also holds step 4's checkpoint save
+    rates = {r["step"]: r["steps_per_sec"] for r in records
+             if r["prefix"] == "train" and r["step"] > 2}
+    if {(r["step"], r["prefix"]) for r in records} != {
+            (2, "train"), (4, "train"), (6, "train"), (8, "train"),
+            (8, "eval_audio")} or not all(map(finite_record, records)):
+        fail(f"cli audio-only train: metrics {records}")
+    evaluate_out, counts["audio_only_evaluate"], ewall = counted(
+        torch, "cli audio-only evaluate", lambda: cli_evaluate.main(
+            ["--load-config", str(run3 / "config.yml")]), {"gl": 2})
+    check_eval_dict(evaluate_out, ENGINE_EVAL_KEYS, "cli audio-only evaluate")
+    w = trainer.pipeline.model.config.w_field
+    res["audio_only"] = {"wall_s": wall, "steps_per_s": rates,
+                         "evaluate_s": ewall, "w_field": w}
+    print(f"cli audio-only (w_field {w}, batch "
+          f"{trainer.config.audio_data.batch_size}): train {wall:.2f} s, "
+          f"steps/s by log step {json.dumps(rates)}; evaluate "
+          f"{ewall:.2f} s: {json.dumps(evaluate_out)}", flush=True)
+    res["launches"] = counts
+    res["argv"], res["n_eval"] = base, n_eval
+    return res
+
+
+# Phase 22. The moving listener's track on the card against the same call
+# on the CPU, relative to its peak: float32 FFTs of two libraries (cuFFT,
+# pocketfft) summed over 16 overlapping hops; a wrong hop or channel is
+# O(1). The preprocessed spectrograms, card against CPU, relative to each
+# one's peak: the resampler's float32 conv (TF32 off) and the STFT summed in
+# another order; a wrong tap or frame is O(1).
+MLA_REL_TOL, PRE_REL_TOL = 1e-5, 1e-4
+PRE_WAVS, SERVE_DRY_S, TRAJ_DRY_S, TRAJ_POSES = 96, 5.0, 3.0, 16
+
+
+def http(url: str, data: bytes | None = None):
+    """(status, content type, body) of one request (an error status too)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
     try:
-        t0 = time.perf_counter()
-        scene = write_soundspaces_scene(tmp / "scenes", 96, 8, scene="office_4")
-        n_views, n_eval = 12, 2
-        write_vision_scene(scene, n_views=n_views, size=64)
-        print(f"cli: scene written in {time.perf_counter() - t0:.2f} s "
-              f"({scene}: 96 + 8 RIR pairs, {n_views} views of 64 x 64)",
-              flush=True)
-        base = ["--dataset", "SoundSpaces", "--scene", "office_4",
-                "--data-root", str(tmp / "scenes"), "--max-iters",
-                str(CLI_STEPS)]
-        for item in CLI_SET:
-            base += ["--set", item]
-        res, counts = {}, {}
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
 
-        # the joint run: 4 + 4 pe_mlp launches a step; eval_batch and
-        # eval_image 3 each (4,096 rays, one chunk) at steps 4 and 8,
-        # evaluate_vision 3 a view and evaluate_audio_device one GL launch
-        # (8 RIRs, one chunk) at step 8
-        run1 = tmp / "run1"
-        want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
-                "pe_bwd": 4 * CLI_STEPS, "gl": 1}
-        trainer, counts["train"], wall = counted(
-            torch, "cli train", lambda: cli_train.main(
-                base + ["--run-dir", str(run1)]), want)
-        ckpts = sorted(p.name for p in (run1 / "neraf_models").iterdir())
-        pngs = sorted(p.name for p in (run1 / "eval_images").glob("*.png"))
-        records = [json.loads(line) for line in
-                   (run1 / "metrics.jsonl").read_text().splitlines()]
-        if not (run1 / "config.yml").is_file():
-            fail("cli train: no config.yml")
-        if ckpts != ["step-000000004.pt", "step-000000008.pt"]:
-            fail(f"cli train: checkpoints {ckpts}")
-        if not any(p.startswith("step_0000004_img") for p in pngs) or not any(
-                p.startswith("step_0000008_comparison_ch_0") for p in pngs):
-            fail(f"cli train: eval images {pngs}")
-        got = {(r["step"], r["prefix"]) for r in records}
-        if got != CLI_RECORDS or len(records) != len(CLI_RECORDS):
-            fail(f"cli train: metrics records {sorted(got)}")
-        bad = [r for r in records if not finite_record(r)]
-        if bad:
-            fail(f"cli train: metrics not finite {bad}")
-        times = {}
-        for step, what, dt in trainer.timings:
-            times.setdefault(what, []).append(dt * 1e3)
-        steps_ms = times.pop("step")
-        res["train"] = {
-            "wall_s": wall, "cold_step_ms": steps_ms[0],
-            "warm_step_ms_median": float(np.median(steps_ms[1:])),
-            "warm_step_ms": steps_ms[1:],
-            "eval_ms": {k: v for k, v in times.items() if k != "save"},
-            "save_ms": times["save"],
-            "checkpoint_mb": (run1 / "neraf_models" / ckpts[0]).stat().st_size / 2**20,
-            "launches": counts["train"]}
-        print(f"cli train: {json.dumps(res['train'])}", flush=True)
-        print(f"cli train metrics: {json.dumps(records)}", flush=True)
-        del trainer
-        torch.cuda.empty_cache()
 
-        # the checkpoint round trip: step 4 into a fresh bundle, saved again
-        cfg = load_config(run1 / "config.yml")
-        pipe = build_pipeline(cfg, device=dev).pipeline
-        step4 = run1 / "neraf_models" / "step-000000004.pt"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restore_checkpoint(step4, pipe)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        again = save_checkpoint(tmp / "again", 4, pipe)
-        save_s = time.perf_counter() - t0
-        load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
-        diffs = same_tree(torch, load(step4), load(again))
-        print(f"cli checkpoint round trip: load {load_s * 1e3:.1f} ms, save "
-              f"{save_s * 1e3:.1f} ms, {len(diffs)} differences", flush=True)
-        if diffs:
-            fail(f"cli checkpoint round trip: {diffs[:10]}")
-        res["round_trip"] = {"load_ms": load_s * 1e3, "save_ms": save_s * 1e3}
-        del pipe
-        torch.cuda.empty_cache()
+def decode_body(tmp, ctype: str, body: bytes):
+    """A response's payload: PNG -> (H, W, 3) uint8, WAV -> (fs, (L, C)
+    float32), JSON -> dict, HTML -> str."""
+    import io
 
-        # resume from step 4 into a new run directory, to step 8, twice:
-        # the second resume is the yardstick of the card's run-to-run
-        # differences (cuDNN's and the atomics' summation order)
-        (tmp / "from4").mkdir()
-        shutil.copy(step4, tmp / "from4" / step4.name)
-        want = {"pe_fwd": 4 * 4 + 3 + 3 + 3 * n_eval, "pe_bwd": 4 * 4, "gl": 1}
-        name8, walls = "step-000000008.pt", []
-        for run in ("run2", "run2b"):
-            _, counts["resume"], wall = counted(
-                torch, "cli resume", lambda: cli_train.main(
-                    base + ["--run-dir", str(tmp / run), "--load-dir",
-                            str(tmp / "from4")]), want)
-            walls.append(wall)
-        resumed = load(tmp / "run2" / "neraf_models" / name8)
-        gaps = {"resumed_vs_straight": group_gaps(
-                    torch, resumed, load(run1 / "neraf_models" / name8)),
-                "resumed_vs_resumed": group_gaps(
-                    torch, resumed, load(tmp / "run2b" / "neraf_models" / name8))}
-        print(f"cli resume from step 4 to 8: {walls[0]:.2f} s, {walls[1]:.2f} "
-              f"s; step 8 against the straight run and against a second "
-              f"resume, by model (not gated; the card's backward need not "
-              f"be deterministic): {json.dumps(gaps)}", flush=True)
-        res["resume"] = {"wall_s": walls, "gaps": gaps}
+    from scipy.io import wavfile
 
-        # the eval CLI on the straight run's config.yml (its latest
-        # checkpoint, step 8): 3 pe_mlp launches a view, 2 GL a chunk
-        out_json = tmp / "results.json"
-        results, counts["evaluate"], wall = counted(
-            torch, "cli evaluate", lambda: cli_evaluate.main(
-                ["--load-config", str(run1 / "config.yml"),
-                 "--output-path", str(out_json)]),
-            {"pe_fwd": 3 * n_eval, "gl": 2})
-        saved = json.loads(out_json.read_text())
-        if set(saved) != {"experiment_name", "method_name", "results"} or \
-                set(saved["results"]) != HOST_EVAL_KEYS | VISION_EVAL_KEYS or \
-                not finite_record(saved["results"]):
-            fail(f"cli evaluate: results file {saved}")
-        print(f"cli evaluate: {wall:.2f} s; {json.dumps(saved)}", flush=True)
-        res["evaluate"] = {"wall_s": wall, "results": saved["results"]}
+    from neraf_tpu_torch.utils.png import read_png
 
-        # the audio-only run at full width (w_field 512, grid-free)
-        run3 = tmp / "run3"
-        trainer, counts["audio_only_train"], wall = counted(
-            torch, "cli audio-only train", lambda: cli_train.main(
-                base + ["--audio-only", "--run-dir", str(run3)]), {"gl": 2})
-        records = [json.loads(line) for line in
-                   (run3 / "metrics.jsonl").read_text().splitlines()]
-        # the Trainer's steps/s over each 2-step log window; the window
-        # ending at step 6 also holds step 4's checkpoint save
-        rates = {r["step"]: r["steps_per_sec"] for r in records
-                 if r["prefix"] == "train" and r["step"] > 2}
-        if {(r["step"], r["prefix"]) for r in records} != {
-                (2, "train"), (4, "train"), (6, "train"), (8, "train"),
-                (8, "eval_audio")} or not all(map(finite_record, records)):
-            fail(f"cli audio-only train: metrics {records}")
-        evaluate_out, counts["audio_only_evaluate"], ewall = counted(
-            torch, "cli audio-only evaluate", lambda: cli_evaluate.main(
-                ["--load-config", str(run3 / "config.yml")]), {"gl": 2})
-        check_eval_dict(evaluate_out, ENGINE_EVAL_KEYS, "cli audio-only evaluate")
-        w = trainer.pipeline.model.config.w_field
-        res["audio_only"] = {"wall_s": wall, "steps_per_s": rates,
-                             "evaluate_s": ewall, "w_field": w}
-        print(f"cli audio-only (w_field {w}, batch "
-              f"{trainer.config.audio_data.batch_size}): train {wall:.2f} s, "
-              f"steps/s by log step {json.dumps(rates)}; evaluate "
-              f"{ewall:.2f} s: {json.dumps(evaluate_out)}", flush=True)
-        res["launches"] = counts
-        return res
+    if ctype == "image/png":
+        (tmp / "response.png").write_bytes(body)
+        return read_png(tmp / "response.png")
+    if ctype == "audio/wav":
+        return wavfile.read(io.BytesIO(body))
+    if ctype == "application/json":
+        return json.loads(body)
+    return body.decode()
+
+
+def dry_wav(seconds: float, fs: int, seed: int) -> np.ndarray:
+    """Seeded dry audio: a decaying chirp under noise, in [-0.5, 0.5]."""
+    t = np.arange(int(seconds * fs)) / fs
+    rng = np.random.default_rng(seed)
+    x = 0.4 * np.sin(2 * np.pi * (200 + 400 * t) * t) + 0.1 * rng.standard_normal(
+        t.shape)
+    return np.clip(x, -0.5, 0.5).astype(np.float32)
+
+
+def render_cli_check(torch, dev, tmp, run, what: str, want: dict) -> dict:
+    """cli.render on the run's eval views with its launches gated, then
+    each PNG and depth map against the pipeline's own render_image of the
+    view (restored from the same checkpoint), bitwise."""
+    from neraf_tpu_torch.cli import render as cli_render
+    from neraf_tpu_torch.configs.config import load_config
+    from neraf_tpu_torch.data.vision_data import camera_arrays
+    from neraf_tpu_torch.engine.checkpoints import latest_checkpoint, restore_checkpoint
+    from neraf_tpu_torch.engine.factory import build_pipeline
+    from neraf_tpu_torch.utils.png import quantize_rgb, read_png
+
+    out_dir = tmp / f"render_{run.name}"
+    _, counts, wall = counted(torch, what, lambda: cli_render.main(
+        ["--load-config", str(run / "config.yml"), "--output-dir",
+         str(out_dir)]), want)
+    bundle = build_pipeline(load_config(run / "config.yml"), device=dev)
+    restore_checkpoint(latest_checkpoint(run / "neraf_models"), bundle.pipeline)
+    cams, ds = camera_arrays(bundle.vision_eval.cameras, dev), bundle.vision_eval
+    H, W = ds.cameras.height, ds.cameras.width
+    for i in range(len(ds.cameras)):
+        ref = bundle.pipeline.render_image(cams, i, H, W)
+        img = read_png(out_dir / f"render_{i:04d}.png")
+        depth = np.load(out_dir / f"depth_{i:04d}.npy")
+        if not (img.shape == (H, W, 3) and depth.dtype == np.float32
+                and np.array_equal(img, quantize_rgb(ref["rgb"]))
+                and np.array_equal(depth, ref["depth"].float().cpu().numpy())):
+            fail(f"{what}: view {i} is not the pipeline's render_image")
+    print(f"{what}: {len(ds.cameras)} views of {H} x {W} in {wall:.2f} s (the "
+          f"pipeline's build and restore included), each bitwise the "
+          f"pipeline's render_image; launches {counts}", flush=True)
+    return {"wall_s": wall, "launches": counts, "views": len(ds.cameras)}
+
+
+def viewer_requests(torch, tmp, run) -> dict:
+    """The standalone viewer (cli.viewer on port 0) on the run: each
+    request's status, content type, payload and launches gated, its wall
+    time printed (the first render pays the cold start)."""
+    import io
+
+    from scipy.io import wavfile
+
+    from neraf_tpu_torch.cli import viewer as cli_viewer
+    from neraf_tpu_torch.configs.config import load_config
+
+    acfg = load_config(run / "config.yml").audio_model
+    n_rir = acfg.hop_len * (acfg.max_len - 1)
+    server = cli_viewer.main(["--load-config", str(run / "config.yml"),
+                              "--port", "0"], blocking=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        lo, hi = (np.asarray(v) for v in json.loads(http(f"{base}/state")[2])[
+            "audio_aabb"])
+        at = lambda f: "x={:.4f}&y={:.4f}&z={:.4f}".format(*(lo + (hi - lo) * f))
+        src = "sx={:.4f}&sy={:.4f}&sz={:.4f}".format(*(lo + (hi - lo) * 0.7))
+        fs_in = 44100
+        buf = io.BytesIO()
+        wavfile.write(buf, fs_in, dry_wav(SERVE_DRY_S, fs_in, 1))
+        reqs = [("index", "/", None, "text/html", {}),
+                *((f"render_128_{k}", f"/render?theta={0.8 * k:.1f}&phi=0.3"
+                   "&radius=2&w=128&h=128", None, "image/png", {"pe_fwd": 3})
+                  for k in range(3)),
+                ("render_512", "/render?theta=0.4&phi=0.2&radius=2&w=512&h=512",
+                 None, "image/png", {"pe_fwd": 24}),
+                ("rir_0", f"/rir?{at(0.3)}", None, "audio/wav", {"gl": 1}),
+                ("rir_1", f"/rir?{at(0.6)}", None, "audio/wav", {"gl": 1}),
+                ("rir_source", f"/rir?{at(0.3)}&{src}", None, "audio/wav",
+                 {"gl": 1}),
+                ("auralize", f"/auralize?{at(0.4)}", buf.getvalue(),
+                 "audio/wav", {"gl": 1}),
+                ("state", "/state", None, "application/json", {})]
+        # two rounds of the same requests: the first pays each request
+        # kind's first use on this pipeline, the second is warm
+        out, payloads = {}, {}
+        for rnd in ("cold", "warm"):
+            for name, path, body, ctype, want in reqs:
+                (status, got, payload), counts, wall = counted(
+                    torch, f"viewer {name}", lambda: http(base + path, body),
+                    want)
+                if status != 200 or got != ctype:
+                    fail(f"viewer {name}: {status} {got} {payload[:200]!r}")
+                payloads[name] = decode_body(tmp, ctype, payload)
+                out.setdefault(name, {"launches": counts, "bytes": len(payload)})
+                out[name][f"{rnd}_ms"] = wall * 1e3
+                print(f"viewer {name} ({rnd}): {status} {got}, "
+                      f"{wall * 1e3:.2f} ms, {len(payload)} B, launches "
+                      f"{counts}", flush=True)
+        stages = viewer_stages(torch, server.backend, lo + (hi - lo) * 0.3,
+                               dry_wav(SERVE_DRY_S, fs_in, 1), fs_in)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        server.shutdown()
+        server.server_close()
+    for k in range(3):
+        if payloads[f"render_128_{k}"].shape != (128, 128, 3):
+            fail(f"viewer render_128_{k}: {payloads[f'render_128_{k}'].shape}")
+    if payloads["render_512"].shape != (512, 512, 3):
+        fail(f"viewer render_512: {payloads['render_512'].shape}")
+    rirs = [payloads[k] for k in ("rir_0", "rir_1", "rir_source")]
+    if not all(fs == acfg.fs and w.shape == (n_rir, acfg.mic_ch)
+               and np.isfinite(w).all() and 0 < np.abs(w).max() <= 1
+               for fs, w in rirs):
+        fail(f"viewer rir: {[(fs, w.shape) for fs, w in rirs]}")
+    if np.array_equal(rirs[0][1], rirs[2][1]):
+        fail("viewer rir: the source override did not change the RIR")
+    fs, wet = payloads["auralize"]
+    n_wet = -(-int(SERVE_DRY_S * fs_in) * acfg.fs // fs_in) + n_rir - 1
+    if fs != acfg.fs or wet.shape != (n_wet, acfg.mic_ch) or not np.isfinite(
+            wet).all():
+        fail(f"viewer auralize: {fs} Hz {wet.shape}, expected {n_wet} samples")
+    state = payloads["state"]
+    if set(state) != {"audio_aabb", "grid_res", "step"} or state[
+            "step"] != CLI_STEPS:
+        fail(f"viewer state: {state}")
+    return {"requests": out, "stages_ms": stages}
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """The median host ms of fn() to a synchronised device."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def viewer_stages(torch, backend, mic, dry, fs_in) -> dict:
+    """The viewer's requests stage by stage on its own pipeline, warm, host
+    ms to a synchronised device: /rir (the grid feature, render_rirs of one
+    RIR, also on a new thread a call and on the backend's device thread,
+    Griffin-Lim at 2 channels, the WAV), /render at 512 x 512
+    (render_image, the PNG) and /auralize's own stages (the resample, the
+    FFT convolutions, the WAV)."""
+    import threading
+    from neraf_tpu_torch.dsp.resample import resample_poly
+    from neraf_tpu_torch.utils.png import encode_png, quantize_rgb
+    from neraf_tpu_torch.viz.auralization import auralize, rir_from_log_stft
+    from neraf_tpu_torch.viz.viewer import _orbit_camera
+
+    pipe = backend.pipeline
+    cfg = pipe.audio_model.config
+    src = pipe.audio_aabb.mean(dim=0)[None]
+    rot = np.array([[1.0, 0.5, 0.5]], np.float32)
+    log = pipe.render_rirs(mic[None], src, rot)[0]
+    gl = lambda: rir_from_log_stft(log, n_fft=cfg.n_fft, hop_len=cfg.hop_len,
+                                   win_len=cfg.win_len,
+                                   generator=torch.Generator().manual_seed(0))
+    rir = gl()
+    row = lambda v: torch.tensor([v], dtype=torch.float32, device=pipe.device)
+    c2w = torch.as_tensor(_orbit_camera(0.4, 0.2, 2.0), device=pipe.device)
+    cams = {"c2w": c2w[None], "fx": row(614.4), "fy": row(614.4),
+            "cx": row(256.0), "cy": row(256.0)}
+    rgb = pipe.render_image(cams, 0, 512, 512)["rgb"]
+    d = torch.as_tensor(dry, device=pipe.device)
+    d_res = resample_poly(d, cfg.fs, fs_in)
+    wet = auralize(d_res, rir, cfg.fs).cpu().numpy()
+
+    def grid_feature():
+        with pipe._eval_mode():
+            return pipe._grid_feature_eval()
+
+    def fresh_thread(fn):
+        # as a handler thread of the server runs it: a new thread a call
+        box = {}
+        worker = threading.Thread(target=lambda: box.update(out=fn()))
+        worker.start()
+        worker.join()
+        return box["out"]
+
+    rirs = lambda: pipe.render_rirs(mic[None], src, rot)
+
+    stages = {
+        "rir_grid_feature": grid_feature,
+        "rir_render_rirs": rirs,
+        "rir_render_rirs_fresh_thread": lambda: fresh_thread(rirs),
+        "rir_render_rirs_device_thread": lambda: backend._dispatch(rirs),
+        "rir_griffin_lim": gl,
+        "rir_wav": lambda: backend._wav_bytes(rir.cpu().numpy()),
+        "render_512_render_image": lambda: pipe.render_image(cams, 0, 512, 512),
+        "render_512_png": lambda: encode_png(quantize_rgb(rgb)),
+        "auralize_resample": lambda: resample_poly(d, cfg.fs, fs_in),
+        "auralize_convolve": lambda: auralize(d_res, rir, cfg.fs),
+        "auralize_wav": lambda: backend._wav_bytes(wet),
+    }
+    out = {k: host_ms(torch, f) for k, f in stages.items()}
+    print("viewer stages, warm (host ms, median of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def live_viewer_run(torch, tmp, argv, n_eval, run1, spread) -> dict:
+    """cli.train --viewer-port 0 for 8 steps with a client thread sending
+    /render, /rir and /state during the run: every request answered, the
+    launches gated (the run's own plus 3 pe_mlp and 1 GL), and step 8's
+    checkpoint against the run without the viewer, beside the card's
+    run-to-run spread (a second run without the viewer, and phase 21's two
+    resumes)."""
+    import threading
+
+    from neraf_tpu_torch.cli import train as cli_train
+
+    servers, answers = [], {}
+    real_serve = cli_train.serve
+
+    def capture(*args, **kwargs):
+        servers.append(real_serve(*args, **kwargs))
+        return servers[-1]
+
+    def client():
+        try:
+            for _ in range(60000):
+                if servers:
+                    break
+                time.sleep(0.01)
+            base = f"http://127.0.0.1:{servers[0].server_address[1]}"
+            for path in ("/render?theta=0.3&phi=0.3&radius=2&w=128&h=128",
+                         "/rir?x=0&y=1&z=0", "/state"):
+                t0 = time.perf_counter()
+                status, ctype, body = http(base + path)
+                answers[path] = (status, ctype, time.perf_counter() - t0,
+                                 body if ctype == "application/json" else b"")
+        except Exception as err:  # reported by the gate below
+            answers["error"] = repr(err)
+
+    run4 = tmp / "run4"
+    want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval + 3,
+            "pe_bwd": 4 * CLI_STEPS, "gl": 1 + 1}
+    thread = threading.Thread(target=client, daemon=True)
+    cli_train.serve = capture
+    try:
+        thread.start()
+        _, counts, wall = counted(torch, "cli train --viewer-port", lambda: (
+            cli_train.main(argv + ["--run-dir", str(run4), "--viewer-port", "0"]),
+            thread.join(600)), want)
+    finally:
+        cli_train.serve = real_serve
+    got = [(p, a[:2]) for p, a in answers.items()]
+    if [a for _, a in got] != [(200, "image/png"), (200, "audio/wav"),
+                               (200, "application/json")]:
+        fail(f"cli train --viewer-port: answers {got}")
+    step_seen = json.loads(answers["/state"][3])["step"]
+    # the yardstick: a second 8-step run without the viewer, against run1
+    run5 = tmp / "run5"
+    counted(torch, "cli train", lambda: cli_train.main(
+        argv + ["--run-dir", str(run5)]), {**want, "pe_fwd": want["pe_fwd"] - 3,
+                                          "gl": 1})
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
+    name8 = "step-000000008.pt"
+    ref8 = load(run1 / "neraf_models" / name8)
+    gaps = group_gaps(torch, load(run4 / "neraf_models" / name8), ref8)
+    again = group_gaps(torch, load(run5 / "neraf_models" / name8), ref8)
+    print(f"cli train --viewer-port: {wall:.2f} s, launches {counts}; "
+          f"answers {[(p, a[0], round(a[2] * 1e3, 2)) for p, a in answers.items()]}"
+          f" (ms), /state's step {step_seen}; step 8 against the run without "
+          f"the viewer, by model (not gated): {json.dumps(gaps)}; a second "
+          f"run without the viewer against the same run: {json.dumps(again)}; "
+          f"phase 21's two resumes from step 4: {json.dumps(spread)}",
+          flush=True)
+    return {"wall_s": wall, "launches": counts, "state_step": step_seen,
+            "request_ms": {p: a[2] * 1e3 for p, a in answers.items()},
+            "gaps_vs_no_viewer": gaps, "gaps_no_viewer_twice": again}
+
+
+def preprocess_check(torch, dev, tmp) -> dict:
+    """process_scene on PRE_WAVS seeded binaural wavs at 44.1 kHz (0.5 s
+    each) on the card, timed, each .npy held to process_rir_wav on the
+    CPU."""
+    from scipy.io import wavfile
+
+    from neraf_tpu_torch.data.preprocess import process_rir_wav, process_scene
+
+    scene = tmp / "pre_scene"
+    rng = np.random.default_rng(0)
+    t = np.arange(int(0.5 * 44100)) / 44100
+    for i in range(PRE_WAVS):
+        path = scene / "binaural_rirs" / str(90 * (i % 4)) / f"{i}_{i + 1}.wav"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        rir = 0.3 * rng.standard_normal((t.shape[0], 2)) * np.exp(-8 * t)[:, None]
+        wavfile.write(path, 44100, rir.astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = process_scene(scene, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    worst = 0.0
+    for wav in sorted((scene / "binaural_rirs").rglob("*.wav")):
+        rel = wav.relative_to(scene / "binaural_rirs").with_suffix(".npy")
+        got = np.load(scene / "binaural_magnitudes_sr22050" / rel)
+        ref = process_rir_wav(wav, device="cpu")
+        if got.shape != ref.shape or got.dtype != np.float32:
+            fail(f"process_scene {rel}: {got.shape} {got.dtype} vs {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+    cpu_s = time.perf_counter() - t0
+    print(f"process_scene: {n} wavs (0.5 s, 2 channels, 44.1 kHz) on the card "
+          f"in {wall:.3f} s ({wall / n * 1e3:.2f} ms a wav; the CPU's "
+          f"process_rir_wav {cpu_s:.3f} s for all); max err {worst:.3e} of "
+          f"each spectrogram's peak (tol {PRE_REL_TOL})", flush=True)
+    if n != PRE_WAVS or not worst <= PRE_REL_TOL:
+        fail(f"process_scene: {n} files, max err {worst}")
+    return {"wall_s": wall, "cpu_s": cpu_s, "max_rel_err": worst, "n": n}
+
+
+def serving_phase(torch, dev, tmp, argv, n_eval, spread) -> dict:
+    """Phase 22: the serving and tool entry points on phase 21's run
+    directory (module docstring)."""
+    from neraf_tpu_torch.cli import loudness as cli_loudness
+    from neraf_tpu_torch.cli import train as cli_train
+    from neraf_tpu_torch.configs.config import load_config
+    from neraf_tpu_torch.engine.checkpoints import latest_checkpoint, restore_checkpoint
+    from neraf_tpu_torch.engine.factory import build_pipeline
+    from neraf_tpu_torch.utils.png import read_png
+    from neraf_tpu_torch.viz.auralization import rir_from_log_stft
+    from neraf_tpu_torch.viz.loudness import loudness_map, render_loudness_grid
+    from neraf_tpu_torch.viz.trajectory import (
+        make_trajectory_poses,
+        moving_listener_audio,
+    )
+
+    run1, res = tmp / "run1", {}
+    # cli.render, fourier: 3 pe_mlp launches a 4,096-ray view (one chunk)
+    res["render"] = render_cli_check(torch, dev, tmp, run1, "cli render",
+                                     {"pe_fwd": 3 * n_eval})
+    # a 2-step hash run, then cli.render on it: 1 hash + 2 pe_mlp a chunk
+    hrun = tmp / "hash_run"
+    _, counts, wall = counted(torch, "cli train, hash", lambda: cli_train.main(
+        argv + ["--max-iters", "2", "--run-dir", str(hrun), "--set",
+                "vision_model.encoding=hash"]),
+        {"pe_fwd": 4, "pe_bwd": 4, "hash_fwd": 4, "hash_bwd": 4})
+    print(f"cli train, hash: 2 steps in {wall:.2f} s, launches {counts}",
+          flush=True)
+    res["train_hash"] = {"wall_s": wall, "launches": counts}
+    res["render_hash"] = render_cli_check(
+        torch, dev, tmp, hrun, "cli render, hash",
+        {"pe_fwd": 2 * n_eval, "hash_fwd": n_eval})
+
+    # cli.loudness at 48 x 48: 2,304 RIRs in one sweep, no GL, no pe_mlp
+    out_dir = tmp / "loudness"
+    lm, counts, wall = counted(torch, "cli loudness", lambda: cli_loudness.main(
+        ["--load-config", str(run1 / "config.yml"), "--output-dir",
+         str(out_dir), "--resolution", "48"]), {})
+    img = read_png(out_dir / "loudness_map.png")
+    if lm.shape != (48, 48) or not np.isfinite(lm).all() or img.shape != (
+            512, 512, 3) or not np.array_equal(
+                np.load(out_dir / "loudness_db.npy"), lm):
+        fail(f"cli loudness: map {lm.shape} finite {np.isfinite(lm).all()}, "
+             f"png {img.shape}")
+    res["loudness"] = {"wall_s": wall, "launches": counts,
+                       "db_range": [float(lm.min()), float(lm.max())]}
+
+    # the loudness sweep alone, and a 16-pose trajectory, on run1's pipeline
+    bundle = build_pipeline(load_config(run1 / "config.yml"), device=dev)
+    pipe = bundle.pipeline
+    restore_checkpoint(latest_checkpoint(run1 / "neraf_models"), pipe)
+    cfg, o = pipe.audio_model.config, bundle.audio_train.outputs
+    aabb = pipe.audio_aabb.cpu().numpy()
+    height = float(np.mean(o.microphone_poses[:, 1]))
+    src = np.mean(o.source_poses, axis=0)
+    sweep_ms = cuda_ms(torch, lambda: loudness_map(render_loudness_grid(
+        pipe.render_rirs, src, o.rotations[0], aabb, height, 48)["log_stfts"],
+        (48, 48)), 3)
+    res["loudness"]["sweep_ms"] = sweep_ms
+    print(f"cli loudness: 48 x 48 = 2,304 RIRs x {cfg.max_len} frames "
+          f"({2304 * cfg.max_len} queries) in one sweep; the CLI {wall:.2f} s "
+          f"(build and restore included), the sweep alone {sweep_ms:.2f} ms; "
+          f"launches {counts}; map {lm.min():.2f} to {lm.max():.2f} dB",
+          flush=True)
+
+    waypoints = aabb[0] + (aabb[1] - aabb[0]) * np.array(
+        [[0.2, 0.5, 0.2], [0.8, 0.5, 0.3], [0.7, 0.5, 0.8], [0.3, 0.5, 0.7]])
+    poses = make_trajectory_poses(waypoints, TRAJ_POSES, src)
+    dry = dry_wav(TRAJ_DRY_S, cfg.fs, 2)
+    tile = lambda v: np.tile(v, (TRAJ_POSES, 1))
+
+    def trajectory():
+        log = pipe.render_rirs(poses["mic_poses"], tile(poses["source_poses"]),
+                               tile(poses["rots"]))
+        rirs = rir_from_log_stft(log, n_fft=cfg.n_fft, hop_len=cfg.hop_len,
+                                 win_len=cfg.win_len,
+                                 generator=torch.Generator().manual_seed(0))
+        return rirs, moving_listener_audio(dry, rirs, cfg.fs)
+
+    walls = []
+    for _ in range(2):  # the first call pays cuFFT's plans for new sizes
+        (rirs, wet), counts, wall = counted(torch, "trajectory", trajectory,
+                                            {"gl": 1})
+        walls.append(wall)
+    mla_ms = cuda_ms(torch, lambda: moving_listener_audio(dry, rirs, cfg.fs), 3)
+    ref = moving_listener_audio(dry, rirs.cpu(), cfg.fs)
+    err = float((wet.cpu() - ref).abs().max() / ref.abs().max())
+    hop = cfg.fs // 10
+    n_out = (TRAJ_POSES - 1) * hop + 2 * hop + rirs.shape[-1] - 1
+    print(f"trajectory: {TRAJ_POSES} poses -> RIRs {tuple(rirs.shape)} (one GL "
+          f"launch, {TRAJ_POSES * cfg.mic_ch} channels) and a "
+          f"{TRAJ_DRY_S:g} s moving-listener track {tuple(wet.shape)} in "
+          f"{walls[0] * 1e3:.2f} ms, again {walls[1] * 1e3:.2f} ms; "
+          f"moving_listener_audio alone {mla_ms:.3f} ms; "
+          f"card vs CPU {err:.3e} of the peak (tol {MLA_REL_TOL}); launches "
+          f"{counts}", flush=True)
+    if wet.shape != (cfg.mic_ch, n_out) or not bool(torch.isfinite(wet).all()) \
+            or not err <= MLA_REL_TOL:
+        fail(f"trajectory: wet {tuple(wet.shape)}, err {err}")
+    res["trajectory"] = {"ms": [w * 1e3 for w in walls], "mla_ms": mla_ms,
+                         "max_rel_err": err, "launches": counts}
+    del bundle, pipe, rirs, wet
+    torch.cuda.empty_cache()
+
+    res["viewer"] = viewer_requests(torch, tmp, run1)
+    # kernel #1 at the viewer's 2 channels and the trajectory's 32
+    res["gl"] = {M: gl_check(torch, dev, 512, 128, 512, 78, M) for M in (2, 32)}
+    for M, row in res["gl"].items():
+        row["bound_ms"], row["bound_by"] = gl_bound_ms(M, 512, 78)
+    res["live_viewer"] = live_viewer_run(torch, tmp, argv, n_eval, run1, spread)
+    res["preprocess"] = preprocess_check(torch, dev, tmp)
+    return res
 
 
 def main() -> int:
@@ -2717,14 +3206,38 @@ def main() -> int:
     print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
           f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # phase 21: the train and eval CLIs at full width on a scene on disk
-    t0 = time.perf_counter()
-    cli = cli_phase(torch, dev)
-    print(f"phase 21: {time.perf_counter() - t0:.2f} s; the run so far "
-          f"{time.perf_counter() - t_start:.2f} s", flush=True)
-    print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
-          f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    # phases 21 and 22 in one temporary directory: the train and eval CLIs
+    # at full width on a scene on disk, then the serving and tool entry
+    # points on phase 21's run
+    tmp = Path(tempfile.mkdtemp(prefix="neraf_cli_"))
+    try:
+        t0 = time.perf_counter()
+        cli = cli_phase(torch, dev, tmp)
+        print(f"phase 21: {time.perf_counter() - t0:.2f} s; the run so far "
+              f"{time.perf_counter() - t_start:.2f} s", flush=True)
+        print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+              f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        t0 = time.perf_counter()
+        serving = serving_phase(torch, dev, tmp, cli["argv"], cli["n_eval"],
+                                cli["resume"]["gaps"]["resumed_vs_resumed"])
+        print(f"phase 22: {time.perf_counter() - t0:.2f} s; the run so far "
+              f"{time.perf_counter() - t_start:.2f} s", flush=True)
+        print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+              f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     cli_launches = lambda k: {run: c[k] for run, c in cli["launches"].items()}
+    viewer_launches = lambda k: {
+        name: r["launches"][k]
+        for name, r in serving["viewer"]["requests"].items()}
+    serving_launches = lambda k: {
+        "cli_train_hash": serving["train_hash"]["launches"][k],
+        "cli_render": serving["render"]["launches"][k],
+        "cli_render_hash": serving["render_hash"]["launches"][k],
+        "cli_loudness": serving["loudness"]["launches"][k],
+        "trajectory": serving["trajectory"]["launches"][k],
+        "live_viewer_train": serving["live_viewer"]["launches"][k],
+        "viewer": viewer_launches(k)}
 
     gl_row = gl_rows[("soundspaces", 1024)]
     gl_bound, gl_by = gl_bound_ms(1024, 512, 78)
@@ -2751,7 +3264,11 @@ def main() -> int:
         "eval_sweep_launches": {
             k: evals[k]["gl_launches"]
             for k in ("evaluate_audio", "evaluate_audio_device")},
-        "cli_launches": cli_launches("gl")}, {
+        "cli_launches": cli_launches("gl"),
+        "serving_launches": serving_launches("gl"),
+        "serving_channels": {str(M): {k: row[k] for k in (
+            "err", "err32", "ms", "plain_ms", "bound_ms", "bound_by", "plan")}
+            for M, row in serving["gl"].items()}}, {
         "name": "pe_mlp_fwd", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/pe_mlp.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:373",
@@ -2764,6 +3281,7 @@ def main() -> int:
         "eval_launches": {k: evals[k]["pe_launches"] for k in (
             "eval_loss_dict", "eval_image", "query_grid_full")},
         "cli_launches": cli_launches("pe_fwd"),
+        "serving_launches": serving_launches("pe_fwd"),
         "train_step_device_kernels": {"pe_mlp_bf16_kernel":
                                       kern["pe_mlp_bf16_kernel"]}}, {
         "name": "pe_mlp_bwd", "route": "cuda",
@@ -2776,6 +3294,7 @@ def main() -> int:
         "library_ms": None, "shapes": bwd_rows,
         "hash_train_step_launches": hjoint["pe_bwd"],
         "cli_launches": cli_launches("pe_bwd"),
+        "serving_launches": serving_launches("pe_bwd"),
         # "launches" counts wrapper calls; each launches the row-tile kernel,
         # one dW kernel per layer and the reduction, a step's counts here
         "train_step_device_kernels": {
@@ -2789,6 +3308,7 @@ def main() -> int:
         "plain_ms": h_r["fwd_plain_ms"], "bound_ms": h_r["fwd_bound_ms"],
         "bound_by": h_r["fwd_bound_by"], "library_ms": None,
         "train_step_launches": hjoint["hash_fwd"], **h_sets,
+        "serving_launches": serving_launches("hash_fwd"),
         "train_step_device_kernels": {
             "hash_encoding_fwd_kernel":
                 hjoint["kernels"]["hash_encoding_fwd_kernel"]}}, {
@@ -2801,6 +3321,7 @@ def main() -> int:
         "plain_ms": h_t["bwd_plain_ms"], "bound_ms": h_t["bwd_bound_ms"],
         "bound_by": h_t["bwd_bound_by"], "library_ms": None,
         **h_sets, "table_costs": costs,
+        "serving_launches": serving_launches("hash_bwd"),
         "train_step_device_kernels": {
             k: hjoint["kernels"][k] for k in (
                 "hash_encoding_bwd_kernel", "FillFunctor",

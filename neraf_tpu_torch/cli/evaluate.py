@@ -36,7 +36,7 @@ from neraf_tpu_torch.engine.checkpoints import latest_checkpoint, restore_checkp
 from neraf_tpu_torch.engine.factory import build_pipeline, load_audio_split
 from neraf_tpu_torch.engine.trainer import Trainer
 from neraf_tpu_torch.models.audio import AudioModel
-from neraf_tpu_torch.utils.png import write_png
+from neraf_tpu_torch.utils.png import quantize_rgb, write_png
 
 
 def parse_args(argv=None):
@@ -53,7 +53,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _restore_latest(args, run_dir: Path, obj) -> None:
+def restore_latest(args, run_dir: Path, obj) -> None:
+    """The latest checkpoint under --load-dir (default <run dir>/neraf_models)
+    into obj (a pipeline or engine)."""
     ckpt_dir = Path(args.load_dir) if args.load_dir else run_dir / "neraf_models"
     path = latest_checkpoint(ckpt_dir)
     if path is None:
@@ -66,7 +68,7 @@ def _eval_audio_only(cfg, run_dir: Path, args, device) -> dict:
     audio_eval = load_audio_split(cfg, "test")
     engine = AudioEngine(cfg, AudioModel(cfg.audio_model),
                          audio_train.outputs.aabb, device=device)
-    _restore_latest(args, run_dir, engine)
+    restore_latest(args, run_dir, engine)
     results = engine.evaluate(audio_eval)
     if args.output_path:
         Trainer(config=cfg, pipeline=engine, output_dir=run_dir).write_eval_json(
@@ -96,7 +98,7 @@ def main(argv=None, device="cuda") -> dict:
           "the results' lpips is null", flush=True)
     bundle = build_pipeline(cfg, device=device)
     pipe = bundle.pipeline
-    _restore_latest(args, run_dir, pipe)
+    restore_latest(args, run_dir, pipe)
     trainer = Trainer(config=cfg, pipeline=pipe, output_dir=run_dir)
     results = {}
 
@@ -124,9 +126,8 @@ def main(argv=None, device="cuda") -> dict:
                 cams = camera_arrays(veval.cameras, device)
                 H, W = veval.cameras.height, veval.cameras.width
                 for i in range(len(veval.cameras)):
-                    rgb = pipe.render_image(cams, i, H, W)["rgb"].float().cpu().numpy()
-                    write_png(out_dir / f"eval_img_{i:04d}.png",
-                              (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+                    write_png(out_dir / f"eval_img_{i:04d}.png", quantize_rgb(
+                        pipe.render_image(cams, i, H, W)["rgb"]))
 
     if args.output_path:
         trainer.write_eval_json(results, args.output_path)

@@ -9,10 +9,16 @@ Usage:
 The same flags, config.yml and run directory as the JAX CLI: config.yml,
 metrics.jsonl, neraf_models/step-*.pt and eval_images/. Env overrides:
 NeRAF_dataset, NeRAF_scene. It runs on the card; `main(argv,
-device="cpu")` runs it on the CPU. Flags whose part of the system is not
-ported raise NotImplementedError naming the ROADMAP item that ports it:
---viewer-port, --num-devices above 1, and a streaming decision that comes
-out "on".
+device="cpu")` runs it on the CPU.
+
+--viewer-port serves the HTTP viewer (viz/viewer.py) on the live joint
+pipeline while it trains (0 binds a free port; the bound address is
+printed): requests queue on a TrainThreadDispatcher and run on the
+training thread between steps, pumped at every steps_per_log, and once
+more when training ends; the server stops with the run. As in the JAX
+CLI, an --audio-only run has no viewer. Flags whose part of the system is
+not ported raise NotImplementedError naming the ROADMAP item that ports
+it: --num-devices above 1, and a streaming decision that comes out "on".
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from neraf_tpu_torch.engine.factory import build_pipeline, load_audio_split
 from neraf_tpu_torch.engine.trainer import Trainer
 from neraf_tpu_torch.models.audio import AudioModel
 from neraf_tpu_torch.viz.panels import save_eval_images
+from neraf_tpu_torch.viz.viewer import TrainThreadDispatcher, ViewerBackend, serve
 
 
 def parse_args(argv=None):
@@ -46,7 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--num-devices", type=int, default=None,
                    help="data-parallel size (not ported: one device)")
     p.add_argument("--viewer-port", type=int, default=None,
-                   help="serve the HTTP viewer (not ported)")
+                   help="serve the HTTP viewer during training (0: a free "
+                        "port)")
     p.add_argument("--streaming", default=None, choices=["on", "off", "auto"],
                    help="audio data path: the whole split on the device "
                         "(off), host-streamed batches (on, not ported), or "
@@ -61,10 +69,6 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    if args.viewer_port is not None:
-        raise NotImplementedError(
-            "--viewer-port: the viewer is not ported yet (ROADMAP.md queue 1 "
-            "item 9)")
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
             "--num-devices > 1: multi-device training is not ported yet "
@@ -151,15 +155,33 @@ def main(argv=None, device="cuda") -> Trainer:
         save_eval_images(images, eval_img_dir, step)
         return metrics
 
-    trainer.train(
-        state,
-        step_fn=lambda p: (p, p.train_step(cam_arrays, audio_arrays, image_arrays)),
-        eval_fns=eval_fns,
-        eval_batch_fn=lambda p: p.eval_loss_dict(eval_cam_arrays, audio_arrays,
-                                                 eval_image_arrays),
-        eval_image_fn=eval_image_fn,
-        max_steps=args.max_iters,
-    )
+    on_metrics = server = None
+    if args.viewer_port is not None:
+        dispatcher = TrainThreadDispatcher()
+        backend = ViewerBackend(pipe, dispatch=dispatcher)
+        server = serve(backend, port=args.viewer_port, blocking=False)
+
+        def on_metrics(step, scalars):
+            backend.step_hint = step
+            dispatcher.pump()
+
+    try:
+        trainer.train(
+            state,
+            step_fn=lambda p: (p, p.train_step(cam_arrays, audio_arrays,
+                                               image_arrays)),
+            eval_fns=eval_fns,
+            eval_batch_fn=lambda p: p.eval_loss_dict(eval_cam_arrays, audio_arrays,
+                                                     eval_image_arrays),
+            eval_image_fn=eval_image_fn,
+            max_steps=args.max_iters,
+            on_metrics=on_metrics,
+        )
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            dispatcher.close()
     return trainer
 
 

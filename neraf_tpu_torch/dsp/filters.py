@@ -1,4 +1,4 @@
-"""Biquad highpass and Hilbert envelope (counterpart of
+"""Biquad highpass, FFT convolution and Hilbert envelope (counterpart of
 neraf_tpu/dsp/filters.py:18-96).
 
 `highpass_biquad` takes a numpy array (the host estimators) or a torch
@@ -91,6 +91,26 @@ def highpass_biquad(x, sample_rate: float, cutoff_freq: float,
         return _biquad_torch(x, (b0, b1, b2), (a1, a2))
     return scipy.signal.lfilter([b0, b1, b2], [1.0, a1, a2],
                                 np.asarray(x, np.float64), axis=-1)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def fft_convolve(x: torch.Tensor, y: torch.Tensor,
+                 mode: str = "full") -> torch.Tensor:
+    """1-D FFT convolution along the last axis, broadcast over leading axes
+    (scipy.signal.fftconvolve's values), in float32 on the tensors' device:
+    "full" keeps all len(x) + len(y) - 1 samples, "same" the len(x) centred
+    on x (any other mode is "full", as in the JAX package)."""
+    n = x.shape[-1] + y.shape[-1] - 1
+    nfft = _next_pow2(n)
+    spec = torch.fft.rfft(x.float(), n=nfft) * torch.fft.rfft(y.float(), n=nfft)
+    out = torch.fft.irfft(spec, n=nfft)[..., :n]
+    if mode == "same":
+        start = (y.shape[-1] - 1) // 2
+        out = out[..., start:start + x.shape[-1]]
+    return out
 
 
 def hilbert_envelope(x: np.ndarray) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Polyphase resampling (counterpart of neraf_tpu/dsp/resample.py): the
 same Kaiser-windowed sinc lowpass, applied as a zero-stuffing strided
 convolution. The data layer resamples SoundSpaces' 44.1 kHz RIR wavs to
-22.05 kHz with it on the host, as the JAX loader does."""
+22.05 kHz with it on the host, as the JAX loader does; data/preprocess.py
+and the viewer's /auralize run it on the card."""
 
 from __future__ import annotations
 
@@ -40,7 +41,13 @@ def resample_poly(x, up: int, down: int) -> torch.Tensor:
         z = xf.new_zeros(xf.shape[0], 1, (length - 1) * up + 1)
         z[..., ::up] = xf
         xf = z
-    # a correlation with the reversed taps is the convolution with the taps
-    y = F.conv1d(F.pad(xf, (half, half + up - 1)), taps.flip(0)[None, None])
+    # a correlation with the reversed taps is the convolution with the taps,
+    # in float32 on a card too (cuDNN's TF32 off for the call)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv1d(F.pad(xf, (half, half + up - 1)), taps.flip(0)[None, None])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     y = y[..., ::down][..., :out_len]
     return y.reshape(*lead, out_len)

@@ -90,20 +90,23 @@ class Trainer:
         eval_batch_fn: Callable[[Any], dict] | None = None,
         eval_image_fn: Callable[[Any, int], dict] | None = None,
         max_steps: int | None = None,
+        on_metrics: Callable[[int, dict], None] | None = None,
     ):
         """Run the loop from state.step to max_steps (the config's
         max_num_iterations by default). step_fn(state) -> (state, metrics);
-        eval_batch_fn at steps_per_eval_batch, eval_image_fn at
-        steps_per_eval_image, eval_fns (the full sweeps) at
-        steps_per_eval_all_images, a checkpoint at steps_per_save and one at
-        max_steps."""
+        at steps_per_log the scalars are written and handed to
+        on_metrics(step, scalars) (the live viewer's hook); eval_batch_fn at
+        steps_per_eval_batch, eval_image_fn at steps_per_eval_image,
+        eval_fns (the full sweeps) at steps_per_eval_all_images, a
+        checkpoint at steps_per_save and one at max_steps."""
         tcfg = self.config.trainer
         max_steps = tcfg.max_num_iterations if max_steps is None else max_steps
         self.save_run_config()
         self._latest_state = state
         try:
             state = self._loop(state, step_fn, eval_fns or {}, eval_batch_fn,
-                               eval_image_fn, int(state.step), max_steps)
+                               eval_image_fn, int(state.step), max_steps,
+                               on_metrics)
         except (KeyboardInterrupt, Exception):
             self._emergency_save(self._latest_state)
             raise
@@ -127,7 +130,7 @@ class Trainer:
             print(f"emergency checkpoint failed: {err!r}")
 
     def _loop(self, state, step_fn, eval_fns, eval_batch_fn, eval_image_fn,
-              start_step, max_steps):
+              start_step, max_steps, on_metrics):
         tcfg = self.config.trainer
         t_last = time.perf_counter()
         for step in range(start_step, max_steps):
@@ -141,6 +144,8 @@ class Trainer:
                 scalars["steps_per_sec"] = tcfg.steps_per_log / (now - t_last)
                 t_last = now
                 self.writer.write_scalars(step + 1, scalars, prefix="train")
+                if on_metrics is not None:
+                    on_metrics(step + 1, scalars)
 
             if eval_batch_fn is not None and (step + 1) % tcfg.steps_per_eval_batch == 0:
                 self.writer.write_scalars(

@@ -2,12 +2,15 @@
 
 Counterpart of neraf_tpu/models/audio.py: poses normalised into the audio
 AABB with out-of-box zeroing, NeRF PE of time and positions, SH-4 of the
-orientation, the scene-grid descriptor concatenated first, the all-time-bins
-sweep of N RIRs as one flat (N*T) query batch, and the training loss.
+orientation, the scene-grid descriptor concatenated first, one pose's
+all-time-bins sweep (render_rir) and N RIRs' as one flat (N*T) query batch
+(render_rirs_batch), the training loss, and the viewer camera's audio pose
+(camera_to_audio_pose).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,6 +46,39 @@ def encode_query(mic_pose: torch.Tensor, source_pose: torch.Tensor,
         nerf_encoding(normalize_positions(source_pose, aabb)),
         sh_encoding(rot),
     ], dim=-1)
+
+
+def camera_to_audio_pose(c2w_camera: np.ndarray, dataset: str = "SoundSpaces"):
+    """Viewer camera pose -> (mic_pose, rot cosine) in audio coordinates.
+
+    The reference's viewer-camera handling (NeRAF_model.py:613-646): the
+    viewer frame is x-front/y-left/z-up, audio x-front/y-up/z-left; the yaw
+    is the euler 'zyx' angle of the camera (SoundSpaces), rounded to whole
+    degrees and given as the [cos, 0, sin] direction cosine in [0, 1]. For
+    RAF the reference takes euler 'yxz' of the constant matrix
+    transform_axis @ eye(4), exact gimbal lock, which scipy resolves to a
+    yaw of exactly 0.0: that constant is used.
+    """
+    from scipy.spatial.transform import Rotation as R
+
+    c2w = np.eye(4)
+    c2w[:3, :4] = np.asarray(c2w_camera)[:3, :4]
+    transform_axis = np.array([
+        [1, 0, 0, 0],
+        [0, 0, 1, 0],
+        [0, -1, 0, 0],
+        [0, 0, 0, 1],
+    ])
+    c2w_audio = transform_axis @ c2w
+    mic_pose = c2w_audio[:3, 3]
+    if dataset == "RAF":
+        yaw = 0.0
+    else:
+        yaw = R.from_matrix(c2w[:3, :3]).as_euler("zyx", degrees=True)[0]
+    yaw = np.round(yaw, decimals=0)
+    rad = np.deg2rad(yaw)
+    rot = (np.array([np.cos(rad), 0.0, np.sin(rad)]) + 1.0) / 2.0
+    return mic_pose, rot
 
 
 class AudioModel(nn.Module):
@@ -87,6 +123,21 @@ class AudioModel(nn.Module):
             "audio_sc_loss": parts["audio_sc_loss"] * 1e-1 * cfg.loss_factor,
             "audio_mag_loss": parts["audio_mag_loss"] * 1.0 * cfg.loss_factor,
         }
+
+    def render_rir(self, mic_pose: torch.Tensor, source_pose: torch.Tensor,
+                   rot: torch.Tensor, aabb: torch.Tensor,
+                   grid_feature: torch.Tensor | None = None) -> torch.Tensor:
+        """One pose's full sweep, all max_len time bins at once -> (C, F, T)
+        (the reference's get_outputs_for_camera eval path,
+        NeRAF_model.py:646-692, its T-major output permuted)."""
+        T = self.config.max_len
+        batch = {
+            "time_query": torch.arange(T, device=mic_pose.device),
+            "mic_pose": mic_pose[None, :].expand(T, 3),
+            "source_pose": source_pose[None, :].expand(T, 3),
+            "rot": rot[None, :].expand(T, 3),
+        }
+        return self(batch, aabb, grid_feature).permute(1, 2, 0)  # (C, F, T)
 
     def render_rirs_batch(self, mic_poses: torch.Tensor,
                           source_poses: torch.Tensor, rots: torch.Tensor,

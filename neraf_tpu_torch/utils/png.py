@@ -4,12 +4,17 @@
   type (None, Sub, Up, Average, Paeth) -> (H, W, C) uint8; `read_rgb`
   returns RGB, with gray replicated and alpha dropped, as PIL's
   ``convert("RGB")`` does.
-- `write_png`: (H, W, 3) uint8 -> an RGB8 PNG (filter None on every row).
+- `write_png` / `encode_png`: (H, W, 3) uint8 -> an RGB8 PNG file / its
+  bytes (filter None on every row); `quantize_rgb`: a render's rgb in
+  [0, 1] -> uint8, as the JAX CLIs quantise it.
 - `resize_bilinear`: PIL's ``Image.BILINEAR`` downscale as
   ``F.interpolate(mode="bilinear", antialias=True)`` rounded to 8-bit
   levels; it stays within one level of PIL's result at factors 2 and 4
   (tests/test_torch_data.py). PIL resizes RGBA premultiplied by alpha; here
   alpha is dropped first, so the two differ where alpha is below 255.
+- `resize_nearest`: PIL's ``Image.NEAREST`` resize, its index mapping
+  (each output pixel's source coordinate summed step by step in float64
+  from half a step, then truncated) in numpy.
 """
 
 from __future__ import annotations
@@ -120,10 +125,23 @@ def read_rgb(path: str | Path) -> np.ndarray:
 
 
 def write_png(path: str | Path, rgb: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> an RGB8 PNG."""
+    """(H, W, 3) uint8 -> an RGB8 PNG file."""
+    Path(path).write_bytes(encode_png(rgb))
+
+
+def quantize_rgb(rgb) -> np.ndarray:
+    """(H, W, 3) rgb (a tensor on any device, or an array) -> uint8:
+    clip(rgb, 0, 1) * 255 truncated, in float32 on the host."""
+    if isinstance(rgb, torch.Tensor):
+        rgb = rgb.float().cpu().numpy()
+    return (np.clip(np.asarray(rgb, np.float32), 0, 1) * 255).astype(np.uint8)
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an RGB8 PNG."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     if rgb.ndim != 3 or rgb.shape[-1] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got {rgb.shape}")
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {rgb.shape}")
     h, w, _ = rgb.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)],
                          axis=1).tobytes()
@@ -132,9 +150,8 @@ def write_png(path: str | Path, rgb: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
-    Path(path).write_bytes(
-        _SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    return (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -143,3 +160,21 @@ def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     y = F.interpolate(x.to(torch.float32), size=(height, width),
                       mode="bilinear", antialias=True, align_corners=False)
     return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _nearest_rows(n_in: int, n_out: int) -> np.ndarray:
+    """The source index of each of n_out pixels: PIL's ImagingScaleAffine
+    starts at half a step and adds the step (n_in / n_out, float64) one
+    pixel at a time, then truncates."""
+    step = n_in / n_out
+    pos = np.add.accumulate(np.concatenate([[step * 0.5],
+                                            np.full(n_out - 1, step)]))
+    return pos.astype(np.int64)
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W, C) -> (height, width, C), nearest neighbour as PIL picks it."""
+    img = np.asarray(img)
+    rows = _nearest_rows(img.shape[0], height)
+    cols = _nearest_rows(img.shape[1], width)
+    return img[rows[:, None], cols[None, :]]

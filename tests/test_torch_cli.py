@@ -24,7 +24,9 @@ package's, on the CPU.
   joint ones those of the JAX paths it composes, evaluate_vision and
   evaluate_audio, whose keys tests/test_torch_eval_paths.py holds to
   JAX's); AVN_RENDER_POSES renders a trajectory's STFTs; flags whose part
-  of the system is not ported raise NotImplementedError.
+  of the system is not ported raise NotImplementedError; every CLI's flags
+  and defaults are the JAX CLI's (--viewer-port, ported now, is held by
+  tests/test_torch_serving.py).
 """
 
 import dataclasses
@@ -431,7 +433,7 @@ def test_inference_mode_renders_the_trajectory(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,sets", [
-    (("--viewer-port", "7007"), ()), (("--num-devices", "2"), ()),
+    (("--num-devices", "2"), ()),
     (("--streaming", "on"), ()), (("--audio-only", "--streaming", "on"), ()),
     ((), ("audio_data.stream_threshold_gb=0",))])
 def test_unported_flags_raise(scene_root, tmp_path, extra, sets):
@@ -443,9 +445,25 @@ def test_unported_flags_raise(scene_root, tmp_path, extra, sets):
 def test_cli_entry_points_default_to_the_card():
     import inspect
 
-    for fn in (train.main, evaluate.main):
+    from neraf_tpu.cli import loudness as jloudness
+    from neraf_tpu.cli import render as jrender
+    from neraf_tpu.cli import viewer as jviewer
+    from neraf_tpu_torch.cli import loudness, render, viewer
+    from neraf_tpu_torch.data import preprocess
+    from neraf_tpu_torch.viz.viewer import ViewerBackend
+
+    for fn in (train.main, evaluate.main, render.main, loudness.main,
+               viewer.main, preprocess.main, preprocess.process_rir_wav,
+               preprocess.process_scene):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "device" not in inspect.signature(ViewerBackend).parameters
     assert set(vars(train.parse_args(["--data-root", "x"]))) == set(
         vars(jtrain.parse_args(["--data-root", "x"])))
-    assert set(vars(evaluate.parse_args(["--load-config", "x"]))) == set(
-        vars(jevaluate.parse_args(["--load-config", "x"])))
+    for ours, theirs, argv in (
+            (evaluate, jevaluate, ["--load-config", "x"]),
+            (viewer, jviewer, ["--load-config", "x"]),
+            (render, jrender, ["--load-config", "x", "--output-dir", "y"]),
+            (loudness, jloudness, ["--load-config", "x", "--output-dir", "y"])):
+        assert vars(ours.parse_args(argv)) == vars(theirs.parse_args(argv))
+    assert set(vars(preprocess.parse_args(["--scene-dir", "x"]))) == {
+        "scene_dir", "in_dir", "out_dir"}
