@@ -150,7 +150,25 @@ Phases, each fatal on failure:
      phase 21's run without the viewer beside a second run without it
      (the card's run-to-run spread); process_scene on 96 seeded
      binaural wavs at 44.1 kHz on the card, timed, each spectrogram held
-     to process_rir_wav on the CPU.
+     to process_rir_wav on the CPU;
+ 23. the streaming audio path and LPIPS: the StreamingAudioSampler at
+     apartment_1's train-split shapes (111,513 recordings x 2 x 257 x 101,
+     a lazily backed time-major host store whose first 16 batches' columns
+     are written, batches of 2,048 in bf16): every batch within 2^-8 of
+     the store, the device memory the audio data commits under 32 MiB
+     (the resident split: 21.6 GiB), the producer's gather and the copies'
+     device ms; the full-width joint step at apartment_1's configuration
+     (T 101) fed by the sampler beside the same step fed by the resident
+     split (on the card) at the same draws, float32 transfer, the losses
+     bitwise equal; both timed in turns (median of 10 warm steps, the
+     streamed one in bf16) and profiled (device busy, idle share, the
+     share of the sampler's copies that overlaps a kernel), 4 + 4 pe_mlp
+     launches a step; cli.train --streaming on (joint, 8 steps with every
+     cadence, and --audio-only) on phase 21's scene with phase 21's gates
+     on records and launches, one sampler a run on the card and stopped;
+     LPIPS (random alex and vgg weights through an .npz) on a 512 x 512
+     pair, card against CPU, ms per pair; cli.evaluate on phase 21's run
+     with NERAF_LPIPS_WEIGHTS set, lpips a number.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -2849,6 +2867,375 @@ def serving_phase(torch, dev, tmp, argv, n_eval, spread) -> dict:
     return res
 
 
+# Phase 23. The streamed batches against the host store, relative: bf16
+# keeps 8 significand bits (2^-8 of a value at most); a wrong column or
+# recording is O(1). The device memory the streamed audio data may
+# commit: the pose tables (3.83 MiB at apartment_1's 111,513 recordings)
+# and a few 2.0 MiB bf16 batches in flight, against the 21.6 GiB the
+# resident split takes. LPIPS on the card (cuDNN, float32, TF32 off)
+# against the CPU on the same weights and images, relative: float32
+# convolutions of two libraries summed in other orders, then averaged over
+# the image (the port against the JAX package on the CPU: 1e-5,
+# tests/test_torch_lpips.py); TF32 would move it by ~1e-3, a wrong tap or
+# scaling by O(1).
+STREAM_BF16_REL, STREAM_MEM_MIB, LPIPS_CARD_REL = 2.0 ** -8, 32, 2e-4
+APT1 = (111_513, 2, 257, 101)  # apartment_1's train split: N, C, F, T
+STREAM_SEED, STREAM_MARKED = 23, 16  # batches whose columns are written
+
+
+def apartment_split(batch: int):
+    """apartment_1's train-split shapes: a lazily backed time-major host
+    store (np.zeros commits a page only when written), whose columns that
+    the first STREAM_MARKED batches of a sampler seeded STREAM_SEED draw
+    are written with seeded log-magnitudes (the rest read as zeros), and
+    seeded pose tables -> (a dataset for StreamingAudioSampler, the marked
+    (rec, t) pairs)."""
+    from types import SimpleNamespace
+
+    N, C, F, T = APT1
+    store = np.zeros((N, T, C, F), np.float32)
+    draws = np.random.default_rng(STREAM_SEED).integers(
+        0, N * T, (STREAM_MARKED, batch)).reshape(-1)
+    rec, t = draws // T, draws % T
+    rng = np.random.default_rng(STREAM_SEED + 1)
+    store[rec, t] = rng.normal(-3.0, 0.5, (rec.size, C, F)).astype(np.float32)
+    outputs = SimpleNamespace(
+        microphone_poses=rng.uniform(-2, 2, (N, 3)).astype(np.float32),
+        source_poses=rng.uniform(-2, 2, (N, 3)).astype(np.float32),
+        rotations=rng.uniform(0, 1, (N, 3)).astype(np.float32),
+        audio_filenames=[], aabb=np.array([[-3.0] * 3, [3.0] * 3], np.float32))
+    return SimpleNamespace(log_stft=store, outputs=outputs, max_len=T), (rec, t)
+
+
+def copy_overlap(events) -> dict:
+    """The sampler's host-to-device copies (pinned memory) in a profile:
+    their device ms and the share of it during which a kernel ran."""
+    copies = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type.name == "CUDA" and e.time_range.end > 0
+              and e.name.startswith("Memcpy HtoD (Pinned")]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type.name == "CUDA" and e.time_range.end > 0
+                     and not e.name.startswith(("Memcpy", "Memset")))
+    total = sum(b - a for a, b in copies)
+    covered = 0.0
+    longest = max((b - a for a, b in copies), default=0.0)
+    for a, b in copies:
+        end = a
+        for ka, kb in kernels:
+            if kb <= end or ka >= b:
+                continue
+            covered += min(kb, b) - max(ka, end)
+            end = min(kb, b)
+    return {"copies": len(copies), "copy_ms": total / 1e3,
+            "longest_copy_ms": longest / 1e3,
+            "overlapped_share": covered / total if total else 0.0}
+
+
+def stream_sampler_check(torch, dev, ds, marked) -> dict:
+    """The sampler at apartment_1's shapes, bf16: batches against the store,
+    the device memory it commits, the producer's gather and the copies'
+    device time."""
+    from neraf_tpu_torch.data.streaming import StreamingAudioSampler
+
+    N, C, F, T = APT1
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sampler = StreamingAudioSampler(ds, 2048, seed=STREAM_SEED,
+                                    transfer_dtype="bfloat16", layout="tcf",
+                                    device=dev)
+    init_s = time.perf_counter() - t0
+    try:
+        held, worst, hit = [], 0.0, 0
+        for _ in range(STREAM_MARKED):
+            b = sampler.next()
+            held = (held + [b])[-3:]  # the step's batch and two before it
+            torch.cuda.synchronize()
+            rec, t = b["audio_idx"].cpu().numpy(), b["time_query"].cpu().numpy()
+            want = ds.log_stft[rec, t]
+            got = b["data"].float().cpu().numpy()
+            if b["data"].dtype != torch.bfloat16 or got.shape != (2048, C, F):
+                fail(f"stream sampler: batch {b['data'].dtype} {got.shape}")
+            worst = max(worst, float((np.abs(got - want) / np.abs(want).clip(
+                1e-30)).max()))
+            hit += int((want != 0).all(axis=(1, 2)).sum())
+        mem = torch.cuda.memory_allocated() - mem0
+        gather, copy = list(sampler.gather_ms), sampler.copy_ms()
+    finally:
+        sampler.stop()
+    batch_mib = 2048 * C * F * 2 / 2**20
+    row = {"init_s": init_s, "max_rel_err": worst, "marked_columns_read": hit,
+           "device_mib": mem / 2**20, "batch_mib": batch_mib,
+           "pose_tables_mib": 3 * N * 3 * 4 / 2**20,
+           "resident_gib": N * C * F * T * 4 / 2**30,
+           "gather_ms_median": float(np.median(gather)),
+           "gather_ms": [round(v, 3) for v in gather[:8]],
+           "copy_ms_median": float(np.median(copy)),
+           "copy_gb_per_s": batch_mib * 2**20 / (float(np.median(copy)) * 1e6)}
+    print(f"stream sampler (apartment_1 train split {N} x {C} x {F} x {T}, "
+          f"time-major host store, batch 2048, bf16): {json.dumps(row)}",
+          flush=True)
+    if not worst <= STREAM_BF16_REL or hit != STREAM_MARKED * 2048:
+        fail(f"stream sampler: batches off the store by {worst} (tol "
+             f"{STREAM_BF16_REL}), {hit} marked columns read")
+    if not row["device_mib"] < STREAM_MEM_MIB:
+        fail(f"stream sampler: the audio data commits {row['device_mib']:.2f}"
+             f" MiB of device memory (limit {STREAM_MEM_MIB})")
+    return row
+
+
+def stream_step_check(torch, dev, ds, marked) -> dict:
+    """The full-width joint step at apartment_1's configuration fed by the
+    sampler, beside the same step fed by the resident split of the same
+    shape (21.6 GiB on the card, the marked columns written): one step
+    each at the same draws with float32 transfer, losses bitwise equal;
+    then each timed (median of 10 warm steps, the streamed one in bf16)
+    and profiled (3 steps: device busy, idle share, and the share of the
+    sampler's copies that overlap a kernel); 4 + 4 pe_mlp launches a step."""
+    from neraf_tpu_torch.configs.config import default_config
+    from neraf_tpu_torch.data.streaming import StreamingAudioSampler
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+
+    N, C, F, T = APT1
+    cfg = default_config("SoundSpaces", "apartment_1")
+    if cfg.audio_model.max_len != T:
+        fail(f"apartment_1's max_len {cfg.audio_model.max_len}, not {T}")
+    pipes = {k: build_joint_pipeline(grid_res=128, tiny=False, device=dev,
+                                     seed=0, config=cfg)
+             for k in ("resident", "streamed")}
+    for p in pipes.values():
+        p.step = 3000  # past start_step_audio: the audio branch is live
+    cams, _, images = bench_inputs(torch, dev)
+    rec, t = (torch.as_tensor(v, device=dev) for v in marked)
+    o = ds.outputs
+    resident = {k: torch.as_tensor(v, device=dev) for k, v in (
+        ("mic_pose", o.microphone_poses), ("source_pose", o.source_poses),
+        ("rot", o.rotations))}
+    resident["log_stft"] = torch.zeros((N, C, F, T), device=dev)
+    resident["log_stft"][rec, :, :, t] = torch.as_tensor(
+        ds.log_stft[marked[0], marked[1]], device=dev)
+    n_img, H, W = images["images"].shape[:3]
+    out = {"resident_split_gib": resident["log_stft"].numel() * 4 / 2**30}
+
+    # the same draws, float32 transfer: the losses bitwise equal
+    with StreamingAudioSampler(ds, 2048, seed=STREAM_SEED, layout="tcf",
+                               device=dev) as s:
+        batch = s.next()
+        draws = {k: pipes[k].draw(n_img, H, W, N) for k in pipes}
+        draws["resident"].update(rec=batch["audio_idx"], t=batch["time_query"])
+        m = {"resident": pipes["resident"].train_step(
+                cams, resident, images, draws=draws["resident"]),
+             "streamed": pipes["streamed"].train_step(
+                 cams, batch, images, draws=draws["streamed"])}
+    print(f"stream step, same draws, float32 transfer: resident "
+          f"{json.dumps(m['resident'])}; streamed {json.dumps(m['streamed'])}",
+          flush=True)
+    check_metrics(m["streamed"], "stream step")
+    if m["resident"] != m["streamed"] or not m["streamed"]["audio_mag_loss"] > 0:
+        fail("stream step: the streamed step's losses are not the resident "
+             "step's at the same draws")
+    out["same_draws_metrics"] = m["streamed"]
+
+    # timed and profiled, the streamed step in bf16 (the default)
+    sampler = StreamingAudioSampler(ds, 2048, seed=STREAM_SEED,
+                                    transfer_dtype="bfloat16", layout="tcf",
+                                    device=dev)
+    feeds = {"resident": lambda: resident, "streamed": sampler.next}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        for k in ("resident", "streamed", "streamed", "resident"):
+            pipe, feed = pipes[k], feeds[k]
+            reset_counts()
+            times = []
+            for _ in range(2 + 10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.train_step(cams, feed(), images)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            counts = read_counts()
+            if counts != {**{c: 0 for c in counts}, "pe_fwd": 48, "pe_bwd": 48}:
+                fail(f"stream step {k}: launches {counts} in 12 steps")
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    pipe.train_step(cams, feed(), images)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            events = prof.events()
+            busy = busy_ms(events)
+            row = out.setdefault(k, {"ms_per_step": [], "busy_ms_per_step": [],
+                                     "idle_share": []})
+            row["ms_per_step"].append(1e3 * float(np.median(times[2:])))
+            row["busy_ms_per_step"].append(busy / 3)
+            row["idle_share"].append(1 - busy / wall)
+            row["launches"] = counts
+            if k == "streamed":
+                row.setdefault("copies", []).append(copy_overlap(events))
+        out["streamed"]["gather_ms_median"] = float(np.median(sampler.gather_ms))
+        out["streamed"]["copy_ms_median"] = float(np.median(sampler.copy_ms()))
+    finally:
+        sampler.stop()
+    print(f"stream step, full width at apartment_1 (T {T}, 2048 STFT slices, "
+          f"4096 rays, 4096 cells, bf16), resident vs streamed in turns "
+          f"(median of 10 warm steps; busy and idle share over 3 profiled "
+          f"steps, the profiler slowing the host): {json.dumps(out)}",
+          flush=True)
+    if not all(c["overlapped_share"] > 0 for c in out["streamed"]["copies"]):
+        print("stream step: no sampler copy overlapped a kernel", flush=True)
+    return out
+
+
+def stream_cli_check(torch, tmp, argv, n_eval) -> dict:
+    """cli.train --streaming on, joint (8 steps, every cadence) and
+    --audio-only, on phase 21's scene: the records, checkpoints and launch
+    counts phase 21 gates, and one sampler (on the card, bf16) created and
+    stopped a run."""
+    from neraf_tpu_torch.cli import train as cli_train
+
+    samplers = []
+    base_cls = cli_train.StreamingAudioSampler
+
+    class Recorded(base_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            samplers.append(self)
+
+    cli_train.StreamingAudioSampler = Recorded
+    res, counts = {}, {}
+    try:
+        run = tmp / "run_stream"
+        want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
+                "pe_bwd": 4 * CLI_STEPS, "gl": 1}
+        trainer, counts["stream_train"], wall = counted(
+            torch, "cli train --streaming on", lambda: cli_train.main(
+                argv + ["--streaming", "on", "--run-dir", str(run)]), want)
+        records = [json.loads(line) for line in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        ckpts = sorted(p.name for p in (run / "neraf_models").iterdir())
+        if {(r["step"], r["prefix"]) for r in records} != CLI_RECORDS or \
+                len(records) != len(CLI_RECORDS) or not all(
+                    map(finite_record, records)) or ckpts != [
+                    "step-000000004.pt", "step-000000008.pt"]:
+            fail(f"cli train --streaming on: records {records}, checkpoints "
+                 f"{ckpts}")
+        steps_ms = [dt * 1e3 for _, what, dt in trainer.timings if what == "step"]
+        res["train"] = {"wall_s": wall, "cold_step_ms": steps_ms[0],
+                        "warm_step_ms_median": float(np.median(steps_ms[1:]))}
+        del trainer
+        run = tmp / "run_stream_audio"
+        _, counts["stream_audio_only_train"], wall = counted(
+            torch, "cli audio-only train --streaming on",
+            lambda: cli_train.main(argv + ["--audio-only", "--streaming", "on",
+                                           "--run-dir", str(run)]), {"gl": 2})
+        records = [json.loads(line) for line in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        if {(r["step"], r["prefix"]) for r in records} != {
+                (2, "train"), (4, "train"), (6, "train"), (8, "train"),
+                (8, "eval_audio")} or not all(map(finite_record, records)):
+            fail(f"cli audio-only train --streaming on: metrics {records}")
+        res["audio_only"] = {"wall_s": wall}
+    finally:
+        cli_train.StreamingAudioSampler = base_cls
+    if len(samplers) != 2 or not all(
+            s._stopped.is_set() and not s._thread.is_alive()
+            and s.device.type == "cuda" and s._dtype == torch.bfloat16
+            for s in samplers):
+        fail(f"cli --streaming on: {len(samplers)} samplers, not one a run, "
+             "on the card in bf16 and stopped")
+    res["launches"] = counts
+    print(f"cli --streaming on: {json.dumps(res)}", flush=True)
+    return res
+
+
+def lpips_check(torch, dev, tmp, run1, n_eval) -> dict:
+    """LPIPS with random weights written to an .npz, alex and vgg, on a
+    512 x 512 pair: the card against the CPU, ms per pair, and each tap's
+    largest difference from the CPU's relative to its peak, with TF32 off
+    (the metric's) and on (printed, with the distance it gives); then
+    cli.evaluate on phase 21's run with NERAF_LPIPS_WEIGHTS set: lpips a
+    number, the launches phase 21 gates."""
+    from neraf_tpu_torch.cli import evaluate as cli_evaluate
+    from neraf_tpu_torch.metrics import lpips_impl
+
+    rng = np.random.default_rng(25)
+    x = rng.uniform(0, 1, (512, 512, 3)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.05, x.shape), 0, 1).astype(np.float32)
+    xd, yd = (torch.as_tensor(v, device=dev) for v in (x, y))
+    rows, paths = {}, {}
+    for i, net in enumerate(("alex", "vgg")):
+        paths[net] = tmp / f"lpips_{net}.npz"
+        lpips_impl.save_params_npz(paths[net], lpips_impl.init_params(net, i),
+                                   net=net)
+        params, _ = lpips_impl.load_params(str(paths[net]))
+        t0 = time.perf_counter()
+        cpu = float(lpips_impl.lpips_distance(params, torch.from_numpy(x),
+                                              torch.from_numpy(y), net=net))
+        cpu_s = time.perf_counter() - t0
+        dparams, _ = lpips_impl.load_device_params(str(paths[net]), str(dev))
+        run = lambda: lpips_impl.lpips_distance(dparams, xd, yd, net=net)
+        card = float(run())
+        rel = abs(card - cpu) / abs(cpu)
+        run()
+        pair = lambda d: torch.stack([torch.as_tensor(v, device=d)
+                                      for v in (x, y)])
+        with torch.no_grad():
+            ref = lpips_impl._taps(lpips_impl._as_tensors(params, "cpu"),
+                                   lpips_impl._scaled(pair("cpu"), True), net)
+            taps = {tf32: lpips_impl._taps(
+                dparams, lpips_impl._scaled(pair(dev), True), net, tf32)
+                for tf32 in (False, True)}
+            tf32_lpips = float(lpips_impl._distance(
+                [t[:1] for t in taps[True]], [t[1:] for t in taps[True]],
+                dparams)[0])
+        tap_err = {tf32: max(float((a.cpu() - b).abs().max() / b.abs().max())
+                             for a, b in zip(taps[tf32], ref))
+                   for tf32 in (False, True)}
+        rows[net] = {"card": card, "cpu": cpu, "rel_err": rel,
+                     "tap_rel_err": tap_err[False],
+                     "tf32_tap_rel_err": tap_err[True],
+                     "tf32_rel_err": abs(tf32_lpips - cpu) / abs(cpu),
+                     "ms_per_pair": cuda_ms(torch, run, 10), "cpu_s": cpu_s}
+        print(f"lpips {net} 512 x 512: {json.dumps(rows[net])} (tol "
+              f"{LPIPS_CARD_REL})", flush=True)
+        if not (np.isfinite(card) and card > 0 and rel <= LPIPS_CARD_REL
+                and tap_err[False] <= LPIPS_CARD_REL):
+            fail(f"lpips {net}: card {card} vs cpu {cpu}")
+    old = os.environ.get("NERAF_LPIPS_WEIGHTS")
+    os.environ["NERAF_LPIPS_WEIGHTS"] = str(paths["alex"])
+    try:
+        results, counts, wall = counted(
+            torch, "cli evaluate with lpips", lambda: cli_evaluate.main(
+                ["--load-config", str(run1 / "config.yml")]),
+            {"pe_fwd": 3 * n_eval, "gl": 2})
+    finally:
+        if old is None:
+            os.environ.pop("NERAF_LPIPS_WEIGHTS")
+        else:
+            os.environ["NERAF_LPIPS_WEIGHTS"] = old
+    lp = results.get("lpips")
+    print(f"cli evaluate with NERAF_LPIPS_WEIGHTS (alex): {wall:.2f} s, "
+          f"lpips {lp}, lpips_std {results.get('lpips_std')}", flush=True)
+    if not (isinstance(lp, float) and np.isfinite(lp) and lp > 0
+            and "lpips_skipped" not in results):
+        fail(f"cli evaluate with LPIPS weights: {results}")
+    rows["cli_evaluate"] = {"wall_s": wall, "lpips": lp, "launches": counts}
+    return rows
+
+
+def streaming_phase(torch, dev, tmp, cli) -> dict:
+    """Phase 23 (module docstring)."""
+    ds, marked = apartment_split(2048)
+    out = {"sampler": stream_sampler_check(torch, dev, ds, marked)}
+    out["step"] = stream_step_check(torch, dev, ds, marked)
+    del ds
+    torch.cuda.empty_cache()
+    out["cli"] = stream_cli_check(torch, tmp, cli["argv"], cli["n_eval"])
+    out["lpips"] = lpips_check(torch, dev, tmp, tmp / "run1", cli["n_eval"])
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3224,6 +3611,15 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.2f} s", flush=True)
         print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
               f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        t0 = time.perf_counter()
+        stream = streaming_phase(torch, dev, tmp, cli)
+        cli["launches"].update(stream["cli"]["launches"])
+        cli["launches"]["lpips_evaluate"] = stream["lpips"]["cli_evaluate"][
+            "launches"]
+        print(f"phase 23: {time.perf_counter() - t0:.2f} s; the run so far "
+              f"{time.perf_counter() - t_start:.2f} s", flush=True)
+        print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+              f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cli_launches = lambda k: {run: c[k] for run, c in cli["launches"].items()}
@@ -3276,6 +3672,8 @@ def main() -> int:
         "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],
         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
         "train_step_launches": joint["pe_fwd"], "shapes": pe_rows,
+        "streamed_train_step_launches": stream["step"]["streamed"][
+            "launches"]["pe_fwd"],
         "hash_render_launches": hvis["launches"]["pe_mlp"],
         "hash_train_step_launches": hjoint["pe_fwd"],
         "eval_launches": {k: evals[k]["pe_launches"] for k in (
@@ -3288,6 +3686,8 @@ def main() -> int:
         "source": "neraf_tpu_torch/csrc/pe_mlp_bwd.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:298",
         "launches": joint["pe_bwd"], "max_abs_err": bwd_main["max_abs_err"],
+        "streamed_train_step_launches": stream["step"]["streamed"][
+            "launches"]["pe_bwd"],
         "rel_l2_vs_plain": bwd_rows["main_field"]["rel_l2_vs_plain"],
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],

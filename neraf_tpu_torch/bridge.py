@@ -5,8 +5,9 @@ Takes the trees JointPipeline.init_state builds: params["audio"]["field"]
 and the ResNet's batch_stats; and the vision half, params["proposal_networks"]
 ["level_0" / "level_1"] and params["fields"] (flax variables each), and
 params["camera_opt"], the (num_cameras, 6) SO3xR3 corrections; and a whole
-JointTrainState's weights, BatchNorm statistics, grid, cursor and step
-(load_joint_state). The four Adam states are not bridged yet.
+JointTrainState's weights, BatchNorm statistics, grid, cursor, step and
+the four groups' Adam states (load_joint_state), or an AudioTrainState's
+(load_audio_state).
 Layouts:
 
 - Dense kernel (in, out) -> Linear weight (out, in); bias as is;
@@ -20,6 +21,17 @@ Layouts:
 
 Every flax leaf must map to a torch key and every torch parameter or running
 statistic must be filled; anything else raises KeyError.
+
+Adam: an optax group is chain(scale_by_adam, scale_by_schedule)
+(neraf_tpu/engine/optimizers.py), whose state is (ScaleByAdamState(count,
+mu, nu), ScaleByScheduleState(count)). mu and nu have the weights' tree
+and take the weights' layouts; they become torch.optim.Adam's exp_avg and
+exp_avg_sq, the Adam count its `step` (the bias corrections), and the
+schedule's count ScheduledAdam.count (the learning rate). The vision
+field's parameters sit in two torch groups, `fields` and `audio_fields`,
+as the reference steps them; each takes its own group's moments (the
+audio group's "vision_fields" subtree). A group's leaves must cover its
+parameters exactly, else KeyError.
 """
 
 from __future__ import annotations
@@ -150,16 +162,116 @@ def load_vision_params(vision_model: nn.Module, params: dict) -> None:
         params["fields"]["params"], scopes=_VISION_SCOPE))
 
 
+def _prefixed(prefix: str, state: dict) -> dict:
+    return {f"{prefix}{k}": v for k, v in state.items()}
+
+
+def load_adam_state(scheduled, named: dict, opt_state, moments) -> None:
+    """Fill one ScheduledAdam (engine/optimizers.py) from an optax group's
+    state: `named` maps a torch key to each of the group's parameters,
+    `moments(tree)` maps mu's (or nu's) tree to a state dict of the same
+    keys. The optimizers' own parameters are updated in place elsewhere;
+    this sets their exp_avg, exp_avg_sq and step, and the schedule count."""
+    adam, sched = opt_state[0], opt_state[1]
+    mu, nu = moments(adam.mu), moments(adam.nu)
+    if {id(p) for p in named.values()} != {id(p) for p in scheduled.params}:
+        raise KeyError("the named parameters are not the group's")
+    for what, sd in (("mu", mu), ("nu", nu)):
+        missing, unexpected = sorted(set(named) - set(sd)), sorted(set(sd) - set(named))
+        if missing or unexpected:
+            raise KeyError(f"Adam {what} mismatch: missing {missing}, "
+                           f"unexpected {unexpected}")
+    opt = scheduled.opt
+    fused = opt.param_groups[0]["fused"]
+    count = float(np.asarray(adam.count))
+    for key, param in named.items():
+        for what, sd in (("mu", mu), ("nu", nu)):
+            if sd[key].shape != param.shape:
+                raise KeyError(f"Adam {what} {key}: {tuple(sd[key].shape)} "
+                               f"!= {tuple(param.shape)}")
+        # torch.optim.Adam's own state layout: a float32 step on the
+        # parameter's device for the fused kernel, on the CPU otherwise
+        opt.state[param] = {
+            "step": torch.tensor(count, dtype=torch.float32,
+                                 device=param.device if fused else "cpu"),
+            "exp_avg": mu[key].to(param.device),
+            "exp_avg_sq": nu[key].to(param.device)}
+    scheduled.count = int(np.asarray(sched.count))
+
+
+def _vision_named(vision_model) -> dict:
+    return {f"field.{k}": p for k, p in vision_model.field.named_parameters()}
+
+
+def _vision_moments(tree) -> dict:
+    return _prefixed("field.", tree_to_state_dict(tree["params"],
+                                                  scopes=_VISION_SCOPE))
+
+
+def joint_adam_groups(pipeline) -> dict:
+    """{group: (its parameters by torch key, moments)} of a JointPipeline's
+    four groups; moments(tree) maps the group's optax mu (or nu) tree to a
+    state dict of the same keys."""
+    vm = pipeline.vision_model
+
+    def proposal_moments(tree):
+        return {f"{i}.{k}": v for i in range(len(vm.proposal_networks))
+                for k, v in tree_to_state_dict(
+                    tree[f"level_{i}"]["params"], scopes=_VISION_SCOPE).items()}
+
+    def camera_moments(arr):
+        return {"camera_opt": torch.from_numpy(np.array(arr, np.float32))}
+
+    def audio_moments(tree):
+        audio = tree["audio"]
+        return {**_prefixed("audio.", field_state_dict(audio["field"])),
+                **_prefixed("resnet.", tree_to_state_dict(audio["resnet"])),
+                **_vision_moments(tree["vision_fields"])}
+
+    return {
+        "proposal_networks": ({
+            f"{i}.{k}": p for i, prop in enumerate(vm.proposal_networks)
+            for k, p in prop.named_parameters()}, proposal_moments),
+        "fields": (_vision_named(vm), _vision_moments),
+        "camera_opt": ({"camera_opt": vm.camera_opt}, camera_moments),
+        "audio_fields": ({
+            **_prefixed("audio.",
+                        dict(pipeline.audio_model.field.named_parameters())),
+            **_prefixed("resnet.", dict(pipeline.resnet.named_parameters())),
+            **_vision_named(vm)}, audio_moments),
+    }
+
+
+def load_joint_adam(pipeline, opt_states: dict) -> None:
+    """The four groups' Adam states from JointTrainState.opt_states."""
+    for name, (named, moments) in joint_adam_groups(pipeline).items():
+        load_adam_state(pipeline.optimizers[name], named, opt_states[name],
+                        moments)
+
+
 def load_joint_state(pipeline, state) -> None:
     """Fill a JointPipeline from a JAX JointTrainState (or anything with its
-    params, batch_stats, grid, cursor and step): every weight in place (the
-    optimizers keep their parameters and moments), the BatchNorm running
-    statistics, the grid (the pipeline refolds its grid_folded from it; the
-    JAX state's own folded copy is the same values and is not read), the
-    cursor and the step."""
+    params, batch_stats, opt_states, grid, cursor and step): every weight
+    in place, the four groups' Adam moments, counts and schedule counts,
+    the BatchNorm running statistics, the grid (the pipeline refolds its
+    grid_folded from it; the JAX state's own folded copy is the same
+    values and is not read), the cursor and the step."""
     load_vision_params(pipeline.vision_model, state.params)
     load_render_params(pipeline.resnet, pipeline.audio_model.field,
                        state.params, state.batch_stats)
+    load_joint_adam(pipeline, state.opt_states)
     pipeline.grid = torch.as_tensor(np.array(state.grid, dtype=np.float32),
                                     device=pipeline.device)
     pipeline.cursor, pipeline.step = int(state.cursor), int(state.step)
+
+
+def load_audio_state(engine, state) -> None:
+    """Fill an AudioEngine from a JAX AudioTrainState
+    (neraf_tpu/engine/audio_engine.py:34): the field's weights, its Adam
+    state (the engine's one `audio_fields` group) and the step."""
+    field = engine.model.field
+    load_state_dict(field, field_state_dict(state.params))
+    load_adam_state(engine.optimizers["audio_fields"],
+                    dict(field.named_parameters()), state.opt_state,
+                    field_state_dict)
+    engine.step = int(state.step)

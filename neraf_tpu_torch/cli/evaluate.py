@@ -9,8 +9,10 @@ Loads the run's config.yml (the JAX CLI's too) and the latest checkpoint
 under <run dir>/neraf_models (or --load-dir), then evaluates: the vision
 eval views and every eval RIR with the host estimators for a joint run,
 the audio engine's sweep for an --audio-only run. The results JSON holds
-{"experiment_name", "method_name", "results"}. LPIPS is reported as
-skipped (no weights; ROADMAP.md queue 1 item 8).
+{"experiment_name", "method_name", "results"}. A joint run's LPIPS uses
+the converted weights that resolve (NERAF_LPIPS_WEIGHTS, then
+~/.cache/neraf/lpips_{alex,vgg}.npz; metrics/lpips_impl.py), else it is
+null with the skip reason; the CLI prints which before the sweep.
 
 With AVN_RENDER_POSES set, the trajectory's poses (data/dataparsers.py,
 split "inference") are rendered and each predicted log-STFT written as
@@ -35,6 +37,7 @@ from neraf_tpu_torch.engine.audio_engine import AudioEngine
 from neraf_tpu_torch.engine.checkpoints import latest_checkpoint, restore_checkpoint
 from neraf_tpu_torch.engine.factory import build_pipeline, load_audio_split
 from neraf_tpu_torch.engine.trainer import Trainer
+from neraf_tpu_torch.metrics.lpips_impl import resolve_default_weights
 from neraf_tpu_torch.models.audio import AudioModel
 from neraf_tpu_torch.utils.png import quantize_rgb, write_png
 
@@ -94,8 +97,15 @@ def main(argv=None, device="cuda") -> dict:
     if not cfg.audio_model.use_grid:
         return _eval_audio_only(cfg, run_dir, args, device)
 
-    print("lpips: SKIPPED — LPIPS is not ported (ROADMAP.md queue 1 item 8); "
-          "the results' lpips is null", flush=True)
+    # the LPIPS status up front, as the JAX CLI prints it
+    lpips_path = resolve_default_weights()
+    if lpips_path is None:
+        print("lpips: SKIPPED — no pretrained weights resolved; convert once "
+              "with metrics.lpips_impl.params_from_torch_state_dicts (see "
+              "README 'LPIPS weights') and set NERAF_LPIPS_WEIGHTS or drop "
+              "the .npz under ~/.cache/neraf/", flush=True)
+    else:
+        print(f"lpips: using weights {lpips_path}", flush=True)
     bundle = build_pipeline(cfg, device=device)
     pipe = bundle.pipeline
     restore_latest(args, run_dir, pipe)

@@ -16,9 +16,15 @@ pipeline while it trains (0 binds a free port; the bound address is
 printed): requests queue on a TrainThreadDispatcher and run on the
 training thread between steps, pumped at every steps_per_log, and once
 more when training ends; the server stops with the run. As in the JAX
-CLI, an --audio-only run has no viewer. Flags whose part of the system is
-not ported raise NotImplementedError naming the ROADMAP item that ports
-it: --num-devices above 1, and a streaming decision that comes out "on".
+CLI, an --audio-only run has no viewer.
+
+When data/streaming.py::should_stream says so (--streaming on, or "auto"
+on a split above audio_data.stream_threshold_gb), the train split's
+log-STFT stays in host memory and a StreamingAudioSampler (seeded with
+--seed, in audio_data.stream_transfer_dtype) feeds each step and eval
+batch; a resumed run restarts its sequence from the seed, as the JAX CLI
+does. --num-devices above 1 raises NotImplementedError naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import argparse
 import torch
 
 from neraf_tpu_torch.configs.config import apply_overrides, default_config
-from neraf_tpu_torch.data.streaming import should_stream
+from neraf_tpu_torch.data.streaming import StreamingAudioSampler, should_stream
 from neraf_tpu_torch.data.vision_data import camera_arrays
 from neraf_tpu_torch.engine.audio_engine import AudioEngine
 from neraf_tpu_torch.engine.factory import build_pipeline, load_audio_split
@@ -57,8 +63,8 @@ def parse_args(argv=None):
                         "port)")
     p.add_argument("--streaming", default=None, choices=["on", "off", "auto"],
                    help="audio data path: the whole split on the device "
-                        "(off), host-streamed batches (on, not ported), or "
-                        "size-based (auto)")
+                        "(off), host-streamed batches (on), or size-based "
+                        "(auto)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE",
@@ -75,12 +81,16 @@ def refuse_unported(args) -> None:
             "(ROADMAP.md queue 1 item 10)")
 
 
-def refuse_streaming(cfg, split) -> None:
+def audio_source(cfg, split, seed: int, device):
+    """(next_audio, sampler): the split on the device, or a streaming
+    sampler when should_stream says so (stop it when the run ends)."""
     if should_stream(cfg.audio_data, split):
-        raise NotImplementedError(
-            f"audio_data.streaming={cfg.audio_data.streaming!r} streams this "
-            "split, and the streaming sampler is not ported yet (ROADMAP.md "
-            "queue 1 item 7); set --streaming off to hold it on the device")
+        sampler = StreamingAudioSampler(
+            split, cfg.audio_data.batch_size, seed=seed,
+            transfer_dtype=cfg.audio_data.stream_transfer_dtype, device=device)
+        return sampler.next, sampler
+    arrays = split.slice_arrays(device)
+    return (lambda: arrays), None
 
 
 def main(argv=None, device="cuda") -> Trainer:
@@ -104,22 +114,24 @@ def main(argv=None, device="cuda") -> Trainer:
     if args.audio_only:
         audio_train = load_audio_split(cfg, "train")
         audio_eval = load_audio_split(cfg, "test")
-        refuse_streaming(cfg, audio_train)
         engine = AudioEngine(cfg, AudioModel(cfg.audio_model),
                              audio_train.outputs.aabb, device=device)
         trainer = Trainer(config=cfg, pipeline=engine, output_dir=args.run_dir)
         state, _ = trainer.maybe_resume(engine, args.load_dir)
-        arrays = audio_train.slice_arrays(device)
-        trainer.train(
-            state,
-            step_fn=lambda e: (e, e.train_step(arrays)),
-            eval_fns={"eval_audio": lambda e: e.evaluate(audio_eval)},
-            max_steps=args.max_iters,
-        )
+        next_audio, sampler = audio_source(cfg, audio_train, args.seed, device)
+        try:
+            trainer.train(
+                state,
+                step_fn=lambda e: (e, e.train_step(next_audio())),
+                eval_fns={"eval_audio": lambda e: e.evaluate(audio_eval)},
+                max_steps=args.max_iters,
+            )
+        finally:
+            if sampler is not None:
+                sampler.stop()
         return trainer
 
     bundle = build_pipeline(cfg, device=device)
-    refuse_streaming(cfg, bundle.audio_train)
     pipe = bundle.pipeline
     trainer = Trainer(config=cfg, pipeline=pipe, output_dir=args.run_dir)
     state, _ = trainer.maybe_resume(pipe, args.load_dir)
@@ -127,7 +139,8 @@ def main(argv=None, device="cuda") -> Trainer:
     vtrain, veval = bundle.vision_train, bundle.vision_eval
     cam_arrays = camera_arrays(vtrain.cameras, device)
     image_arrays = {"images": torch.as_tensor(vtrain.images, device=device)}
-    audio_arrays = bundle.audio_train.slice_arrays(device)
+    next_audio, sampler = audio_source(cfg, bundle.audio_train, args.seed,
+                                       device)
     eval_cam_arrays = camera_arrays(veval.cameras, device)
     eval_image_arrays = {"images": torch.as_tensor(veval.images, device=device)}
     eval_fns = {
@@ -168,16 +181,18 @@ def main(argv=None, device="cuda") -> Trainer:
     try:
         trainer.train(
             state,
-            step_fn=lambda p: (p, p.train_step(cam_arrays, audio_arrays,
+            step_fn=lambda p: (p, p.train_step(cam_arrays, next_audio(),
                                                image_arrays)),
             eval_fns=eval_fns,
-            eval_batch_fn=lambda p: p.eval_loss_dict(eval_cam_arrays, audio_arrays,
-                                                     eval_image_arrays),
+            eval_batch_fn=lambda p: p.eval_loss_dict(
+                eval_cam_arrays, next_audio(), eval_image_arrays),
             eval_image_fn=eval_image_fn,
             max_steps=args.max_iters,
             on_metrics=on_metrics,
         )
     finally:
+        if sampler is not None:
+            sampler.stop()
         if server is not None:
             server.shutdown()
             server.server_close()

@@ -1,7 +1,8 @@
-"""STFT-slice batches from a device-resident split (counterpart of
-neraf_tpu/data/loader.py:18-48): a batch is B (recording, time bin) pairs
-drawn uniformly over the split, with the poses and the STFT column of each
-gathered on the device. The streaming form waits for the streaming slice.
+"""STFT-slice batches (counterpart of neraf_tpu/data/loader.py): a batch
+is B (recording, time bin) pairs drawn uniformly over the split, with the
+poses and the STFT column of each gathered on the device, from the whole
+split on the device or from a batch that data/streaming.py gathered on the
+host (resolve_audio_batch).
 """
 
 from __future__ import annotations
@@ -44,3 +45,34 @@ def sample_audio_batch(arrays: dict, batch_size: int, max_len: int,
                                   batch_size, generator,
                                   arrays["log_stft"].device)
     return gather_audio_batch(arrays, rec, t)
+
+
+def num_recordings(audio_in: dict) -> int:
+    """N of either input structure: its (N, 3) pose tables."""
+    return audio_in["mic_pose"].shape[0]
+
+
+def resolve_audio_batch(audio_in: dict, rec: torch.Tensor,
+                        t: torch.Tensor) -> dict:
+    """Either input structure -> the batch gather_audio_batch makes:
+    - {"log_stft" (N, C, F, T), poses (N, 3)}: the device-resident split,
+      gathered at (rec, t);
+    - {"data" (B, C, F), "audio_idx", "time_query" (B,), poses (N, 3)}: a
+      streamed batch (data/streaming.py), whose own indices are used and
+      (rec, t) ignored; the poses are gathered on the device and `data`
+      (bfloat16 when streamed so) upcast to float32.
+    A dict with neither "log_stft" nor "data" raises KeyError."""
+    if "log_stft" in audio_in:
+        return gather_audio_batch(audio_in, rec, t)
+    if "data" not in audio_in:
+        raise KeyError(f"an audio input holds 'log_stft' or 'data', not "
+                       f"{sorted(audio_in)}")
+    idx = audio_in["audio_idx"]
+    return {
+        "audio_idx": idx,
+        "data": audio_in["data"].to(torch.float32),
+        "time_query": audio_in["time_query"],
+        "mic_pose": audio_in["mic_pose"][idx],
+        "source_pose": audio_in["source_pose"][idx],
+        "rot": audio_in["rot"][idx],
+    }

@@ -16,7 +16,11 @@ import numpy as np
 import torch
 
 from neraf_tpu_torch.configs.config import ExperimentConfig
-from neraf_tpu_torch.data.loader import gather_audio_batch, sample_audio_indices
+from neraf_tpu_torch.data.loader import (
+    num_recordings,
+    resolve_audio_batch,
+    sample_audio_indices,
+)
 from neraf_tpu_torch.dsp.griffin_lim import random_angles
 from neraf_tpu_torch.dsp.stft import log_to_magnitude
 from neraf_tpu_torch.engine.optimizers import ScheduledAdam
@@ -52,14 +56,16 @@ class AudioEngine:
     def train_step(self, arrays: dict, indices=None) -> dict:
         """One step on a batch of audio_data.batch_size STFT slices of the
         device-resident split `arrays` (data/loader.py::audio_arrays), drawn
-        from the engine's generator, or the (rec, t) `indices` given ->
-        the loss terms and total_loss as device scalars."""
+        from the engine's generator, or the (rec, t) `indices` given; or on
+        a streamed batch (data/streaming.py), whose own (rec, t) are used
+        (the generator still draws, as the resident step's) -> the loss
+        terms and total_loss as device scalars."""
         if indices is None:
             indices = sample_audio_indices(
-                arrays["log_stft"].shape[0], self.model.config.max_len,
+                num_recordings(arrays), self.model.config.max_len,
                 self.config.audio_data.batch_size, self.generator, self.device)
         rec, t = (torch.as_tensor(i, device=self.device) for i in indices)
-        batch = gather_audio_batch(arrays, rec, t)
+        batch = resolve_audio_batch(arrays, rec, t)
         losses = self.model.loss(self.model(batch, self.aabb), batch["data"])
         total = sum(losses.values())
         opt = self.optimizers["audio_fields"]

@@ -164,8 +164,8 @@ def build_joint_pipeline(grid_res: int = 128, tiny: bool = False,
     """A JointPipeline with weights from `seed` (flax's initialisers from a
     CPU torch.Generator, zero camera corrections, an empty grid at cursor
     and step 0), or from a JAX JointTrainState's arrays: params (all four
-    groups), batch_stats, grid, cursor and step (the Adam states start
-    fresh). mixed_precision None keeps the config's default (bf16);
+    groups), batch_stats, the four groups' Adam states, grid, cursor and
+    step (bridge.load_joint_state). mixed_precision None keeps the config's default (bf16);
     encoding is the main field's, "fourier" or "hash". `config` replaces
     joint_config(tiny, encoding) (a configuration with overrides applied)."""
     cfg = joint_config(tiny, encoding) if config is None else copy.deepcopy(config)

@@ -23,17 +23,23 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from neraf_tpu_torch.configs.config import ExperimentConfig
-from neraf_tpu_torch.data.loader import gather_audio_batch, sample_audio_indices
+from neraf_tpu_torch.data.loader import (
+    num_recordings,
+    resolve_audio_batch,
+    sample_audio_indices,
+)
 from neraf_tpu_torch.data.vision_data import generate_rays, sample_pixel_batch
 from neraf_tpu_torch.dsp.griffin_lim import griffin_lim, random_angles
 from neraf_tpu_torch.dsp.stft import log_to_magnitude
 from neraf_tpu_torch.engine.optimizers import ScheduledAdam
+from neraf_tpu_torch.metrics import lpips_impl
 from neraf_tpu_torch.metrics.evaluators import make_evaluator
 from neraf_tpu_torch.metrics.image import psnr, ssim
 from neraf_tpu_torch.metrics.room_acoustics import (
@@ -62,6 +68,29 @@ from neraf_tpu_torch.viz.panels import grid_top_view, stft_comparison_panel
 # the JAX package's explicit LPIPS skip marker (engine/pipeline.py:43-71)
 LPIPS_SKIP_REASON = ("no pretrained LPIPS weights resolved (set "
                      "NERAF_LPIPS_WEIGHTS to a converted .npz)")
+_lpips_warned = False
+
+
+def _maybe_lpips(pred, gt) -> float | None:
+    """LPIPS of one view with the converted weights that resolve
+    (metrics/lpips_impl.py), on pred's device; None when none resolve
+    (warned once, on stderr) or when the image is under the backbone's
+    minimum size: the caller then reports lpips null with
+    LPIPS_SKIP_REASON, as the JAX package's _maybe_lpips."""
+    global _lpips_warned
+    path = lpips_impl.resolve_default_weights()
+    if path is None:
+        if not _lpips_warned:
+            print(f"WARNING: lpips skipped — {LPIPS_SKIP_REASON}",
+                  file=sys.stderr, flush=True)
+            _lpips_warned = True
+        return None
+    pred = torch.as_tensor(pred)
+    params, net = lpips_impl.load_device_params(str(path), str(pred.device))
+    try:
+        return float(lpips_impl.lpips_distance(params, pred, gt, net=net))
+    except ValueError:  # image smaller than the backbone's minimum size
+        return None
 
 
 def synchronize(device: torch.device) -> None:
@@ -177,11 +206,12 @@ class VisionPipeline:
 
     def evaluate_vision(self, cam_arrays: dict, images: np.ndarray,
                         use_average_appearance: bool = True) -> dict:
-        """Every eval image (image i seen by camera i): PSNR, SSIM and the
+        """Every eval image (image i seen by camera i): PSNR, SSIM, the
         render throughput (fps, rays/s, device synchronised before each
-        clock read). LPIPS is reported as skipped: no weights."""
+        clock read) and LPIPS's mean and std, or lpips null and the skip
+        reason when no view has an LPIPS value (_maybe_lpips)."""
         n, H, W = images.shape[:3]
-        psnrs, ssims, times = [], [], []
+        psnrs, ssims, lpipss, times = [], [], [], []
         for i in range(n):
             synchronize(self.device)
             t0 = time.perf_counter()
@@ -192,16 +222,24 @@ class VisionPipeline:
                                  device=self.device)
             psnrs.append(float(psnr(out["rgb"], gt)))
             ssims.append(float(ssim(out["rgb"], gt)))
+            lp = _maybe_lpips(out["rgb"], gt)
+            if lp is not None:
+                lpipss.append(lp)
         dt = float(np.mean(times))
-        return {
+        result = {
             "psnr": float(np.mean(psnrs)),
             "ssim": float(np.mean(ssims)),
             "psnr_std": float(np.std(psnrs)),
             "num_rays_per_sec": H * W / dt,
             "fps": 1.0 / dt,
-            "lpips": None,
-            "lpips_skipped": LPIPS_SKIP_REASON,
         }
+        if lpipss:
+            result["lpips"] = float(np.mean(lpipss))
+            result["lpips_std"] = float(np.std(lpipss))
+        else:
+            result["lpips"] = None
+            result["lpips_skipped"] = LPIPS_SKIP_REASON
+        return result
 
 
 # the random draws of one train step: pixel indices (R,), STFT-slice
@@ -353,17 +391,21 @@ class JointPipeline:
                    image_arrays: dict, draws: dict | None = None) -> dict:
         """One joint step -> metrics (floats): the five losses, total_loss,
         and the learning rates the fields and audio_fields groups used.
-        `draws` holds DRAW_KEYS (numpy or tensors), else they are drawn."""
+        `audio_arrays` is the device-resident split or a streamed batch
+        (data/loader.py::resolve_audio_batch); a streamed batch brings its
+        own (rec, t), and the step still draws, so that its other draws
+        are the resident step's. `draws` holds DRAW_KEYS (numpy or
+        tensors), else they are drawn."""
         tcfg = self.config.trainer
         images = image_arrays["images"]
         if draws is None:
             draws = self.draw(images.shape[0], images.shape[1], images.shape[2],
-                              audio_arrays["log_stft"].shape[0])
+                              num_recordings(audio_arrays))
         d = {k: torch.as_tensor(draws[k], device=self.device) for k in DRAW_KEYS}
         self._mark("start")
         rays = generate_rays(cam_arrays, d["cam"], d["px"], d["py"])
         gt_rgb = images[d["cam"], d["py"], d["px"]]
-        batch = gather_audio_batch(audio_arrays, d["rec"], d["t"])
+        batch = resolve_audio_batch(audio_arrays, d["rec"], d["t"])
         active = self.step > tcfg.start_step_audio
         self.resnet.set_update_stats(active)
 
@@ -486,20 +528,21 @@ class JointPipeline:
                        image_arrays: dict, draws: dict | None = None) -> dict:
         """One eval batch of rays and STFT slices -> the train step's
         losses (the audio ones unmasked) and the quick audio metrics.
-        `draws` holds cam, py, px, rec, t (numpy or tensors), else
-        eval_draws() makes them."""
+        `audio_arrays` as in train_step (a streamed batch's own (rec, t)
+        are used). `draws` holds cam, py, px, rec, t (numpy or tensors),
+        else eval_draws() makes them."""
         images = image_arrays["images"]
         if draws is None:
             draws = self.eval_draws(images.shape[0], images.shape[1],
                                     images.shape[2],
-                                    audio_arrays["log_stft"].shape[0])
+                                    num_recordings(audio_arrays))
         d = {k: torch.as_tensor(draws[k], device=self.device)
              for k in ("cam", "py", "px", "rec", "t")}
         with self._eval_mode():
             rays = generate_rays(cam_arrays, d["cam"], d["px"], d["py"])
             vout = self.vision_model(rays, train=False)
             losses = self.vision_model.loss(vout, images[d["cam"], d["py"], d["px"]])
-            batch = gather_audio_batch(audio_arrays, d["rec"], d["t"])
+            batch = resolve_audio_batch(audio_arrays, d["rec"], d["t"])
             feat = self._grid_feature_eval()
             with self._autocast():
                 aout = self.audio_model(batch, self.audio_aabb,
@@ -531,7 +574,7 @@ class JointPipeline:
     def evaluate_vision(self, cam_arrays: dict, images: np.ndarray,
                         use_average_appearance: bool = True) -> dict:
         """Every eval image (VisionPipeline.evaluate_vision): PSNR, SSIM,
-        throughput, LPIPS reported as skipped. use_average_appearance=False
+        throughput, LPIPS (or its skip). use_average_appearance=False
         renders with each camera's own trained embedding, right where the
         eval views are training views."""
         with self._eval_mode():
@@ -542,7 +585,7 @@ class JointPipeline:
                    gt_image: np.ndarray,
                    eval_audio_item: dict | None = None) -> tuple[dict, dict]:
         """One eval view (and one RIR) -> metrics and images: PSNR, SSIM,
-        the LPIPS skip marker; the rendered rgb, depth and accumulation; for
+        LPIPS or its skip marker; the rendered rgb, depth and accumulation; for
         an audio item (mic_pose, source_pose, rot, data (C, F, T)) a
         comparison panel per channel, the grid's top views and audio_mag."""
         H, W = gt_image.shape[:2]
@@ -550,7 +593,9 @@ class JointPipeline:
         gt = torch.as_tensor(np.asarray(gt_image, np.float32), device=self.device)
         metrics = {"psnr": float(psnr(out["rgb"], gt)),
                    "ssim": float(ssim(out["rgb"], gt)), "num_rays": H * W,
-                   "lpips": None, "lpips_skipped": LPIPS_SKIP_REASON}
+                   "lpips": _maybe_lpips(out["rgb"], gt)}
+        if metrics["lpips"] is None:
+            metrics["lpips_skipped"] = LPIPS_SKIP_REASON
         images = {"img": out["rgb"].cpu().numpy(),
                   "depth": out["depth"].cpu().numpy(),
                   "accumulation": out["accumulation"].cpu().numpy()}

@@ -1,7 +1,7 @@
-"""Image metrics: PSNR and SSIM (counterpart of neraf_tpu/metrics/image.py).
-
-LPIPS needs pretrained weights that no download can bring here; the eval
-reports it as skipped (engine/pipeline.py), as the JAX package does.
+"""Image metrics: PSNR, SSIM and LPIPS (counterpart of
+neraf_tpu/metrics/image.py). LPIPS needs converted pretrained weights
+(metrics/lpips_impl.py); without them it is NaN here, and the eval paths
+report it as skipped (engine/pipeline.py), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -49,3 +49,18 @@ def ssim(pred: torch.Tensor, target: torch.Tensor,
     s = ((2 * mu_p * mu_t + c1) * (2 * cov + c2)) / (
         (mu_p ** 2 + mu_t ** 2 + c1) * (var_p + var_t + c2))
     return torch.mean(s)
+
+
+def lpips(pred, target, weights_path: str | None = None) -> torch.Tensor:
+    """LPIPS of images in [0, 1] (torchmetrics' LPIPS with normalize=True,
+    the reference's) on pred's device, with the weights at `weights_path`,
+    else NERAF_LPIPS_WEIGHTS, else ~/.cache/neraf/lpips_{alex,vgg}.npz;
+    NaN when none resolves, never another metric in its place."""
+    from neraf_tpu_torch.metrics import lpips_impl
+
+    path = weights_path or lpips_impl.resolve_default_weights()
+    pred = torch.as_tensor(pred)
+    if path is None:
+        return torch.tensor(float("nan"))
+    params, net = lpips_impl.load_device_params(str(path), str(pred.device))
+    return lpips_impl.lpips_distance(params, pred, target, net=net)

@@ -23,8 +23,11 @@ package's, on the CPU.
   result keys (the audio-only ones against the JAX CLI's own run, the
   joint ones those of the JAX paths it composes, evaluate_vision and
   evaluate_audio, whose keys tests/test_torch_eval_paths.py holds to
-  JAX's); AVN_RENDER_POSES renders a trajectory's STFTs; flags whose part
-  of the system is not ported raise NotImplementedError; every CLI's flags
+  JAX's); AVN_RENDER_POSES renders a trajectory's STFTs; a streamed run
+  (--streaming on, joint and --audio-only, and "auto" over a threshold of
+  0) trains and writes the resident run's records; --num-devices above 1,
+  whose part of the system is not ported, raises NotImplementedError;
+  every CLI's flags
   and defaults are the JAX CLI's (--viewer-port, ported now, is held by
   tests/test_torch_serving.py).
 """
@@ -390,6 +393,30 @@ def test_joint_evaluate_writes_the_jax_keys(runs):
     assert np.isfinite(results["psnr"]) and results["lpips"] is None
 
 
+def test_joint_evaluate_reports_lpips_with_weights(runs, tmp_path, monkeypatch,
+                                                   capsys):
+    """With NERAF_LPIPS_WEIGHTS at converted weights (random vgg, whose
+    16-pixel minimum the scene's 16 x 16 views meet) cli.evaluate prints
+    the weights it uses and reports lpips and lpips_std, as the JAX CLI
+    does; without, it prints the JAX CLI's skip (the test above holds the
+    null)."""
+    from neraf_tpu_torch.metrics import lpips_impl
+
+    monkeypatch.setattr(lpips_impl, "_DEFAULT_PATHS", ())
+    run = runs["joint"]["base"] / "straight"
+    argv = ["--load-config", str(run / "config.yml")]
+    monkeypatch.delenv("NERAF_LPIPS_WEIGHTS", raising=False)
+    evaluate.main(argv, device="cpu")
+    assert "lpips: SKIPPED" in capsys.readouterr().out
+    path = tmp_path / "lpips_vgg.npz"
+    lpips_impl.save_params_npz(path, lpips_impl.init_params("vgg"), net="vgg")
+    monkeypatch.setenv("NERAF_LPIPS_WEIGHTS", str(path))
+    results = evaluate.main(argv, device="cpu")
+    assert f"lpips: using weights {path}" in capsys.readouterr().out
+    assert set(results) == JOINT_KEYS - {"lpips_skipped"} | {"lpips_std"}
+    assert np.isfinite(results["lpips"]) and results["lpips"] > 0
+
+
 def test_audio_only_cli_matches_the_jax_cli(runs, scene_root, tmp_path):
     """The JAX CLI's own audio-only run: the same config.yml, both packages
     load each other's to an equal config, and cli.evaluate writes the JAX
@@ -432,14 +459,55 @@ def test_inference_mode_renders_the_trajectory(runs, tmp_path, monkeypatch):
                for p in stfts)
 
 
-@pytest.mark.parametrize("extra,sets", [
-    (("--num-devices", "2"), ()),
-    (("--streaming", "on"), ()), (("--audio-only", "--streaming", "on"), ()),
-    ((), ("audio_data.stream_threshold_gb=0",))])
+@pytest.mark.parametrize("extra,sets", [(("--num-devices", "2"), ())])
 def test_unported_flags_raise(scene_root, tmp_path, extra, sets):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         _train(scene_root, tmp_path / "run", 1, *extra, sets=(*EVALS_OFF, *sets))
     assert not (tmp_path / "run" / "neraf_models").exists()
+
+
+@pytest.mark.parametrize("extra,sets", [
+    (("--streaming", "on"), ()), (("--audio-only", "--streaming", "on"), ()),
+    ((), ("audio_data.stream_threshold_gb=0",))])
+def test_streamed_runs_train(scene_root, tmp_path, monkeypatch, extra, sets):
+    """--streaming on (joint and --audio-only) and the "auto" decision
+    above a threshold of 0 train through one StreamingAudioSampler, fed to
+    every step and eval batch and stopped at the end: the run directory
+    and its records are those of the resident run, every value finite."""
+    samplers = []
+
+    class Recorded(train.StreamingAudioSampler):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            samplers.append(self)
+
+    monkeypatch.setattr(train, "StreamingAudioSampler", Recorded)
+    audio_only = tuple(e for e in extra if e == "--audio-only")
+    runs = {}
+    for name, flags, more in (("resident", audio_only, ()),
+                              ("streamed", extra, sets)):
+        runs[name] = tmp_path / name
+        _train(scene_root, runs[name], 2, *flags,
+               sets=(*EVALS_OFF, "trainer.steps_per_eval_batch=1", *more))
+    assert len(samplers) == 1
+    (s,) = samplers
+    assert s._stopped.is_set() and not s._thread.is_alive()
+    assert s.device == torch.device("cpu") and s._dtype == torch.bfloat16
+    assert s.batch_size == 32 and s.max_len == 12
+    records = {}
+    for name, run in runs.items():
+        assert (run / "config.yml").is_file()
+        assert sorted(p.name for p in (run / "neraf_models").iterdir()) == [
+            "step-000000002.pt"]
+        rows = [json.loads(line) for line in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        assert all(np.isfinite(v) for r in rows for k, v in r.items()
+                   if isinstance(v, float) and not k.startswith("audio_EDT"))
+        records[name] = [(r["step"], r["prefix"]) for r in rows]
+    assert records["streamed"] == records["resident"]
+    assert (2, "train") in records["streamed"]
+    if not audio_only:
+        assert (1, "eval_batch") in records["streamed"]
 
 
 def test_cli_entry_points_default_to_the_card():

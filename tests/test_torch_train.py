@@ -71,14 +71,16 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
     """No module of the port, and not chip_smoke.py,
     scripts/validate_joint_torch.py or scripts/validate_audio_torch.py,
     imports jax or the JAX package (neraf_tpu); the port imports neither
-    matplotlib, PIL, torchaudio, yaml, tensorboard nor orbax, which the
-    card's machine lacks; the public builders, pipelines, engines and CLIs
-    run on the card unless asked for the CPU."""
+    matplotlib, PIL, torchaudio, yaml, tensorboard, orbax nor ml_dtypes,
+    which the card's machine lacks; the public builders, pipelines,
+    engines, CLIs and the streaming sampler run on the card unless asked
+    for the CPU."""
     files = sorted((REPO / "neraf_tpu_torch").rglob("*.py")) + [
         REPO / "scripts" / "validate_joint_torch.py",
         REPO / "scripts" / "validate_audio_torch.py", REPO / "chip_smoke.py"]
     refused = ("jax", "jaxlib", "flax", "optax", "neraf_tpu", "matplotlib",
-               "PIL", "torchaudio", "yaml", "tensorboard", "orbax")
+               "PIL", "torchaudio", "yaml", "tensorboard", "orbax",
+               "ml_dtypes")
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -100,9 +102,10 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
             "engine/checkpoints.py", "engine/audio_engine.py",
             "configs/config.py", "configs/yaml_subset.py", "utils/png.py",
             "utils/wav.py", "utils/writer.py", "dsp/resample.py",
-            "data/streaming.py"} <= names
+            "data/streaming.py", "metrics/lpips_impl.py"} <= names
     from neraf_tpu_torch.cli import evaluate as cli_evaluate
     from neraf_tpu_torch.cli import train as cli_train
+    from neraf_tpu_torch.data.streaming import StreamingAudioSampler
     from neraf_tpu_torch.engine.audio_engine import AudioEngine
 
     for fn in (factory.build_render_pipeline, factory.build_vision_pipeline,
@@ -110,7 +113,8 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                pipeline.RenderPipeline, pipeline.VisionPipeline,
                pipeline.JointPipeline, AudioEngine, cli_train.main,
                cli_evaluate.main, vision_data.camera_arrays,
-               loader.audio_arrays, datasets.AudioSliceDataset.slice_arrays):
+               loader.audio_arrays, datasets.AudioSliceDataset.slice_arrays,
+               StreamingAudioSampler):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     for name in ("render_rirs", "eval_loss_dict", "eval_image", "render_image",
                  "evaluate_vision", "query_grid_full", "evaluate_audio",
