@@ -168,7 +168,26 @@ Phases, each fatal on failure:
      on records and launches, one sampler a run on the card and stopped;
      LPIPS (random alex and vgg weights through an .npz) on a 512 x 512
      pair, card against CPU, ms per pair; cli.evaluate on phase 21's run
-     with NERAF_LPIPS_WEIGHTS set, lpips a number.
+     with NERAF_LPIPS_WEIGHTS set, lpips a number;
+ 24. the default dataset, RAF, through the native C++ ingest: the library
+     built with g++ (neraf_tpu_torch/native); a RAF scene written by
+     data/synthetic.py at docs/DATA.md's scale rounded up (2,048 + 256
+     RIRs at 48 kHz of 0.2-1.5 s, the sphere's 12 views of 64 x 64); both
+     splits loaded natively and through the Python path, timed, the arrays
+     held to each other at the CPU tests' bounds, no file falling back;
+     process_scene on 2,048 binaural 44.1 kHz wavs natively and through
+     the Python path on the card, timed, held to each other; cli.train at
+     default_config("RAF", "FurnishedRoom") uncut (resnet50 over 7 x
+     128^3, 513 bins, T 60, mono, 4,096 rays) for 8 steps with phase 21's
+     cadences, records and launch gates (the PE+MLP forward and backward
+     in the step, GL at n_fft 1024 in the eval sweep), the median warm
+     step, then 3 steps of its pipeline on its data under torch.profiler
+     (device busy, idle share) and its peak memory; cli.evaluate on the
+     run with the JAX RAF evaluator's keys, its launches gated;
+ 25. (inside phase 24) the stem's max pool, the port's joint 3^3 pool
+     against the JAX package's default separable layout (three 1-D pools,
+     a yardstick written here) at the stem's output of the folded 128^3
+     state (1, 64, 64^3) in bf16, fwd + bwd timed in turns, values equal.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -823,7 +842,7 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
     print(f"{what} breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}",
         flush=True)
-    kernels, busy, stem_kernels = profile_steps(torch, pipe, cams, audio,
+    kernels, busy, stem_kernels, _ = profile_steps(torch, pipe, cams, audio,
                                                 images, what)
     return {"ms_per_step": ms, "cold_ms": times[0] * 1e3, **counts,
             "peak_gib": peak / 2**30, "parts": parts, "kernels": kernels,
@@ -916,7 +935,7 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
     most device time, and the launches and device ms a step of each of the
     wrappers' device kernels and of the zero fills and fused Adam ->
     ({kernel: {"launches": per step, "ms": per step}}, busy ms a step,
-    the stem's device kernels a step, stem_profile)."""
+    the stem's device kernels a step (stem_profile), host ms a step)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -954,7 +973,7 @@ def profile_steps(torch, pipe, cams, audio, images, what: str,
               for k, v in found.items() if v["launches"]), flush=True)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=15, max_name_column_width=70))
-    return found, busy / n, stem_profile(events, what, n)
+    return found, busy / n, stem_profile(events, what, n), wall / n
 
 
 def stem_timings(torch, pipe) -> dict:
@@ -2714,9 +2733,9 @@ def live_viewer_run(torch, tmp, argv, n_eval, run1, spread) -> dict:
 
 
 def preprocess_check(torch, dev, tmp) -> dict:
-    """process_scene on PRE_WAVS seeded binaural wavs at 44.1 kHz (0.5 s
-    each) on the card, timed, each .npy held to process_rir_wav on the
-    CPU."""
+    """process_scene's Python path (NERAF_NATIVE=0) on PRE_WAVS seeded
+    binaural wavs at 44.1 kHz (0.5 s each) on the card, timed, each .npy
+    held to process_rir_wav on the CPU."""
     from scipy.io import wavfile
 
     from neraf_tpu_torch.data.preprocess import process_rir_wav, process_scene
@@ -2731,7 +2750,8 @@ def preprocess_check(torch, dev, tmp) -> dict:
         wavfile.write(path, 44100, rir.astype(np.float32))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n = process_scene(scene, device=dev)
+    with native_ingest(False):  # the Python path, on the card
+        n = process_scene(scene, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3236,6 +3256,258 @@ def streaming_phase(torch, dev, tmp, cli) -> dict:
     return out
 
 
+# Phase 24: the default dataset, RAF, through the native C++ ingest. The
+# scene is docs/DATA.md's RAF scale rounded up; the loads are held to each
+# other at the CPU tests' bounds (tests/test_torch_native_ingest.py: log
+# STFTs 2e-5 + 1e-5 relative, waveforms 1e-6), the preprocessed
+# spectrograms at phase 22's (1e-4 of each one's peak: float32 on the card,
+# float64 sums natively).
+RAF_TRAIN, RAF_TEST, RAF_SECONDS, RAF_PRE_WAVS = 2048, 256, (0.2, 1.5), 2048
+RAF_LOG_ATOL, RAF_LOG_RTOL, RAF_WAV_ATOL = 2e-5, 1e-5, 1e-6
+RAF_EVAL_KEYS = {f"audio_{k}{s}" for k in (
+    "T60", "total_invalids_T60", "stft_error", "EDT", "C50")
+    for s in ("", "_std")} | {"fps_audio", "num_rays_per_sec_audio"}
+
+
+@contextlib.contextmanager
+def native_ingest(on: bool):
+    """NERAF_NATIVE for the block (0: the Python path), then as it was."""
+    old = os.environ.get("NERAF_NATIVE")
+    os.environ["NERAF_NATIVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("NERAF_NATIVE")
+        else:
+            os.environ["NERAF_NATIVE"] = old
+
+
+def timed(fn):
+    """fn() -> (its result, seconds by the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def raf_loads(scene) -> tuple:
+    """Both RAF splits through the native ingest and the Python path, timed,
+    held to each other; no file falls back -> (the timings and errors, the
+    native train split)."""
+    from neraf_tpu_torch import native
+    from neraf_tpu_torch.data.datasets import load_raf_dataset
+
+    native.reset_fallbacks()
+    out, secs = {}, {}
+    for path, on in (("native", True), ("python", False)):
+        with native_ingest(on):
+            for split in ("train", "test"):
+                out[path, split], secs[path, split] = timed(
+                    lambda: load_raf_dataset(scene, split))
+    errs = {}
+    for split in ("train", "test"):
+        a, b = out["native", split], out["python", split]
+        if a.log_stft.shape != b.log_stft.shape or not np.allclose(
+                a.log_stft, b.log_stft, rtol=RAF_LOG_RTOL, atol=RAF_LOG_ATOL):
+            fail(f"raf load {split}: native and Python log STFTs differ, max "
+                 f"{np.abs(a.log_stft - b.log_stft).max()}")
+        errs[split] = float(np.abs(a.log_stft - b.log_stft).max())
+        if split == "test":
+            wav_err = float(np.abs(a.waveforms - b.waveforms).max())
+            if a.waveforms.shape != b.waveforms.shape or not wav_err <= RAF_WAV_ATOL:
+                fail(f"raf load test: waveforms differ by {wav_err}")
+    if native.fallbacks():
+        fail(f"raf load: {native.fallbacks()} files fell back to Python")
+    res = {"seconds": {f"{p}_{s}": v for (p, s), v in secs.items()},
+           "max_abs_log_err": errs, "max_abs_wav_err": wav_err,
+           "fallbacks": native.fallbacks(),
+           "shapes": {s: list(out["native", s].log_stft.shape)
+                      for s in ("train", "test")}}
+    print(f"raf load: {json.dumps(res)}", flush=True)
+    return res, out["native", "train"]
+
+
+def raf_preprocess(torch, dev, tmp) -> dict:
+    """process_scene on RAF_PRE_WAVS seeded binaural 44.1 kHz wavs (0.5 s),
+    natively and through the Python path on the card, timed, each
+    spectrogram held to the other's."""
+    from scipy.io import wavfile
+
+    from neraf_tpu_torch.data.preprocess import process_scene
+
+    scene = tmp / "raf_pre_scene"
+    rng = np.random.default_rng(1)
+    t = np.arange(int(0.5 * 44100)) / 44100
+    for i in range(RAF_PRE_WAVS):
+        path = scene / "binaural_rirs" / str(90 * (i % 4)) / f"{i}_{i + 1}.wav"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        rir = 0.3 * rng.standard_normal((t.shape[0], 2)) * np.exp(-8 * t)[:, None]
+        wavfile.write(path, 44100, rir.astype(np.float32))
+    secs = {}
+    for path, on, out in (("native", True, "mags_native"),
+                          ("card", False, "mags_card")):
+        with native_ingest(on):
+            torch.cuda.synchronize()
+            n, secs[path] = timed(lambda: process_scene(
+                scene, out_dir=out, device=dev))
+            torch.cuda.synchronize()
+        if n != RAF_PRE_WAVS:
+            fail(f"raf process_scene {path}: {n} files")
+    worst = 0.0
+    for got in sorted((scene / "mags_native").rglob("*.npy")):
+        a = np.load(got)
+        b = np.load(scene / "mags_card" / got.relative_to(scene / "mags_native"))
+        if a.shape != b.shape:
+            fail(f"raf process_scene {got.name}: {a.shape} vs {b.shape}")
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    res = {"seconds": secs, "n": RAF_PRE_WAVS, "max_rel_err": worst}
+    print(f"raf process_scene: {RAF_PRE_WAVS} wavs (0.5 s, 2 channels, 44.1 "
+          f"kHz): native {secs['native']:.3f} s, Python path on the card "
+          f"{secs['card']:.3f} s; max err {worst:.3e} of each spectrogram's "
+          f"peak (tol {PRE_REL_TOL})", flush=True)
+    if not worst <= PRE_REL_TOL:
+        fail(f"raf process_scene: native vs card {worst}")
+    return res
+
+
+def raf_phase(torch, dev, tmp) -> dict:
+    """Phase 24 (module docstring)."""
+    from neraf_tpu_torch import native
+    from neraf_tpu_torch.cli import evaluate as cli_evaluate
+    from neraf_tpu_torch.cli import train as cli_train
+    from neraf_tpu_torch.configs.config import default_config
+    from neraf_tpu_torch.data.synthetic import write_raf_scene, write_vision_scene
+    from neraf_tpu_torch.data.vision_data import camera_arrays, load_transforms
+
+    res = {}
+    _, res["build_s"] = timed(native.load)
+    if not native.available():
+        fail("native ingest: not available")
+    print(f"native ingest: {native.library_path()} built/loaded in "
+          f"{res['build_s']:.2f} s", flush=True)
+    root = tmp / "raf"
+    scene, res["scene_s"] = timed(lambda: write_raf_scene(
+        root, RAF_TRAIN, RAF_TEST, scene="FurnishedRoom", seconds=RAF_SECONDS))
+    write_vision_scene(scene, n_views=12, size=64)
+    mb = sum(p.stat().st_size for p in scene.rglob("*.wav")) / 2**20
+    print(f"raf: scene written in {res['scene_s']:.2f} s ({RAF_TRAIN} + "
+          f"{RAF_TEST} RIRs of {RAF_SECONDS} s at 48 kHz, {mb:.1f} MiB of "
+          f"wavs; 12 views of 64 x 64)", flush=True)
+    res["load"], train_split = raf_loads(scene)
+    res["preprocess"] = raf_preprocess(torch, dev, tmp)
+
+    cfg = default_config("RAF", "FurnishedRoom")
+    vcfg = cfg.vision_data
+    vtrain, veval = (load_transforms(scene, s, eval_mode=vcfg.eval_mode,
+                                     train_split_fraction=vcfg.train_split_fraction)
+                     for s in ("train", "eval"))
+    n_eval = len(veval.cameras)
+    argv = ["--dataset", "RAF", "--scene", "FurnishedRoom", "--data-root",
+            str(root), "--max-iters", str(CLI_STEPS)]
+    for item in CLI_SET:
+        argv += ["--set", item]
+    run = tmp / "raf_run"
+    gl_sweep = -(-RAF_TEST // 512)
+    want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
+            "pe_bwd": 4 * CLI_STEPS, "gl": gl_sweep}
+    torch.cuda.reset_peak_memory_stats()
+    trainer, counts_train, wall = counted(
+        torch, "raf cli train", lambda: cli_train.main(
+            argv + ["--run-dir", str(run)]), want)
+    peak = torch.cuda.max_memory_allocated()
+    records = [json.loads(line) for line in
+               (run / "metrics.jsonl").read_text().splitlines()]
+    ckpts = sorted(p.name for p in (run / "neraf_models").iterdir())
+    if {(r["step"], r["prefix"]) for r in records} != CLI_RECORDS or \
+            len(records) != len(CLI_RECORDS) or not all(
+                map(finite_record, records)) or ckpts != [
+                "step-000000004.pt", "step-000000008.pt"]:
+        fail(f"raf cli train: records {records}, checkpoints {ckpts}")
+    pipe = trainer.pipeline
+    acfg = pipe.config.audio_model
+    if (acfg.n_freq_stft, acfg.max_len, acfg.mic_ch, pipe.resnet.backbone,
+            pipe.grid_res, pipe.config.vision_data.train_rays_per_batch) != (
+            513, 60, 1, "resnet50", 128, 4096):
+        fail(f"raf cli train: not the default RAF configuration: {acfg}")
+    steps_ms = [dt * 1e3 for _, what, dt in trainer.timings if what == "step"]
+    cams = camera_arrays(vtrain.cameras, dev)
+    audio = train_split.slice_arrays(dev)
+    images = {"images": torch.from_numpy(vtrain.images).to(dev)}
+    # 3 more steps under the profiler on the run's pipeline and data
+    _, busy, _, prof_ms = profile_steps(torch, pipe, cams, audio, images,
+                                        "raf joint step")
+    res["train"] = {
+        "wall_s": wall, "cold_step_ms": steps_ms[0],
+        "warm_step_ms_median": float(np.median(steps_ms[1:])),
+        "warm_step_ms": steps_ms[1:], "busy_ms_per_step": busy,
+        "profiled_ms_per_step": prof_ms, "idle_share": 1 - busy / prof_ms,
+        "peak_gib": peak / 2**30, "launches": counts_train,
+        "eval_ms": {w: [dt * 1e3 for _, k, dt in trainer.timings if k == w]
+                    for w in {k for _, k, _ in trainer.timings} - {"step"}},
+        "n_eval_views": n_eval}
+    print(f"raf cli train (default RAF config: {pipe.resnet.backbone} over "
+          f"7 x 128^3, 513 bins, T 60, mono, 4096 rays): "
+          f"{json.dumps(res['train'])}", flush=True)
+    res["pools"] = pool_layouts(torch, dev)
+    del trainer, pipe, cams, audio, images
+    torch.cuda.empty_cache()
+
+    out_json = tmp / "raf_results.json"
+    _, counts_eval, ewall = counted(
+        torch, "raf cli evaluate", lambda: cli_evaluate.main(
+            ["--load-config", str(run / "config.yml"),
+             "--output-path", str(out_json)]),
+        {"pe_fwd": 3 * n_eval, "gl": 2 * gl_sweep})
+    saved = json.loads(out_json.read_text())
+    if set(saved["results"]) != RAF_EVAL_KEYS | VISION_EVAL_KEYS or \
+            not finite_record(saved["results"]):
+        fail(f"raf cli evaluate: results {saved}")
+    res["evaluate"] = {"wall_s": ewall, "results": saved["results"],
+                       "launches": counts_eval}
+    print(f"raf cli evaluate: {ewall:.2f} s; {json.dumps(saved)}", flush=True)
+    res["launches"] = {"raf_train": counts_train, "raf_evaluate": counts_eval}
+    return res
+
+
+# The stem's max pool: the port's joint 3^3 pool against the JAX package's
+# default layout, three 1-D pools (pool_impl="separable", written here as a
+# yardstick: the port has the joint pool only), at the stem's output of the
+# folded 128^3 state. The values are equal (a max over a box factorises).
+POOL_SHAPE = (1, 64, 64, 64, 64)
+
+
+def separable_max_pool(torch, x):
+    """The JAX ResNet3D's pool_impl="separable" (its resnet3d.py:265-279)."""
+    F = torch.nn.functional
+    x = F.max_pool3d(x, (3, 1, 1), (2, 1, 1), (1, 0, 0))
+    x = F.max_pool3d(x, (1, 3, 1), (1, 2, 1), (0, 1, 0))
+    return F.max_pool3d(x, (1, 1, 3), (1, 1, 2), (0, 0, 1))
+
+
+def pool_layouts(torch, dev, rounds: int = 7) -> dict:
+    """Phase 25: the two max pools, fwd + bwd in bf16, 20 calls a timing,
+    in turns (the first 2 rounds warm-up); the values held equal."""
+    F = torch.nn.functional
+    x = torch.randn(POOL_SHAPE, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    g = torch.randn((1, 64, 32, 32, 32), device=dev, dtype=torch.bfloat16)
+    pools = {"joint": lambda: F.max_pool3d(x, 3, 2, 1),
+             "separable": lambda: separable_max_pool(torch, x)}
+    if not torch.equal(pools["joint"](), pools["separable"]()):
+        fail("pool layouts: the joint and separable pools differ in value")
+    times = {k: [] for k in pools}
+    for _ in range(rounds):
+        for k, pool in pools.items():
+            times[k].append(cuda_ms(torch, lambda: pool().backward(g), 20))
+    med = {k: float(np.median(v[2:])) for k, v in times.items()}
+    res = {"ms_fwd_bwd_median": med,
+           "ms_fwd_bwd": {k: v[2:] for k, v in times.items()},
+           "faster": min(med, key=med.get)}
+    print(f"pool layouts ({POOL_SHAPE} bf16, fwd + bwd, ms in turns): "
+          f"{json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3618,6 +3890,13 @@ def main() -> int:
             "launches"]
         print(f"phase 23: {time.perf_counter() - t0:.2f} s; the run so far "
               f"{time.perf_counter() - t_start:.2f} s", flush=True)
+        print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+              f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        t0 = time.perf_counter()
+        raf = raf_phase(torch, dev, tmp)
+        cli["launches"].update(raf["launches"])
+        print(f"phases 24-25: {time.perf_counter() - t0:.2f} s; the run so "
+              f"far {time.perf_counter() - t_start:.2f} s", flush=True)
         print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
               f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     finally:

@@ -78,7 +78,7 @@ def refuse_unported(args) -> None:
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
             "--num-devices > 1: multi-device training is not ported yet "
-            "(ROADMAP.md queue 1 item 10)")
+            "(ROADMAP.md queue 1 item 1: parallel/sharding.py)")
 
 
 def audio_source(cfg, split, seed: int, device):

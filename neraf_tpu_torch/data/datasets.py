@@ -2,8 +2,10 @@
 neraf_tpu/data/datasets.py): poses, every recording's full log-magnitude
 STFT (N, C, F, max_len) and the eval waveforms, in host memory;
 `slice_arrays` puts the sampler's arrays on a device. The loaders read a
-RAF or a SoundSpaces scene from disk (the JAX loaders' Python path; their
-optional native C++ ingest gives the same arrays and is not ported).
+RAF or a SoundSpaces scene from disk, through the native C++ ingest
+(native/, as the JAX loaders do) unless NERAF_NATIVE=0, else through the
+Python path (utils/wav.py, dsp/stft.py, dsp/resample.py on the host); the
+two give the same arrays to float rounding.
 
 Per index, as the reference: a column t < n_frames is log(|X[:, :, t]| +
 1e-3), a column past the recording's frames log(min |X| + 1e-3); an eval
@@ -18,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from neraf_tpu_torch import native
 from neraf_tpu_torch.data.dataparsers import (
     AudioParserOutputs,
     parse_raf,
@@ -74,6 +77,73 @@ def _fit_waveform(wav: np.ndarray, max_len_time: int) -> np.ndarray:
     return np.pad(wav, ((0, 0), (0, max_len_time - wav.shape[1])), "constant")
 
 
+def _raf_python(path: Path, max_len_time: int, stft: tuple, max_len: int):
+    """One RAF wav through the Python path -> (log STFT (1, F, max_len),
+    waveform (1, n) cut to max_len_time). The STFT runs in float64, as the
+    native library's FFT does, so the two paths differ by the magnitudes'
+    float32 rounding only (in float32 the smallest bins, which set the
+    min-padding log(min + 1e-3), move by ~1e-7: 1e-4 in the log)."""
+    sr, wav = read_wav(path)
+    if sr != 48000:
+        raise ValueError("Loaded sample rate should be 48kHz")
+    if wav.ndim > 1:
+        wav = wav[:, 0]
+    wav = wav[:max_len_time]
+    n_fft, win_length, hop_len = stft
+    mag = stft_magnitude(torch.from_numpy(wav.astype(np.float64)),
+                         n_fft=n_fft, hop_length=hop_len,
+                         win_length=win_length).numpy()[None]
+    return _pack_log_stft(mag.astype(np.float32), max_len), wav[None]
+
+
+def _raf_native(paths: list, max_len_time: int, stft: tuple, max_len: int,
+                with_waveforms: bool) -> dict:
+    """The RAF wavs the native library takes, through process_rir_batch (no
+    clip, first channel, cut to max_len_time) -> {index: (log STFT,
+    waveform or None)}; a wav whose header it refuses or whose samples it
+    cannot decode is counted (native.fallbacks()) and left to the Python
+    path."""
+    infos = {}
+    for i, p in enumerate(paths):
+        try:
+            infos[i] = native.wav_info(p)
+        except IOError as e:
+            native.count_fallback(p, e)
+    if any(sr != 48000 for sr, _, _ in infos.values()):
+        raise ValueError("Loaded sample rate should be 48kHz")
+    good = sorted(infos)
+    if not good:
+        return {}
+    n_fft, win_length, hop_len = stft
+    try:
+        mags, chans = native.process_rir_batch(
+            [paths[i] for i in good], target_fs=0, n_fft=n_fft, hop=hop_len,
+            win=win_length, max_samples=max_len_time, max_channels=1,
+            n_frames=max_len + 1, clip=False)
+    except native.BatchError as e:
+        mags, chans = e.mags, e.channels
+    out = {}
+    for mag, c, i in zip(mags, chans, good):
+        if c == 0:
+            native.count_fallback(paths[i], IOError("samples not decoded"))
+            continue
+        frames = infos[i][1]
+        log = _pack_log_stft(mag[:, :, :1 + min(frames, max_len_time) // hop_len],
+                             max_len)
+        wav = None
+        if with_waveforms:
+            try:
+                _, wav = native.read_wav(paths[i])
+            except IOError as e:
+                native.count_fallback(paths[i], e)
+                continue
+            if wav.ndim > 1:
+                wav = wav[:, 0]
+            wav = wav[None, :max_len_time]
+        out[i] = (log, wav)
+    return out
+
+
 def load_raf_dataset(
     data_dir: str | Path,
     split: str = "train",
@@ -84,31 +154,29 @@ def load_raf_dataset(
     Eval splits keep the waveforms."""
     data_dir = Path(data_dir)
     if fs == 48000:
-        n_fft, win_length, hop_len = 1024, 512, 256
+        stft = (1024, 512, 256)
     elif fs == 16000:
-        n_fft, win_length, hop_len = 512, 256, 128
+        stft = (512, 256, 128)
     else:
         raise ValueError("Sample rate not supported")
+    n_fft, _, hop_len = stft
 
     outputs = parse_raf(data_dir, split)
     max_len_time = int(0.32 * fs)
     max_len = max_len_time // hop_len
     with_waveforms = split != "train"
 
+    paths = [data_dir / "data" / str(n) / "rir.wav"
+             for n in outputs.audio_filenames]
+    done = (_raf_native(paths, max_len_time, stft, max_len, with_waveforms)
+            if paths and native.available() else {})
     logs, wavs = [], []
-    for name in outputs.audio_filenames:
-        sr, wav = read_wav(data_dir / "data" / str(name) / "rir.wav")
-        if sr != 48000:
-            raise ValueError("Loaded sample rate should be 48kHz")
-        if wav.ndim > 1:
-            wav = wav[:, 0]
-        wav = wav[:max_len_time]
-        mag = stft_magnitude(torch.from_numpy(np.ascontiguousarray(wav)),
-                             n_fft=n_fft, hop_length=hop_len,
-                             win_length=win_length).numpy()[None]
-        logs.append(_pack_log_stft(mag, max_len))
+    for i, path in enumerate(paths):
+        log, wav = done[i] if i in done else _raf_python(
+            path, max_len_time, stft, max_len)
+        logs.append(log)
         if with_waveforms:
-            wavs.append(_fit_waveform(wav[None], max_len_time))
+            wavs.append(_fit_waveform(wav, max_len_time))
 
     return AudioSliceDataset(
         outputs=outputs,
@@ -129,12 +197,13 @@ def load_soundspaces_dataset(
 ) -> AudioSliceDataset:
     """A SoundSpaces split from its precomputed magnitude .npy files. Eval
     splits keep the GT waveforms: the 44.1 kHz wavs clipped to [-1, 1],
-    resampled to fs (dsp/resample.py's Kaiser filter) and cut or
-    zero-padded to max_len * hop_len samples."""
+    resampled to fs (the Kaiser filter of dsp/resample.py, or its native
+    twin) and cut or zero-padded to max_len * hop_len samples."""
     data_dir = Path(data_dir)
     outputs = parse_soundspaces(data_dir, split)
     max_len_time = max_len * hop_len
     with_waveforms = split != "train"
+    use_native = with_waveforms and fs != 44100 and native.available()
 
     logs, wavs = [], []
     for name in outputs.audio_filenames:
@@ -145,7 +214,9 @@ def load_soundspaces_dataset(
             wav = np.clip(wav, -1.0, 1.0).T  # (C, T)
             if wav.shape[1] == 0:
                 wav = np.zeros((2, int(fs * 0.5)), np.float32)
-            if fs != 44100:
+            if use_native:
+                wav = native.resample_poly(wav, fs, 44100)
+            elif fs != 44100:
                 wav = resample_poly(np.ascontiguousarray(wav, np.float32),
                                     fs, 44100).numpy()
             wavs.append(_fit_waveform(wav, max_len_time))

@@ -6,10 +6,11 @@ The reference's data/SoundSpaces/process_audio.ipynb: binaural RIR wav ->
 clip to [-1, 1] -> resample 44.1 kHz -> 22.05 kHz -> Spectrogram(n_fft=512,
 hop=128, power=None) -> abs -> one .npy per "{rot}/{rx}_{tx}" (the NAF
 layout). Waveforms are front-padded by n_fft / 2 zeros and extended to at
-least 4410 samples before the STFT, as the notebook does. The resampler
-and the STFT are the port's (dsp/resample.py, dsp/stft.py) and run on the
-card unless device="cpu" is given. The JAX package's native C++ batch
-ingest (neraf_tpu/native) has no counterpart here: this is its Python path.
+least 4410 samples before the STFT, as the notebook does. process_scene
+runs the whole batch through the native C++ ingest (native/, a host thread
+pool) as the JAX package does, unless NERAF_NATIVE=0; its Python path,
+process_rir_wav, runs the port's resampler and STFT (dsp/resample.py,
+dsp/stft.py) on the card unless device="cpu" is given.
 
 generate_vision rebuilds data/SoundSpaces/generate_vision.ipynb: the pose
 pickles, the Habitat-pose -> nerfstudio camera conversion, the intrinsics
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pickle
 from pathlib import Path
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neraf_tpu_torch import native
 from neraf_tpu_torch.dsp.resample import resample_poly
 from neraf_tpu_torch.dsp.stft import stft_magnitude
 from neraf_tpu_torch.utils.png import write_png
@@ -65,16 +68,38 @@ def process_scene(scene_dir: Path, in_dir: str = "binaural_rirs",
                   out_dir: str = "binaural_magnitudes_sr22050",
                   device="cuda") -> int:
     """Every wav under scene_dir/in_dir -> its .npy under scene_dir/out_dir
-    (the same relative path) -> how many."""
+    (the same relative path) -> how many. Natively in one batch unless
+    NERAF_NATIVE=0, else one process_rir_wav each on `device`."""
     scene_dir = Path(scene_dir)
     src_root = scene_dir / in_dir
     dst_root = scene_dir / out_dir
     paths = sorted(src_root.rglob("*.wav"))
-    for wav_path in paths:
+    if paths and native.available():
+        mags = _process_native(paths)
+    else:
+        mags = (process_rir_wav(p, device=device) for p in paths)
+    for wav_path, mag in zip(paths, mags):
         dst = dst_root / wav_path.relative_to(src_root).with_suffix(".npy")
         dst.parent.mkdir(parents=True, exist_ok=True)
-        np.save(dst, process_rir_wav(wav_path, device=device))
+        np.save(dst, mag)
     return len(paths)
+
+
+def _process_native(paths: list) -> list:
+    """process_rir_wav of each path through native.process_rir_batch: the
+    frames each file's own resampled, padded length gives, its channels."""
+    t_each = []
+    for p in paths:
+        sr, frames, _ = native.wav_info(p)
+        g = math.gcd(TARGET_FS, sr)
+        res_len = -(-frames * (TARGET_FS // g) // (sr // g))
+        t_each.append(1 + max(res_len + N_FFT // 2, MIN_SAMPLES) // HOP)
+    mags, chans = native.process_rir_batch(
+        paths, target_fs=TARGET_FS, n_fft=N_FFT, hop=HOP, win=N_FFT,
+        front_pad=N_FFT // 2, min_samples=MIN_SAMPLES, max_channels=2,
+        n_frames=max(t_each))
+    return [np.ascontiguousarray(m[:c, :, :t])
+            for m, c, t in zip(mags, chans, t_each)]
 
 
 # Habitat right-up-back camera coords -> left-up-back world coords: the

@@ -12,7 +12,10 @@ waveforms and images as the reference's builders.
 
 write_soundspaces_scene and write_vision_scene put the two on disk in the
 layouts the data layer reads (data/dataparsers.py, data/vision_data.py), so
-that a run of the CLI reads a scene from disk without any download.
+that a run of the CLI reads a scene from disk without any download;
+write_raf_scene writes the default dataset's layout (RAF: 48 kHz mono RIR
+wavs with their pose files), the counterpart of tests/fixtures.py's
+make_raf_scene at any size.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from scipy.io import wavfile
 
 from neraf_tpu_torch.data.dataparsers import AudioParserOutputs
 from neraf_tpu_torch.data.datasets import AudioSliceDataset
@@ -108,6 +112,54 @@ def write_soundspaces_scene(root: str | Path, n_train: int, n_test: int,
                 mag.astype(np.float32))
         wav44 = resample_poly(torch.from_numpy(wav), 2, 1).numpy()
         write_wav(base / "binaural_rirs" / f"{name}.wav", 44100, wav44.T)
+    return base
+
+
+def write_raf_scene(root: str | Path, n_train: int, n_test: int,
+                    scene: str = "FurnishedRoom", fs: int = 48000,
+                    seconds: tuple = (0.2, 1.5), sample_format: str = "int16",
+                    seed: int = 0) -> Path:
+    """n_train + n_test synthetic RIRs as a RAF scene root/scene (docs/DATA.md):
+    metadata/data-split.json ({"train": [[names]], "validation": [[names]],
+    "test": [[names]]}, the test names also the validation split) and
+    data/<name>/{rir.wav, rx_pos.txt, tx_pos.txt}: a mic xyz, and the
+    source as a yaw quaternion (xyzw) about y and its xyz. Each RIR lasts a
+    uniform draw from `seconds` (RAF's loader cuts at 0.32 s) and is
+    decaying noise with rt60 0.2 + 0.08 d, a direct-path delay and 1 / (1 +
+    d) attenuation for a mic at distance d; mono, written as int16 or
+    float32 (`sample_format`) -> the scene directory."""
+    if sample_format not in ("int16", "float32"):
+        raise ValueError(f"sample_format {sample_format!r}: int16 or float32")
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    base = Path(root) / scene
+    (base / "metadata").mkdir(parents=True, exist_ok=True)
+    names = [f"{i:06d}" for i in range(n)]
+    with open(base / "metadata" / "data-split.json", "w") as f:
+        json.dump({"train": [names[:n_train]], "validation": [names[n_train:]],
+                   "test": [names[n_train:]]}, f)
+    mics = rng.uniform((-2.5, 0.5, -2.5), (2.5, 2.0, 2.5), (n, 3))
+    srcs = rng.uniform((-2.0, 0.8, -2.0), (2.0, 1.6, 2.0), (n, 3))
+    yaws = np.deg2rad(rng.integers(0, 4, n) * 90.0)
+    lengths = (rng.uniform(*seconds, n) * fs).astype(np.int64)
+    for i, name in enumerate(names):
+        d = np.linalg.norm(mics[i] - srcs[i])
+        tau = (0.2 + 0.08 * d) / np.log(1000.0)
+        t = np.arange(lengths[i]) / fs
+        delay = d / 343.0
+        env = np.where(t >= delay, np.exp(-(t - delay) / tau), 0.0)
+        h = np.clip(rng.standard_normal(lengths[i]) * env / (1.0 + d),
+                    -1.0, 1.0)
+        h = ((h * 32767).astype(np.int16) if sample_format == "int16"
+             else h.astype(np.float32))
+        rec = base / "data" / name
+        rec.mkdir(parents=True, exist_ok=True)
+        wavfile.write(rec / "rir.wav", fs, h)
+        quat = (0.0, np.sin(yaws[i] / 2), 0.0, np.cos(yaws[i] / 2))
+        (rec / "rx_pos.txt").write_text(
+            ",".join(repr(float(v)) for v in mics[i]) + "\n")
+        (rec / "tx_pos.txt").write_text(
+            ",".join(repr(float(v)) for v in (*quat, *srcs[i])) + "\n")
     return base
 
 

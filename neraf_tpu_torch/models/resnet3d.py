@@ -3,9 +3,21 @@
 conv5^3/s2 -> BN/ReLU -> maxpool3/s2 -> residual stages [layer1..3(,4)] ->
 average pool over the remaining volume -> one (feature_dim,) descriptor.
 The input is an NDHWC volume, as in the JAX package; it is permuted to NCDHW
-inside. The max pool is the joint 3^3 window (the JAX package's separable
-pool has the same forward values and routes a gradient on an exact tie to
-another element).
+inside.
+
+The ResNet has one layout, where the JAX ResNet3D has two fields. Its max
+pool is the joint 3^3 window, where the JAX default (pool_impl="separable")
+is three 1-D pools: the values are the same (a max over a box factorises,
+-inf padding included), and on an exact tie inside a window the separable
+pool routes the gradient to another, equal-valued element. On an H100
+(80GB HBM3, 700 W; chip_smoke.py phase 25) the joint pool at the stem's
+output (1, 64, 64^3, bf16), fwd + bwd, takes 0.382-0.474 ms against the
+separable's 0.607-0.632 (medians in turns, two runs): the separable pool's
+three passes write three outputs and three index tensors, and the cheaper
+1-D backwards they bought on the TPU are not cheaper here. Its convolutions are cuDNN's;
+the JAX conv_impl="mm_wgrad" (a weight gradient of one product per kernel
+tap) is not ported, as no configuration sets it. The port's ResNet matches
+each JAX setting (tests/test_torch_conv3d.py).
 
 The stem (ResNet3D.stem, the JAX package's _StemConv) keeps its weight in
 the direct layout, conv1.weight (64, 7, 5, 5, 5), and runs space-to-depth

@@ -35,6 +35,7 @@ package's, on the CPU.
 import dataclasses
 import json
 import pickle
+import shutil
 from pathlib import Path
 from typing import NamedTuple
 
@@ -44,7 +45,7 @@ import pytest
 import torch
 import yaml
 
-from fixtures import make_soundspaces_scene, make_vision_scene
+from fixtures import make_raf_scene, make_soundspaces_scene, make_vision_scene
 from neraf_tpu.cli import evaluate as jevaluate
 from neraf_tpu.cli import train as jtrain
 from neraf_tpu.configs import config as jconfig
@@ -88,6 +89,18 @@ def _no_scene_env(monkeypatch):
     monkeypatch.delenv("NeRAF_dataset", raising=False)
     monkeypatch.delenv("NeRAF_scene", raising=False)
     monkeypatch.delenv("AVN_RENDER_POSES", raising=False)
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(request):
+    """Each test's tmp_path is removed when the test ends: pytest keeps every
+    test's directory, and a run directory of the tiny CLI configuration
+    holds ~280 MB a checkpoint (resnet18's weights and Adam moments)."""
+    path = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def _same_config(a, b, path="cfg"):
@@ -289,24 +302,26 @@ def scene_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("scenes")
     make_soundspaces_scene(root, max_frames=12)
     make_vision_scene(root, n_frames=3, size=16, scene_dir="mini_scene")
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
-def _argv(root, run_dir, steps, *extra, sets=()):
-    argv = ["--dataset", "SoundSpaces", "--scene", "mini_scene", "--data-root",
+def _argv(root, run_dir, steps, *extra, sets=(), dataset="SoundSpaces",
+          scene="mini_scene", tiny=TINY):
+    argv = ["--dataset", dataset, "--scene", scene, "--data-root",
             str(root), "--max-iters", str(steps), "--run-dir", str(run_dir),
             *extra]
-    for item in (*TINY, *sets):
+    for item in (*tiny, *sets):
         argv += ["--set", item]
     return argv
 
 
-def _train(root, run_dir, steps, *extra, sets=EVALS_OFF):
+def _train(root, run_dir, steps, *extra, sets=EVALS_OFF, **scene):
     with pytest.MonkeyPatch.context() as mp:
         for k in ("NeRAF_dataset", "NeRAF_scene"):
             mp.delenv(k, raising=False)
-        return train.main(_argv(root, run_dir, steps, *extra, sets=sets),
-                          device="cpu")
+        return train.main(_argv(root, run_dir, steps, *extra, sets=sets,
+                                **scene), device="cpu")
 
 
 def _load(path):
@@ -340,8 +355,11 @@ def runs(scene_root, tmp_path_factory):
         _train(scene_root, base / "first", 2, *extra)
         resumed = _train(scene_root, base / "resumed", 4, *extra, "--load-dir",
                          str(base / "first" / "neraf_models"))
+        shutil.rmtree(base / "first")  # read by the resume alone
         out[mode] = {"base": base, "straight": straight, "resumed": resumed}
-    return out
+    yield out
+    for run in out.values():
+        shutil.rmtree(run["base"], ignore_errors=True)
 
 
 @pytest.mark.parametrize("mode", ["joint", "audio_only"])
@@ -351,6 +369,7 @@ def test_resume_is_bitwise(runs, mode):
     a, b = _load(base / "straight" / ckpt), _load(base / "resumed" / ckpt)
     assert a["step"] == b["step"] == 4
     assert not _bitwise_diffs(a, b)
+    shutil.rmtree(base / "resumed" / "neraf_models")  # compared; read no more
     assert runs[mode]["resumed"].pipeline.step == 4
     counts = {k: o["count"] for k, o in a["optimizers"].items()}
     assert counts == ({"audio_fields": 4} if mode == "audio_only" else
@@ -379,6 +398,7 @@ def test_evals_leave_training_unchanged(runs, scene_root):
     pngs = {p.name for p in (base / "evals/eval_images").glob("*.png")}
     assert {"step_0000002_img.png", "step_0000004_comparison_ch_1.png",
             "step_0000004_grid_density.png"} <= pngs
+    shutil.rmtree(base / "evals")
 
 
 def test_joint_evaluate_writes_the_jax_keys(runs):
@@ -438,6 +458,62 @@ def test_audio_only_cli_matches_the_jax_cli(runs, scene_root, tmp_path):
     assert set(p) == set(j) and set(p["results"]) == set(j["results"])
     assert (p["experiment_name"], p["method_name"]) == (j["experiment_name"],
                                                         j["method_name"])
+
+
+# RAF's time axis is the loader's (0.32 s at hop 256: 60 frames), so the
+# tiny configuration keeps it; its evaluator (the JAX package's
+# RAFEvaluator) reports T60 and the STFT error where SoundSpaces' reports
+# the T60 error
+RAF = {"dataset": "RAF", "scene": "raf_scene",
+       "tiny": [t for t in TINY if "max_len" not in t]}
+RAF_JOINT_KEYS = JOINT_KEYS - {
+    "audio_T60_mean_error", "audio_T60_mean_error_std"} | {
+    f"audio_{k}{s}" for k in ("T60", "stft_error") for s in ("", "_std")}
+
+
+def test_raf_cli_matches_the_jax_cli(tmp_path):
+    """The default dataset, RAF (mono, 48 kHz, 513 bins, T 60), on
+    tests/fixtures.py's RAF scene with 3 views: the port's joint cli.train
+    (every eval cadence on) and cli.evaluate write the records and keys of
+    the SoundSpaces runs; the port's and the JAX CLI's --audio-only runs
+    write the same config.yml, each package loads the other's to an equal
+    config, and their cli.evaluate the same result keys."""
+    root = tmp_path / "scenes"
+    make_raf_scene(root)
+    make_vision_scene(root, n_frames=3, size=16, scene_dir="raf_scene")
+    joint = tmp_path / "joint"
+    trainer = _train(root, joint, 2, sets=EVALS_ON, **RAF)
+    cfg = trainer.pipeline.config
+    assert (cfg.dataset, cfg.audio_model.n_freq_stft, cfg.audio_model.mic_ch,
+            cfg.audio_model.max_len) == ("RAF", 513, 1, 60)
+    records = [(r["step"], r["prefix"]) for r in map(
+        json.loads, (joint / "metrics.jsonl").read_text().splitlines())]
+    assert records == [(1, "eval_batch"), (2, "train"), (2, "eval_batch"),
+                       (2, "eval_image"), (2, "eval_vision"), (2, "eval_audio")]
+    results = evaluate.main(["--load-config", str(joint / "config.yml")],
+                            device="cpu")
+    assert set(results) == RAF_JOINT_KEYS
+    assert all(np.isfinite(v) for k, v in results.items()
+               if isinstance(v, float) and not k.startswith("audio_EDT"))
+
+    ours, theirs = tmp_path / "ours", tmp_path / "theirs"
+    _train(root, ours, 2, "--audio-only", **RAF)
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("NeRAF_dataset", "NeRAF_scene"):
+            mp.delenv(k, raising=False)
+        jtrain.main(_argv(root, theirs, 2, "--audio-only", sets=EVALS_OFF,
+                          **RAF))
+    assert (theirs / "config.yml").read_text() == (ours / "config.yml").read_text()
+    _same_config(jconfig.load_config(ours / "config.yml"),
+                 pconfig.load_config(theirs / "config.yml"))
+    jevaluate.main(["--load-config", str(theirs / "config.yml"),
+                    "--output-path", str(theirs / "results.json")])
+    evaluate.main(["--load-config", str(ours / "config.yml"),
+                   "--output-path", str(ours / "results.json")], device="cpu")
+    j, p = (json.loads((d / "results.json").read_text()) for d in (theirs, ours))
+    assert set(p["results"]) == set(j["results"])
+    assert (p["experiment_name"], p["method_name"]) == (
+        j["experiment_name"], j["method_name"]) == ("raf_scene_NeRAF", "NeRAF")
 
 
 def test_inference_mode_renders_the_trajectory(runs, tmp_path, monkeypatch):

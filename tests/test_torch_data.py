@@ -19,6 +19,7 @@ at every filter type. The joint step: test_torch_train_slice.py's bounds.
 """
 
 import dataclasses
+import shutil
 import struct
 import zlib
 
@@ -43,6 +44,7 @@ from neraf_tpu_torch.configs.config import default_config
 from neraf_tpu_torch.data import dataparsers, datasets
 from neraf_tpu_torch.data.synthetic import (
     synth_scene,
+    write_raf_scene,
     write_soundspaces_scene,
     write_vision_scene,
 )
@@ -136,6 +138,31 @@ def test_raf_loader_matches_jax(scenes, split):
                                atol=5e-5, rtol=1e-4)
     if split == "test":
         np.testing.assert_array_equal(out.waveforms, ref.waveforms)
+
+
+@pytest.mark.parametrize("sample_format", ["int16", "float32"])
+def test_port_raf_scene_matches_jax(tmp_path, sample_format):
+    """write_raf_scene's RAF tree (RIRs of 0.1-0.6 s, both sides of the
+    0.32 s cut) read by both packages: the parsed poses and orientations
+    exact, the waveforms bitwise (the same decode), and the log STFTs at
+    test_raf_loader_matches_jax's bound (the port's library computes the
+    STFT with a float64 FFT, the JAX package's with a direct DFT)."""
+    scene = write_raf_scene(tmp_path, 5, 3, seconds=(0.1, 0.6),
+                            sample_format=sample_format, seed=4)
+    for split in ("train", "test"):
+        _same_outputs(dataparsers.parse_raf(scene, split),
+                      jparsers.parse_raf(scene, split))
+        out = datasets.load_raf_dataset(scene, split)
+        ref = jdatasets.load_raf_dataset(scene, split)
+        _same_outputs(out.outputs, ref.outputs)
+        assert out.log_stft.shape == (5 if split == "train" else 3, 1, 513, 60)
+        np.testing.assert_allclose(np.exp(out.log_stft), np.exp(ref.log_stft),
+                                   atol=5e-5, rtol=1e-4)
+        if split == "test":
+            assert out.waveforms.shape == (3, 1, 15360)
+            np.testing.assert_array_equal(out.waveforms, ref.waveforms)
+    rots = dataparsers.parse_raf(scene, "train").rotations
+    assert len({tuple(r) for r in rots.round(6)}) > 1  # the yaws differ
 
 
 def test_inference_poses_match_jax(tmp_path, monkeypatch):
@@ -301,8 +328,9 @@ def bundles(scenes, tmp_path_factory):
     jb = jfactory.build_pipeline(jcfg)
     for attr in ("opt_prop", "opt_fields", "opt_cam", "opt_audio"):
         setattr(jb.pipeline, attr, _recording(getattr(jb.pipeline, attr)))
-    return {"jax": jb, "port": factory.build_pipeline(cfg, device="cpu"),
-            "scene": scene}
+    yield {"jax": jb, "port": factory.build_pipeline(cfg, device="cpu"),
+           "scene": scene}
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_build_pipeline_matches_jax(bundles):

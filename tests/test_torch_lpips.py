@@ -17,6 +17,8 @@ written under tmp_path and found through the environment (monkeypatch);
 the default cache paths are patched away, never written.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,18 @@ from neraf_tpu.metrics.image import lpips as jlpips_metric
 from neraf_tpu_torch.metrics import lpips_impl as L
 from neraf_tpu_torch.metrics.image import lpips as lpips_metric
 from test_torch_vision_slice import vision_slice  # noqa: F401 (a fixture)
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(request):
+    """Each test's tmp_path is removed when the test ends: pytest keeps every
+    test's directory, and the weights files are 10-110 MB."""
+    path = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+
 
 RTOL, ATOL = 1e-5, 1e-7
 

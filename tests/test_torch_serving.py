@@ -29,6 +29,7 @@ Trainer's on_metrics hook.
 
 import io
 import json
+import shutil
 import threading
 import time
 import urllib.error
@@ -52,6 +53,7 @@ from neraf_tpu_torch.viz.viewer import (
     serve,
 )
 from test_torch_cli import (  # noqa: F401  (pytest fixtures)
+    _remove_tmp_path,
     _JStub,
     _Stub,
     _bitwise_diffs,
@@ -307,7 +309,8 @@ def run(scene_root, tmp_path_factory):
     and 4."""
     run_dir = tmp_path_factory.mktemp("serving") / "run"
     _train(scene_root, run_dir, 4)
-    return run_dir
+    yield run_dir
+    shutil.rmtree(run_dir.parent, ignore_errors=True)
 
 
 def _restored(run_dir):
