@@ -187,7 +187,21 @@ Phases, each fatal on failure:
  25. (inside phase 24) the stem's max pool, the port's joint 3^3 pool
      against the JAX package's default separable layout (three 1-D pools,
      a yardstick written here) at the stem's output of the folded 128^3
-     state (1, 64, 64^3) in bf16, fwd + bwd timed in turns, values equal.
+     state (1, 64, 64^3) in bf16, fwd + bwd timed in turns, values equal;
+ 26. the data mesh (parallel/sharding.py): two ranks on card 0 over gloo
+     (this process and one spawned) against one rank, the full-width
+     joint step in bf16 on the bench.py inputs with the audio branch live,
+     3 steps each from the one rank's state at the same global draws:
+     losses and the step-0 gradients gated against the one rank's, the
+     replicated state bitwise equal across ranks after every step, 4 + 4
+     PE+MLP launches a step on each rank, each rank's ms a step and the
+     gradient all_reduce's ms; then evaluate_audio_device on 1,024
+     synthetic RIRs at chunks of 512, 2 ranks against 1 at
+     tests/test_parallel.py's bounds, 2 GL launches on each rank; where
+     the machine has more than one card, cli.train --num-devices 2 (and
+     4) over NCCL on a scene as phase 21's, each save checking the ranks'
+     state bitwise; with one card it prints that no multi-card run took
+     place.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -3508,6 +3522,356 @@ def pool_layouts(torch, dev, rounds: int = 7) -> dict:
     return res
 
 
+# Phase 26: the data mesh (parallel/sharding.py). Two ranks share card 0
+# over gloo (NCCL refuses two ranks on one card) against one rank on the
+# same card, at full width in bf16, every step from the same state and
+# global draws. The ranks' kernels see the same rows as the one rank's (a
+# row's PE+MLP, bake and renderer values do not depend on the batch
+# beside it) and the same replicated grid in the ResNet; what differs is
+# the order of the sums: each rank's dW, loss means and
+# spectral-convergence norms over its half, added across ranks after, and
+# cuBLAS's choice of kernel for the audio field's half-size GEMMs, whose
+# bf16 outputs may round the other way. Losses: the vision ones 1e-5
+# relative to the one rank's (f32 sums in another order: 1.2e-7 at most
+# measured on an H100). The audio ones 1e-5 relative to the one rank's
+# audio field run on the ranks' halves of its batch, inside its own step
+# (MeshHalves): a first run gated them against the one rank's whole-batch
+# field at 1e-3 and read 1.3e-3 in the spectral convergence, whose
+# numerator, a residual, amplifies the halves' bf16 roundings (the
+# log-magnitude mean moved 1.8e-4); against the halves only the order of
+# the f32 sums differs, and a wrong reduction, a missing 1/N or a dropped
+# rank is off by O(1). Both differences from the one rank's own audio
+# losses are printed. Step-0 gradients, by the
+# relative L2 error of each tensor, 5e-2: phase 9 measured 5-9% between two
+# bf16 implementations of one MLP whose every pre-activation rounds
+# differently (ReLU masks flip); here only the audio field's rows can round
+# differently, so this is the ceiling; a wrong scale (1/N twice, a bake
+# gather without its sum over ranks) is 50-100%. The replicated state
+# (weights, BatchNorm statistics, grid, folded grid, cursor, step) is gated
+# bitwise across ranks after every step. The device sweep at
+# tests/test_parallel.py:105-106's bounds.
+MESH_RANKS, MESH_STEPS = 2, 3
+MESH_LOSS_RTOL = 1e-5
+MESH_VISION_LOSSES = ("rgb_loss", "interlevel_loss", "distortion_loss")
+MESH_AUDIO_LOSSES = ("audio_sc_loss", "audio_mag_loss")
+MESH_GRAD_REL_L2 = 5e-2
+MESH_EVAL_RTOL, MESH_EVAL_ATOL = 2e-4, 1e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def copy_train_state(torch, dst, src) -> None:
+    """src's checkpoint contents into dst, as copies (a round trip through
+    torch.save)."""
+    import io
+
+    from neraf_tpu_torch.engine.checkpoints import load_train_state
+    from neraf_tpu_torch.engine.checkpoints import train_state as ckpt_state
+
+    buf = io.BytesIO()
+    torch.save(ckpt_state(src), buf)
+    buf.seek(0)
+    load_train_state(dst, torch.load(buf, map_location="cpu",
+                                     weights_only=True))
+
+
+class MeshHalves:
+    """A forward hook on the one rank's audio model: inside its step, the
+    audio losses of its batch with the field run whole (`full`, what the
+    step computes) and run on the ranks' blocks of the batch, one call a
+    block (`halves`), with the step's weights, feature and autocast."""
+
+    def __init__(self, audio_model, n: int):
+        self.n, self.busy = n, False
+        self.full = self.halves = None
+        self.handle = audio_model.register_forward_hook(self, with_kwargs=True)
+
+    def __call__(self, module, args, kwargs, output):
+        if self.busy:
+            return
+        import torch
+
+        batch, aabb = args
+        b = batch["data"].shape[0] // self.n
+        self.busy = True
+        try:
+            with torch.no_grad():
+                parts = torch.cat([module(
+                    {k: v[r * b:(r + 1) * b] for k, v in batch.items()}, aabb,
+                    **kwargs) for r in range(self.n)])
+                self.full = {k: float(v) for k, v in module.loss(
+                    output.detach().float(), batch["data"]).items()}
+                self.halves = {k: float(v) for k, v in module.loss(
+                    parts.float(), batch["data"]).items()}
+        finally:
+            self.busy = False
+
+
+def named_grads(pipe) -> dict:
+    return {f"{m}.{k}": p.grad for m, mod in pipe.models.items()
+            for k, p in mod.named_parameters()}
+
+
+def mesh_rank(rank: int, world: int, init: str, out: str) -> None:
+    """A spawned rank of phase 26 (rank 0 is the main process): its half
+    of the steps and the sweep, what it measured written to `out`."""
+    import torch
+
+    from neraf_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(world, ["cuda:0"] * world, backend="gloo", rank=rank,
+                     init_method=init)
+    try:
+        Path(out).write_text(json.dumps(mesh_steps(torch, mesh, None)))
+    finally:
+        mesh.close()
+
+
+def mesh_steps(torch, mesh, ref) -> dict:
+    """Phase 26's work on every rank: the full-width pipeline on the mesh,
+    MESH_STEPS steps each from `ref`'s state (rank 0 copies it in and
+    broadcasts it) with their launches, ms and cross-rank mismatches, then
+    evaluate_audio_device on EVAL_RIRS synthetic RIRs; rank 0 also steps
+    and sweeps `ref` (one rank, mesh None) and compares."""
+    from neraf_tpu_torch.data.synthetic import synth_scene
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+    from neraf_tpu_torch.parallel.sharding import (
+        broadcast_state,
+        replica_mismatches,
+        replicated_state,
+    )
+
+    pipe = build_joint_pipeline(grid_res=128, tiny=False, seed=0, mesh=mesh)
+    cams, audio, images = bench_inputs(torch, pipe.device)
+    out = {"steps": [], "loss_rel": [], "audio_vs_whole": [],
+           "halves_vs_whole": [], "grad_rel_l2": None}
+    halves = None if ref is None else MeshHalves(ref.audio_model,
+                                                 mesh.world_size)
+
+    def from_ref():
+        if ref is not None:
+            copy_train_state(torch, pipe, ref)
+        broadcast_state(pipe, mesh)
+
+    for k in range(MESH_STEPS):
+        from_ref()
+        mesh.barrier()  # each rank's clock starts with the state loaded
+        torch.cuda.synchronize()
+        reset_counts()
+        pipe.profile = []
+        t0 = time.perf_counter()
+        m = pipe.train_step(cams, audio, images)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        marks, pipe.profile = pipe.profile, None
+        stages = stage_ms(torch, marks)
+        bad = replica_mismatches(replicated_state(pipe), mesh)
+        check_metrics(m, f"mesh step {k} rank {mesh.rank}")
+        out["steps"].append({"metrics": m, "ms": ms, "launches": counts,
+                             "all_reduce_ms": stages["all_reduce"],
+                             "stages": stages, "mismatches": bad})
+        if ref is None:
+            continue
+        m1 = ref.train_step(cams, audio, images)
+        if halves.full != {k: m1[k] for k in MESH_AUDIO_LOSSES}:
+            fail(f"mesh: the hook's whole-batch audio losses {halves.full} "
+                 f"are not the step's {m1}")
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        out["loss_rel"].append(
+            {**{key: rel(m[key], m1[key]) for key in MESH_VISION_LOSSES},
+             **{key: rel(m[key], halves.halves[key])
+                for key in MESH_AUDIO_LOSSES}})
+        out["audio_vs_whole"].append({key: rel(m[key], m1[key])
+                                      for key in MESH_AUDIO_LOSSES})
+        out["halves_vs_whole"].append(
+            {key: rel(halves.halves[key], m1[key]) for key in MESH_AUDIO_LOSSES})
+        if k == 0:
+            g2, g1 = named_grads(pipe), named_grads(ref)
+            out["grad_rel_l2"] = {
+                name: float((g2[name] - g).float().norm()
+                            / max(float(g.float().norm()), 1e-30))
+                for name, g in g1.items()}
+            out["grad_max_rel"] = max(
+                float((g2[name] - g).abs().max()
+                      / max(float(g.abs().max()), 1e-30))
+                for name, g in g1.items())
+    cfg = pipe.audio_model.config
+    ds = synth_scene(EVAL_RIRS, fs=cfg.fs, max_len=cfg.max_len, seed=1)
+    from_ref()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sweep = pipe.evaluate_audio_device(ds, chunk=EVAL_CHUNK)
+    torch.cuda.synchronize()
+    out["sweep"] = {"metrics": sweep, "launches": read_counts(),
+                    "wall_s": time.perf_counter() - t0}
+    if ref is not None:
+        halves.handle.remove()
+        out["ref_sweep"] = ref.evaluate_audio_device(ds, chunk=EVAL_CHUNK)
+    return out
+
+
+def mesh_phase(torch, dev, tmp) -> dict:
+    """Phase 26: two ranks on card 0 (this process rank 0, one spawned),
+    against one rank, at full width; then, where the machine has more
+    than one card, cli.train --num-devices over NCCL (mesh_cli)."""
+    import multiprocessing
+
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+    from neraf_tpu_torch.parallel.sharding import make_mesh
+
+    torch.cuda.empty_cache()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    out1 = tmp / "mesh_rank1.json"
+    child = multiprocessing.get_context("spawn").Process(
+        target=mesh_rank, args=(1, MESH_RANKS, init, str(out1)), daemon=True)
+    t0 = time.perf_counter()
+    child.start()
+    try:
+        ref = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0)
+        ref.step = 3000  # past start_step_audio: the audio branch is live
+        mesh = make_mesh(MESH_RANKS, ["cuda:0"] * MESH_RANKS, backend="gloo",
+                         rank=0, init_method=init)
+        try:
+            r0 = mesh_steps(torch, mesh, ref)
+        finally:
+            mesh.close()
+        child.join(300)
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join()
+    if child.exitcode != 0:
+        fail(f"mesh: rank 1 exited {child.exitcode}")
+    r1 = json.loads(out1.read_text())
+    wall = time.perf_counter() - t0
+    smi_line = smi("name,power.limit")
+    want = {"pe_fwd": 4, "pe_bwd": 4, "hash_fwd": 0, "hash_bwd": 0,
+            "stem": 0, "concat": 0, "gl": 0}
+    for rank, r in enumerate((r0, r1)):
+        for k, s in enumerate(r["steps"]):
+            if s["launches"] != want:
+                fail(f"mesh step {k} rank {rank}: launches {s['launches']}, "
+                     f"expected {want}")
+            if s["mismatches"]:
+                fail(f"mesh step {k} rank {rank}: {s['mismatches']} differ "
+                     f"from rank 0's")
+            if s["metrics"] != r0["steps"][k]["metrics"]:
+                fail(f"mesh step {k}: rank {rank}'s metrics differ from "
+                     f"rank 0's")
+        gl = r["sweep"]["launches"]
+        if gl != {**want, "pe_fwd": 0, "pe_bwd": 0,
+                  "gl": EVAL_RIRS // EVAL_CHUNK}:
+            fail(f"mesh sweep rank {rank}: launches {gl}")
+    worst_loss = max(max(d.values()) for d in r0["loss_rel"])
+    if not worst_loss <= MESH_LOSS_RTOL:
+        fail(f"mesh: losses {r0['loss_rel']} relative to one rank's, the "
+             f"audio ones to its field run on the ranks' halves (tol "
+             f"{MESH_LOSS_RTOL}); the audio ones relative to its own "
+             f"{r0['audio_vs_whole']}")
+    grads = r0["grad_rel_l2"]
+    worst_grad = max(grads, key=grads.get)
+    if not grads[worst_grad] <= MESH_GRAD_REL_L2:
+        fail(f"mesh: step-0 gradient {worst_grad} {grads[worst_grad]:.3e} "
+             f"relative L2 from one rank's (tol {MESH_GRAD_REL_L2})")
+    sweep, ref_sweep = r0["sweep"]["metrics"], r0["ref_sweep"]
+    for k in (*EVAL_KEYS, "audio_mag"):
+        if not np.isclose(sweep[k], ref_sweep[k], rtol=MESH_EVAL_RTOL,
+                          atol=MESH_EVAL_ATOL):
+            fail(f"mesh sweep: {k} {sweep[k]} on 2 ranks, {ref_sweep[k]} "
+                 f"on one")
+    if r1["sweep"]["metrics"] != sweep | {
+            k: r1["sweep"]["metrics"][k] for k in ("fps_audio",
+                                                  "num_rays_per_sec_audio")}:
+        fail("mesh sweep: rank 1's metrics differ from rank 0's")
+    per_rank = {f"rank{i}": {
+        "ms": [round(s["ms"], 3) for s in r["steps"]],
+        "all_reduce_ms": [round(s["all_reduce_ms"], 3) for s in r["steps"]],
+        "pe_fwd": sum(s["launches"]["pe_fwd"] for s in r["steps"]),
+        "pe_bwd": sum(s["launches"]["pe_bwd"] for s in r["steps"]),
+        "sweep_gl": r["sweep"]["launches"]["gl"],
+        "sweep_s": round(r["sweep"]["wall_s"], 3)} for i, r in enumerate((r0, r1))}
+    print(f"mesh (gloo, 2 ranks sharing card 0: {smi_line}): {MESH_STEPS} "
+          f"full-width bf16 steps each from one rank's state; per rank "
+          f"{json.dumps(per_rank)}; worst loss {worst_loss:.3e} relative "
+          f"(tol {MESH_LOSS_RTOL}; the audio ones against the one rank's "
+          f"field on the ranks' halves); the audio losses against the one "
+          f"rank's own {json.dumps(r0['audio_vs_whole'])}, its halves "
+          f"against its own {json.dumps(r0['halves_vs_whole'])}; step-0 "
+          f"gradients: worst relative L2 "
+          f"{grads[worst_grad]:.3e} ({worst_grad}; tol {MESH_GRAD_REL_L2}), "
+          f"worst max-abs of the peak {r0['grad_max_rel']:.3e}; replicas "
+          f"bitwise equal after every step; the sweep of {EVAL_RIRS} RIRs on "
+          f"2 ranks {json.dumps(sweep)} vs one {json.dumps(ref_sweep)}; "
+          f"phase wall {wall:.2f} s. The shared card's gloo times are not "
+          f"a speed of the data-parallel path.", flush=True)
+    return {"per_rank": per_rank, "worst_loss_rel": worst_loss,
+            "audio_vs_whole": r0["audio_vs_whole"],
+            "halves_vs_whole": r0["halves_vs_whole"],
+            "worst_grad_rel_l2": grads[worst_grad],
+            "grad_max_rel": r0["grad_max_rel"], "sweep": sweep,
+            "ref_sweep": ref_sweep, "wall_s": wall,
+            "cli": mesh_cli(torch, tmp)}
+
+
+def mesh_cli(torch, tmp) -> dict | None:
+    """Phase 26, more than one card: cli.train --num-devices 2 (and 4
+    where there are 4) over NCCL, one card a rank, at full width on a
+    scene as phase 21's, for CLI_STEPS steps with its cadences; each save
+    checks the ranks' replicated state bitwise (engine/trainer.py)."""
+    from neraf_tpu_torch.cli import train as cli_train
+    from neraf_tpu_torch.data.synthetic import (
+        write_soundspaces_scene,
+        write_vision_scene,
+    )
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"mesh cli: {n_cards} card here, no multi-card run took place",
+              flush=True)
+        return None
+    scene = write_soundspaces_scene(tmp / "mesh_scenes", 96, 8,
+                                    scene="office_4")
+    write_vision_scene(scene, n_views=12, size=64)
+    base = ["--dataset", "SoundSpaces", "--scene", "office_4", "--data-root",
+            str(tmp / "mesh_scenes"), "--max-iters", str(CLI_STEPS)]
+    for item in CLI_SET:
+        base += ["--set", item]
+    out = {}
+    for n in (2, 4):
+        if n > n_cards:
+            continue
+        run = tmp / f"mesh_run{n}"
+        t0 = time.perf_counter()
+        trainer = cli_train.main(base + ["--num-devices", str(n),
+                                         "--run-dir", str(run)])
+        wall = time.perf_counter() - t0
+        records = [json.loads(line) for line in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        got = {(r["step"], r["prefix"]) for r in records}
+        if got != CLI_RECORDS or len(records) != len(CLI_RECORDS):
+            fail(f"mesh cli {n}: metrics records {sorted(got)}")
+        if not all(finite_record(r) for r in records):
+            fail(f"mesh cli {n}: metrics not finite")
+        ckpts = sorted(p.name for p in (run / "neraf_models").iterdir())
+        if ckpts != ["step-000000004.pt", "step-000000008.pt"]:
+            fail(f"mesh cli {n}: checkpoints {ckpts}")
+        steps = [t for s, what, t in trainer.timings if what == "step"]
+        out[n] = {"wall_s": wall, "step_ms": [round(1e3 * t, 2) for t in steps]}
+        print(f"mesh cli --num-devices {n} (NCCL, {smi('name,power.limit')}): "
+              f"{wall:.2f} s; steps (ms, rank 0's host clock) "
+              f"{out[n]['step_ms']}; replicas bitwise equal at both saves",
+              flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3899,9 +4263,16 @@ def main() -> int:
               f"far {time.perf_counter() - t_start:.2f} s", flush=True)
         print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
               f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        t0 = time.perf_counter()
+        mesh = mesh_phase(torch, dev, tmp)
+        print(f"phase 26: {time.perf_counter() - t0:.2f} s; the run so far "
+              f"{time.perf_counter() - t_start:.2f} s", flush=True)
+        print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+              f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cli_launches = lambda k: {run: c[k] for run, c in cli["launches"].items()}
+    mesh_launches = lambda k: {rank: r[k] for rank, r in mesh["per_rank"].items()}
     viewer_launches = lambda k: {
         name: r["launches"][k]
         for name, r in serving["viewer"]["requests"].items()}
@@ -3933,6 +4304,7 @@ def main() -> int:
         "source": "neraf_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "neraf_tpu/ops/pallas/griffin_lim_kernel.py:148",
         "launches": launches, "max_abs_err": gl_row["err"],
+        "mesh_sweep_launches_per_rank": mesh_launches("sweep_gl"),
         "ms": gl_row["ms"], "plain_ms": gl_row["plain_ms"],
         "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None,
         "max_abs_err_32_iter": gl_row["err32"], "plan": gl_row["plan"],
@@ -3951,6 +4323,7 @@ def main() -> int:
         "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],
         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
         "train_step_launches": joint["pe_fwd"], "shapes": pe_rows,
+        "mesh_step_launches_per_rank": mesh_launches("pe_fwd"),
         "streamed_train_step_launches": stream["step"]["streamed"][
             "launches"]["pe_fwd"],
         "hash_render_launches": hvis["launches"]["pe_mlp"],
@@ -3965,6 +4338,7 @@ def main() -> int:
         "source": "neraf_tpu_torch/csrc/pe_mlp_bwd.cu",
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:298",
         "launches": joint["pe_bwd"], "max_abs_err": bwd_main["max_abs_err"],
+        "mesh_step_launches_per_rank": mesh_launches("pe_bwd"),
         "streamed_train_step_launches": stream["step"]["streamed"][
             "launches"]["pe_bwd"],
         "rel_l2_vs_plain": bwd_rows["main_field"]["rel_l2_vs_plain"],

@@ -23,6 +23,12 @@ gathers their (C, F) columns on the host.
 On the CPU (device="cpu", asked for explicitly) there are no pinned
 buffers and no streams: the producer's tensors are the batch.
 
+Under a data mesh (parallel/sharding.py) every rank's sampler, seeded
+alike, draws the same global (recording, time bin) sequence, and each
+gathers and copies only its rank's contiguous block of the batch's
+columns: the block that the rank's share of the resident step would
+gather.
+
 A batch is {"data" (B, C, F) in the transfer dtype, "audio_idx",
 "time_query" (B,) int64, and the pose tables "mic_pose", "source_pose",
 "rot" (N, 3) float32}, which data/loader.py::resolve_audio_batch turns into
@@ -39,6 +45,8 @@ import time
 
 import numpy as np
 import torch
+
+from neraf_tpu_torch.parallel.sharding import shard_batch
 
 _TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -90,15 +98,19 @@ class StreamingAudioSampler:
 
     `gather_ms` and `copy_ms()` keep the producer's gather time and the
     copies' device time of the latest batches.
+
+    With a data mesh (`mesh`), a batch is this rank's block of
+    batch_size / (number of ranks) columns of the global draw.
     """
 
     def __init__(self, dataset, batch_size: int, max_len: int | None = None,
                  seed: int = 0, prefetch: int = 3,
                  transfer_dtype: str = "float32",
                  time_major: bool | str = "auto", layout: str = "cft",
-                 inflight: int = 2, device="cuda"):
+                 inflight: int = 2, device="cuda", mesh=None):
         if transfer_dtype not in _TRANSFER_DTYPES:
             raise ValueError(f"unsupported transfer_dtype {transfer_dtype!r}")
+        self.mesh = mesh
         self.log_stft = dataset.log_stft
         self._tm = layout == "tcf"
         if not self._tm and (time_major is True or (
@@ -116,6 +128,9 @@ class StreamingAudioSampler:
                          ("source_pose", o.source_poses),
                          ("rot", o.rotations))}
         self.batch_size = batch_size
+        if mesh is not None and batch_size % mesh.world_size:
+            raise ValueError(f"a batch of {batch_size} does not divide over "
+                             f"{mesh.world_size} ranks")
         self.max_len = int(max_len if max_len is not None else dataset.max_len)
         shape = self.log_stft.shape
         self._cf = shape[2:] if self._tm else shape[1:3]
@@ -142,7 +157,7 @@ class StreamingAudioSampler:
         self._thread.start()
 
     def _host_buffer(self, pin: bool) -> dict:
-        B = self.batch_size
+        B = self.batch_size // (1 if self.mesh is None else self.mesh.world_size)
         return {"data": torch.empty((B, *self._cf), dtype=self._dtype,
                                     pin_memory=pin),
                 "idx": torch.empty((2, B), dtype=torch.int64, pin_memory=pin)}
@@ -153,8 +168,8 @@ class StreamingAudioSampler:
         gathered as the JAX sampler's _draw_host_batch."""
         n_rec = self.log_stft.shape[0]
         idx = self._rng.integers(0, n_rec * self.max_len, self.batch_size)
-        rec = (idx // self.max_len).astype(np.int32)
-        t = (idx % self.max_len).astype(np.int32)
+        rec, t = shard_batch(((idx // self.max_len).astype(np.int32),
+                              (idx % self.max_len).astype(np.int32)), self.mesh)
         # sorted order for page locality (a memmap's), then unsorted
         order = np.lexsort((t, rec))
         inv = np.argsort(order)

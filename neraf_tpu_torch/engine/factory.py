@@ -25,6 +25,10 @@ any ExperimentConfig, with the scene read from disk: the number of cameras
 from the train split, the audio AABB from the audio parser, grid_res =
 round(1 / grid_step), bf16 under trainer.mixed_precision, weights and the
 train generator from config.seed.
+
+Both joint builders take a data mesh (parallel/sharding.py, `mesh`): the
+pipeline is then one rank's, on the rank's device, and its step and device
+eval sweep run on the global batch over the ranks (engine/pipeline.py).
 """
 
 from __future__ import annotations
@@ -160,28 +164,33 @@ def build_joint_pipeline(grid_res: int = 128, tiny: bool = False,
                          device="cuda", seed: int = 0,
                          mixed_precision: bool | None = None,
                          state=None, encoding: str = "fourier",
-                         config: ExperimentConfig | None = None) -> JointPipeline:
+                         config: ExperimentConfig | None = None,
+                         mesh=None) -> JointPipeline:
     """A JointPipeline with weights from `seed` (flax's initialisers from a
     CPU torch.Generator, zero camera corrections, an empty grid at cursor
     and step 0), or from a JAX JointTrainState's arrays: params (all four
     groups), batch_stats, the four groups' Adam states, grid, cursor and
     step (bridge.load_joint_state). mixed_precision None keeps the config's default (bf16);
     encoding is the main field's, "fourier" or "hash". `config` replaces
-    joint_config(tiny, encoding) (a configuration with overrides applied)."""
+    joint_config(tiny, encoding) (a configuration with overrides applied).
+    Under a data mesh the pipeline is the rank's, on its device."""
     cfg = joint_config(tiny, encoding) if config is None else copy.deepcopy(config)
     if mixed_precision is not None:
         cfg.trainer.mixed_precision = mixed_precision
-    pipe = _joint_pipeline(cfg, NUM_CAMERAS, AUDIO_AABB, grid_res, device, seed)
+    pipe = _joint_pipeline(cfg, NUM_CAMERAS, AUDIO_AABB, grid_res, device, seed,
+                           mesh)
     if state is not None:
         load_joint_state(pipe, state)
     return pipe
 
 
 def _joint_pipeline(cfg: ExperimentConfig, num_cameras: int, audio_aabb,
-                    grid_res: int, device, seed: int) -> JointPipeline:
+                    grid_res: int, device, seed: int,
+                    mesh=None) -> JointPipeline:
     """The three models' weights from `seed` (vision, ResNet, acoustic
     field, in that order, from one CPU torch.Generator) in a JointPipeline
-    whose train generator is seeded the same."""
+    whose train generator is seeded the same, on the mesh's device under a
+    data mesh."""
     dtype = torch.bfloat16 if cfg.trainer.mixed_precision else torch.float32
     acfg = cfg.audio_model
     resnet = ResNet3D(backbone=acfg.resnet_backbone, n_features=acfg.n_features)
@@ -194,7 +203,9 @@ def _joint_pipeline(cfg: ExperimentConfig, num_cameras: int, audio_aabb,
     resnet.reset_parameters(gen)
     audio_model.field.reset_parameters(gen)
     return JointPipeline(cfg, vision, audio_model, resnet, audio_aabb,
-                         VISION_AABB, grid_res, device=device, seed=seed)
+                         VISION_AABB, grid_res,
+                         device=device if mesh is None else mesh.device,
+                         seed=seed, mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -214,10 +225,12 @@ def load_audio_split(cfg: ExperimentConfig, split: str) -> AudioSliceDataset:
         acfg.data_dir, split, fs=acfg.fs, max_len=acfg.max_len, hop_len=acfg.hop_len)
 
 
-def build_pipeline(cfg: ExperimentConfig, device="cuda") -> PipelineBundle:
+def build_pipeline(cfg: ExperimentConfig, device="cuda",
+                   mesh=None) -> PipelineBundle:
     """Load the scene's splits from disk and build the joint pipeline on
-    `device` (module docstring); without a vision data_dir there are no
-    vision splits and one camera."""
+    `device` (module docstring; under a data mesh the rank's pipeline, on
+    the rank's device); without a vision data_dir there are no vision
+    splits and one camera."""
     audio_train = load_audio_split(cfg, "train")
     audio_eval = load_audio_split(cfg, "test")
 
@@ -233,6 +246,6 @@ def build_pipeline(cfg: ExperimentConfig, device="cuda") -> PipelineBundle:
 
     pipeline = _joint_pipeline(
         cfg, num_cameras, np.asarray(audio_train.outputs.aabb, np.float32),
-        int(round(1.0 / cfg.audio_model.grid_step)), device, cfg.seed)
+        int(round(1.0 / cfg.audio_model.grid_step)), device, cfg.seed, mesh)
     return PipelineBundle(pipeline, vision_train, vision_eval, audio_train,
                           audio_eval)

@@ -63,6 +63,11 @@ from neraf_tpu_torch.models.grid import (
 )
 from neraf_tpu_torch.models.resnet3d import ResNet3D
 from neraf_tpu_torch.models.vision import VisionModel
+from neraf_tpu_torch.parallel.sharding import (
+    all_gather_batch,
+    average_gradients,
+    shard_batch,
+)
 from neraf_tpu_torch.viz.panels import grid_top_view, stft_comparison_panel
 
 # the JAX package's explicit LPIPS skip marker (engine/pipeline.py:43-71)
@@ -283,6 +288,23 @@ class JointPipeline:
     checkpoint's restore, bridge.load_joint_state) refolds it, and no
     checkpoint holds it.
 
+    Under a data mesh (`mesh`, parallel/sharding.py: one process a rank,
+    one device a rank) a step computes what the JAX package's mesh step
+    computes, the step on the global batch: every rank draws the global
+    DRAW_KEYS from its generator (the same on every rank) and takes its
+    block of the rays and STFT slices; it bakes its block of the fresh
+    cells and gathers the others' (all_gather_batch), so that the grid,
+    the folded state and the live slab are the same on every rank and the
+    bake's gradient goes back to the rank that computed each cell; the
+    ResNet runs on the replicated grid (its BatchNorm statistics are then
+    the same everywhere); the losses are the global batch's
+    (models/vision.py, models/audio.py); after the backward the gradients
+    are averaged over ranks before the four Adam groups, so the
+    parameters stay bitwise equal across ranks. The kernels run on each
+    rank's blocks as on one device. evaluate_audio_device fans each
+    chunk's RIRs out over the ranks; the other eval paths run whole on
+    every rank, as the JAX package runs them.
+
     The stem's weight gradient on the folded path: with
     NERAF_STEM_WGRAD_PALLAS=1 in the environment when the pipeline is
     built (the reference's own gate, neraf_tpu/engine/pipeline.py:88-100,
@@ -293,11 +315,18 @@ class JointPipeline:
 
     def __init__(self, config: ExperimentConfig, vision_model: VisionModel,
                  audio_model: AudioModel, resnet: ResNet3D, audio_aabb,
-                 vision_aabb, grid_res: int, device="cuda", seed: int = 0):
+                 vision_aabb, grid_res: int, device="cuda", seed: int = 0,
+                 mesh=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.rank, self.world = ((0, 1) if mesh is None
+                                 else (mesh.rank, mesh.world_size))
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"a pipeline on {self.device} for a rank on "
+                             f"{mesh.device}")
         self.mixed = bool(config.trainer.mixed_precision)
         self.vision_model = vision_model.to(self.device).train()
         self.audio_model = audio_model.to(self.device).train()
@@ -314,6 +343,13 @@ class JointPipeline:
         assert bake > 0 and self.cells.shape[0] % bake == 0, (
             f"grid_bake_cells_per_step={bake} must divide grid_res^3="
             f"{self.cells.shape[0]}: the bake would double-write cells")
+        for what, n in (("grid_bake_cells_per_step", bake),
+                        ("vision_data.train_rays_per_batch",
+                         config.vision_data.train_rays_per_batch),
+                        ("audio_data.batch_size", config.audio_data.batch_size)):
+            if n % self.world:
+                raise ValueError(f"{what}={n} does not divide over "
+                                 f"{self.world} ranks")
         self.folded_bake = folded_bake_supported(grid_res, bake)
         self.folded_dtype = torch.bfloat16 if self.mixed else torch.float32
         # an empty grid at cursor and step 0; bridge.load_joint_state
@@ -401,11 +437,18 @@ class JointPipeline:
         if draws is None:
             draws = self.draw(images.shape[0], images.shape[1], images.shape[2],
                               num_recordings(audio_arrays))
-        d = {k: torch.as_tensor(draws[k], device=self.device) for k in DRAW_KEYS}
+        # under a mesh, this rank's block of the global draws
+        d = shard_batch({k: torch.as_tensor(draws[k], device=self.device)
+                         for k in DRAW_KEYS}, self.mesh)
         self._mark("start")
         rays = generate_rays(cam_arrays, d["cam"], d["px"], d["py"])
         gt_rgb = images[d["cam"], d["py"], d["px"]]
         batch = resolve_audio_batch(audio_arrays, d["rec"], d["t"])
+        if batch["data"].shape[0] != d["rec"].shape[0]:
+            raise ValueError(
+                f"a streamed batch of {batch['data'].shape[0]} STFT slices "
+                f"for a step of {d['rec'].shape[0]} (a rank's block comes "
+                f"from StreamingAudioSampler(mesh=...))")
         active = self.step > tcfg.start_step_audio
         self.resnet.set_update_stats(active)
 
@@ -413,11 +456,14 @@ class JointPipeline:
             rays, train=True, anneal=self.anneal(),
             jitter=[d[k].to(torch.float32).reshape(d[k].shape[0], -1)
                     for k in ("u_init", "u_pdf0", "u_pdf1")])
-        losses = self.vision_model.loss(vout, gt_rgb)
+        losses = self.vision_model.loss(vout, gt_rgb, self.mesh)
         self._mark("vision_forward")
-        fresh = compute_fresh_cells(
-            self.vision_model.query_density_rgb, self.cursor, self.cells,
-            self.vision_aabb, tcfg.grid_bake_cells_per_step, self.view_dirs)
+        # this rank's block of the cursor batch, then every rank's
+        n_bake = tcfg.grid_bake_cells_per_step // self.world
+        fresh = all_gather_batch(compute_fresh_cells(
+            self.vision_model.query_density_rgb,
+            self.cursor + self.rank * n_bake, self.cells, self.vision_aabb,
+            n_bake, self.view_dirs), self.mesh)
         if self.grid_folded is not None:
             # the flat grid is bookkeeping; the live slab is spliced into
             # the folded state, which is not written again before backward
@@ -438,7 +484,8 @@ class JointPipeline:
                                     grid_feature=feat.float())
         # the masked losses still backpropagate (zeros): every group steps
         mask = 1.0 if active else 0.0
-        for k, v in self.audio_model.loss(aout.float(), batch["data"]).items():
+        for k, v in self.audio_model.loss(aout.float(), batch["data"],
+                                          self.mesh).items():
             losses[k] = v * mask
         total = sum(losses.values())
         self._mark("audio_forward")
@@ -447,6 +494,10 @@ class JointPipeline:
             opt.opt.zero_grad(set_to_none=True)
         total.backward()
         self._mark("backward")
+        if self.mesh is not None:
+            average_gradients([p for opt in self.optimizers.values()
+                               for p in opt.params], self.mesh)
+            self._mark("all_reduce")
         lrs = {"lr_fields": self.optimizers["fields"].lr,
                "lr_audio_fields": self.optimizers["audio_fields"].lr}
         for opt in self.optimizers.values():
@@ -532,6 +583,11 @@ class JointPipeline:
         are used). `draws` holds cam, py, px, rec, t (numpy or tensors),
         else eval_draws() makes them."""
         images = image_arrays["images"]
+        if self.mesh is not None and "data" in audio_arrays:
+            # a rank's block of a streamed batch: the eval takes the whole
+            audio_arrays = {**audio_arrays, **{
+                k: all_gather_batch(audio_arrays[k], self.mesh)
+                for k in ("data", "audio_idx", "time_query")}}
         if draws is None:
             draws = self.eval_draws(images.shape[0], images.shape[1],
                                     images.shape[2],
@@ -718,7 +774,14 @@ class JointPipeline:
         vectors averaged on the host -> the same keys as the reference's,
         fps_audio over the whole sweep. The batched estimators may flip a
         borderline invalid-T60 flag on a degenerate RIR against the host
-        path, which stays the metric of record."""
+        path, which stays the metric of record.
+
+        Under a data mesh every rank calls it: each chunk's RIRs fan out
+        over the ranks in contiguous blocks, each with its rows of the
+        chunk's Griffin-Lim angles, and the per-RIR vectors are gathered on
+        every rank before the mean. A chunk that does not divide over the
+        ranks is padded with copies of its last RIR, whose results are
+        dropped (as XLA pads an uneven shard)."""
         cfg = self.audio_model.config
         o = dataset.outputs
         n = len(o.audio_filenames)
@@ -739,17 +802,23 @@ class JointPipeline:
             feat = self._grid_feature_eval()
             for i in range(0, n, chunk):
                 m = min(chunk, n - i)
-                sl = slice(i, i + m)
-                mic, src, rot, gt_log, gt_wav = _as_f32(
-                    self.device, o.microphone_poses[sl], o.source_poses[sl],
-                    o.rotations[sl], log_all[sl], wav_all[sl])
+                # this rank's rows of the chunk (all of them on one device)
+                b = -(-m // self.world)
+                lo = self.rank * b
+                rows = (slice(lo, lo + b) if lo + b <= m
+                        else np.minimum(np.arange(lo, lo + b), m - 1))
+                mic, src, rot, gt_log, gt_wav = _as_f32(self.device, *(
+                    a[i:i + m][rows] for a in (
+                        o.microphone_poses, o.source_poses, o.rotations,
+                        log_all, wav_all)))
                 mag_pred = log_to_magnitude(self._render_log(feat, mic, src, rot))
-                wav_pred = gl_waveforms(cfg, mag_pred, angles[:m])
+                wav_pred = gl_waveforms(cfg, mag_pred, angles[:m][rows])
                 vals = device_rir_metrics(wav_pred, gt_wav, mag_pred,
                                           log_to_magnitude(gt_log),
                                           cfg.dataset, cfg.fs)
                 for k, v in vals.items():
-                    per_rir.setdefault(k, []).append(v.cpu().numpy())
+                    per_rir.setdefault(k, []).append(
+                        all_gather_batch(v, self.mesh)[:m].cpu().numpy())
             synchronize(self.device)
             dt = time.perf_counter() - t0
         out = {k: float(np.mean(np.concatenate(v))) for k, v in per_rir.items()}

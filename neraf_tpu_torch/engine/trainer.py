@@ -19,6 +19,17 @@ raised inside step_fn can leave that step partly applied: then nothing is
 saved, and a resume starts from the last periodic checkpoint (the JAX
 package saves nothing there either, once its step has consumed the
 state's buffers).
+
+Under a data mesh (`mesh`, parallel/sharding.py) every rank runs the same
+loop and cadence with its own Trainer; rank 0 alone writes the run
+directory (config.yml, metrics.jsonl, checkpoints, the emergency
+checkpoint); before each periodic save the ranks check that their
+replicated state (parallel/sharding.py::replicated_state) is rank 0's,
+bitwise, and raise if not, and after it they wait at a barrier. A
+resume loads the checkpoint on rank 0, and maybe_resume then hands rank
+0's state to every rank (parallel/sharding.py::broadcast_state), with or
+without a checkpoint. The checkpoint format does not depend on the number
+of ranks.
 """
 
 from __future__ import annotations
@@ -36,6 +47,11 @@ from neraf_tpu_torch.engine.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
 )
+from neraf_tpu_torch.parallel.sharding import (
+    broadcast_state,
+    replica_mismatches,
+    replicated_state,
+)
 from neraf_tpu_torch.utils.writer import MetricsWriter
 
 
@@ -44,6 +60,7 @@ class Trainer:
     config: ExperimentConfig
     pipeline: Any  # JointPipeline or AudioEngine
     output_dir: Path | None = None
+    mesh: Any = None  # parallel/sharding.py's DataMesh of a multi-rank run
 
     def __post_init__(self):
         cfg = self.config
@@ -53,27 +70,48 @@ class Trainer:
                                cfg.method_name / stamp)
         self.output_dir = Path(self.output_dir)
         self.ckpt_dir = self.output_dir / "neraf_models"
-        self.writer = MetricsWriter(self.output_dir)
+        # rank 0 of a multi-rank run writes the run directory
+        self.writes = self.mesh is None or self.mesh.rank == 0
+        self.writer = MetricsWriter(self.output_dir) if self.writes else None
         self.timings: list[tuple[int, str, float]] = []
 
     def save_run_config(self):
-        save_config(self.config, self.output_dir / "config.yml")
+        if self.writes:
+            save_config(self.config, self.output_dir / "config.yml")
+
+    def _write(self, step: int, scalars: dict, prefix: str) -> None:
+        if self.writes:
+            self.writer.write_scalars(step, scalars, prefix=prefix)
 
     def maybe_resume(self, state, load_dir: str | None):
         """Restore the latest checkpoint under load_dir into state ->
-        (state, its step); (state, 0) without a load_dir."""
-        if load_dir is None:
-            return state, 0
-        path = latest_checkpoint(load_dir)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoints under {load_dir}")
-        restore_checkpoint(path, state)
-        return state, int(state.step)
+        (state, its step); (state, 0) without a load_dir. Under a mesh,
+        rank 0 restores and every rank then takes rank 0's state."""
+        if load_dir is not None:
+            path = latest_checkpoint(load_dir)
+            if path is None:
+                raise FileNotFoundError(f"no checkpoints under {load_dir}")
+            if self.writes:
+                restore_checkpoint(path, state)
+        broadcast_state(state, self.mesh)
+        return state, int(state.step) if load_dir is not None else 0
 
-    def _save(self, step: int, state) -> None:
+    def _save(self, step: int, state, wait: bool = True) -> None:
+        """Rank 0 writes the checkpoint; with `wait`, every rank first
+        checks that its replicated state is rank 0's, bitwise (a rank that
+        diverged raises on every rank), and waits for the others after."""
         t0 = time.perf_counter()
-        save_checkpoint(self.ckpt_dir, step, state,
-                        keep_all=not self.config.trainer.save_only_latest_checkpoint)
+        if wait and self.mesh is not None:
+            bad = replica_mismatches(replicated_state(state), self.mesh)
+            if bad:
+                raise RuntimeError(f"step {step}: the ranks' {bad} differ "
+                                   f"from rank 0's")
+        if self.writes:
+            save_checkpoint(
+                self.ckpt_dir, step, state,
+                keep_all=not self.config.trainer.save_only_latest_checkpoint)
+        if wait and self.mesh is not None:
+            self.mesh.barrier()
         self.timings.append((step, "save", time.perf_counter() - t0))
 
     def _timed(self, step: int, what: str, fn, *args):
@@ -115,7 +153,10 @@ class Trainer:
 
     def _emergency_save(self, latest) -> None:
         """Save `latest` (None while a step was running: its state may be
-        partly updated) unless its step's checkpoint exists."""
+        partly updated) unless its step's checkpoint exists; rank 0 alone,
+        without waiting for the others (one of them may have failed)."""
+        if not self.writes:
+            return
         if latest is None:
             print("no emergency checkpoint: the exception interrupted a step")
             return
@@ -124,7 +165,7 @@ class Trainer:
             print(f"no emergency checkpoint: step {step}'s is on disk")
             return
         try:
-            self._save(step, latest)
+            self._save(step, latest, wait=False)
             print(f"emergency checkpoint saved at step {step}")
         except Exception as err:  # the original exception is re-raised
             print(f"emergency checkpoint failed: {err!r}")
@@ -143,25 +184,23 @@ class Trainer:
                 scalars = {k: float(v) for k, v in metrics.items()}
                 scalars["steps_per_sec"] = tcfg.steps_per_log / (now - t_last)
                 t_last = now
-                self.writer.write_scalars(step + 1, scalars, prefix="train")
+                self._write(step + 1, scalars, "train")
                 if on_metrics is not None:
                     on_metrics(step + 1, scalars)
 
             if eval_batch_fn is not None and (step + 1) % tcfg.steps_per_eval_batch == 0:
-                self.writer.write_scalars(
-                    step + 1, self._timed(step + 1, "eval_batch", eval_batch_fn,
-                                          state), prefix="eval_batch")
+                self._write(step + 1, self._timed(
+                    step + 1, "eval_batch", eval_batch_fn, state), "eval_batch")
 
             if eval_image_fn is not None and (step + 1) % tcfg.steps_per_eval_image == 0:
-                self.writer.write_scalars(
-                    step + 1, self._timed(step + 1, "eval_image", eval_image_fn,
-                                          state, step + 1), prefix="eval_image")
+                self._write(step + 1, self._timed(
+                    step + 1, "eval_image", eval_image_fn, state, step + 1),
+                    "eval_image")
 
             if (step + 1) % tcfg.steps_per_eval_all_images == 0:
                 for name, fn in eval_fns.items():
-                    self.writer.write_scalars(
-                        step + 1, self._timed(step + 1, name, fn, state),
-                        prefix=name)
+                    self._write(step + 1,
+                                self._timed(step + 1, name, fn, state), name)
 
             if (step + 1) % tcfg.steps_per_save == 0:
                 self._save(step + 1, state)

@@ -1,37 +1,56 @@
 """Spectral losses for acoustic-field training and the quick eval
 (counterpart of neraf_tpu/metrics/losses.py: the reference's STFTLoss and
-the SING spectral loss)."""
+the SING spectral loss).
+
+The training losses take the data mesh (parallel/sharding.py) of a step
+whose batch is sharded over ranks, and then return the loss of the global
+batch on every rank, as the JAX package's losses give it under its mesh:
+the spectral convergence, a ratio of norms over the whole batch, from the
+squared norms summed over ranks before the square roots (the mean of the
+ranks' ratios is another loss), a mean as the mean of the ranks' means
+(blocks of equal size). Both are differentiable through the ranks'
+collectives."""
 
 from __future__ import annotations
 
 import torch
 
+from neraf_tpu_torch.parallel.sharding import all_reduce_sum, global_mean
 
-def spectral_convergence_loss(x_mag: torch.Tensor,
-                              y_mag: torch.Tensor) -> torch.Tensor:
-    """||y - x||_F / ||y||_F on magnitude spectrograms."""
-    return torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
+
+def spectral_convergence_loss(x_mag: torch.Tensor, y_mag: torch.Tensor,
+                              mesh=None) -> torch.Tensor:
+    """||y - x||_F / ||y||_F on magnitude spectrograms, over the global
+    batch under a mesh."""
+    if mesh is None:
+        return (torch.linalg.vector_norm(y_mag - x_mag)
+                / torch.linalg.vector_norm(y_mag))
+    sq = all_reduce_sum(torch.stack([((y_mag - x_mag) ** 2).sum(),
+                                     (y_mag ** 2).sum()]), mesh)
+    return torch.sqrt(sq[0]) / torch.sqrt(sq[1])
 
 
 def log_stft_magnitude_loss(x_log: torch.Tensor, y_log: torch.Tensor,
-                            loss_type: str = "l1") -> torch.Tensor:
-    """L1 or MSE between log-magnitude spectrograms."""
+                            loss_type: str = "l1", mesh=None) -> torch.Tensor:
+    """L1 or MSE between log-magnitude spectrograms (the global batch's
+    under a mesh)."""
     if loss_type == "l1":
-        return torch.mean(torch.abs(y_log - x_log))
+        return global_mean(torch.mean(torch.abs(y_log - x_log)), mesh)
     if loss_type == "mse":
-        return torch.mean((y_log - x_log) ** 2)
+        return global_mean(torch.mean((y_log - x_log) ** 2), mesh)
     raise ValueError(f"unknown loss_type {loss_type!r}")
 
 
 def stft_loss(x_log: torch.Tensor, y_log: torch.Tensor,
-              loss_type: str = "mse") -> dict:
+              loss_type: str = "mse", mesh=None) -> dict:
     """Spectral convergence on magnitudes exp(x) - 1e-3, the magnitude term
-    in log space."""
+    in log space (the global batch's under a mesh)."""
     x_mag = torch.exp(x_log) - 1e-3
     y_mag = torch.exp(y_log) - 1e-3
     return {
-        "audio_sc_loss": spectral_convergence_loss(x_mag, y_mag),
-        "audio_mag_loss": log_stft_magnitude_loss(x_log, y_log, loss_type),
+        "audio_sc_loss": spectral_convergence_loss(x_mag, y_mag, mesh),
+        "audio_mag_loss": log_stft_magnitude_loss(x_log, y_log, loss_type,
+                                                  mesh),
     }
 
 

@@ -23,6 +23,7 @@ from neraf_tpu_torch.ops.encodings import (
     nerf_encoding_dim,
     sh_encoding,
 )
+from neraf_tpu_torch.parallel.sharding import global_mean
 
 TIME_ENC_DIM = nerf_encoding_dim(1, 10)  # 21
 POS_ENC_DIM = nerf_encoding_dim(3, 10)  # 63
@@ -110,15 +111,18 @@ class AudioModel(nn.Module):
             h = torch.cat([feat, h], dim=-1)
         return self.field(h)
 
-    def loss(self, predicted: torch.Tensor, gt: torch.Tensor) -> dict:
+    def loss(self, predicted: torch.Tensor, gt: torch.Tensor,
+             mesh=None) -> dict:
         """The training loss dict with the reference's weighting: SC at
-        1e-1 and the log-magnitude term at 1, both times loss_factor."""
+        1e-1 and the log-magnitude term at 1, both times loss_factor; the
+        global batch's under a data mesh (metrics/losses.py)."""
         cfg = self.config
         if cfg.criterion == "MSE":
-            return {"audio_mse": torch.mean((predicted - gt) ** 2)
-                    * cfg.loss_factor}
+            return {"audio_mse": global_mean(torch.mean((predicted - gt) ** 2),
+                                             mesh) * cfg.loss_factor}
         parts = stft_loss(predicted, gt,
-                          loss_type="mse" if "MSE" in cfg.criterion else "l1")
+                          loss_type="mse" if "MSE" in cfg.criterion else "l1",
+                          mesh=mesh)
         return {
             "audio_sc_loss": parts["audio_sc_loss"] * 1e-1 * cfg.loss_factor,
             "audio_mag_loss": parts["audio_mag_loss"] * 1.0 * cfg.loss_factor,

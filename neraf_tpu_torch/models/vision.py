@@ -36,6 +36,7 @@ from neraf_tpu_torch.ops.samplers import (
     pdf_spacing_bins,
     uniform_spacing_bins,
 )
+from neraf_tpu_torch.parallel.sharding import global_mean
 
 
 class VisionModel(nn.Module):
@@ -124,9 +125,11 @@ class VisionModel(nn.Module):
             "spacing_list": spacing_list,
         }
 
-    def loss(self, outputs: dict, gt_rgb: torch.Tensor) -> dict:
+    def loss(self, outputs: dict, gt_rgb: torch.Tensor, mesh=None) -> dict:
         """rgb MSE, interlevel (each proposal level against the final
-        weights) and distortion losses, with their multipliers."""
+        weights) and distortion losses, with their multipliers; means over
+        the rays, of the global batch under a data mesh (the mean of the
+        ranks' means, parallel/sharding.py::global_mean)."""
         cfg = self.config
         losses = {"rgb_loss": torch.mean((outputs["rgb"] - gt_rgb) ** 2)}
         w_final = outputs["weights_list"][-1]
@@ -138,7 +141,10 @@ class VisionModel(nn.Module):
         losses["interlevel_loss"] = cfg.interlevel_loss_mult * inter
         losses["distortion_loss"] = cfg.distortion_loss_mult * distortion_loss(
             w_final, ss, se)
-        return losses
+        if mesh is None:
+            return losses
+        values = global_mean(torch.stack(list(losses.values())), mesh)
+        return dict(zip(losses, values.unbind()))
 
     def query_density_rgb(self, positions: torch.Tensor,
                           directions: torch.Tensor):

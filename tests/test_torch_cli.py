@@ -25,9 +25,8 @@ package's, on the CPU.
   evaluate_audio, whose keys tests/test_torch_eval_paths.py holds to
   JAX's); AVN_RENDER_POSES renders a trajectory's STFTs; a streamed run
   (--streaming on, joint and --audio-only, and "auto" over a threshold of
-  0) trains and writes the resident run's records; --num-devices above 1,
-  whose part of the system is not ported, raises NotImplementedError;
-  every CLI's flags
+  0) trains and writes the resident run's records (--num-devices above 1
+  is held by tests/test_torch_parallel.py); every CLI's flags
   and defaults are the JAX CLI's (--viewer-port, ported now, is held by
   tests/test_torch_serving.py).
 """
@@ -533,13 +532,6 @@ def test_inference_mode_renders_the_trajectory(runs, tmp_path, monkeypatch):
     assert [p.name for p in stfts] == [f"stft_{i:05d}.npy" for i in range(3)]
     assert all(np.isfinite(np.load(p)).all() and np.load(p).shape == (2, 257, 12)
                for p in stfts)
-
-
-@pytest.mark.parametrize("extra,sets", [(("--num-devices", "2"), ())])
-def test_unported_flags_raise(scene_root, tmp_path, extra, sets):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        _train(scene_root, tmp_path / "run", 1, *extra, sets=(*EVALS_OFF, *sets))
-    assert not (tmp_path / "run" / "neraf_models").exists()
 
 
 @pytest.mark.parametrize("extra,sets", [

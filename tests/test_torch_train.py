@@ -74,7 +74,7 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
     matplotlib, PIL, torchaudio, yaml, tensorboard, orbax nor ml_dtypes,
     which the card's machine lacks; the public builders, pipelines,
     engines, CLIs and the streaming sampler run on the card unless asked
-    for the CPU."""
+    for the CPU, and so do a data mesh's ranks (parallel/sharding.py)."""
     files = sorted((REPO / "neraf_tpu_torch").rglob("*.py")) + [
         REPO / "scripts" / "validate_joint_torch.py",
         REPO / "scripts" / "validate_audio_torch.py", REPO / "chip_smoke.py"]
@@ -102,7 +102,8 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
             "engine/checkpoints.py", "engine/audio_engine.py",
             "configs/config.py", "configs/yaml_subset.py", "utils/png.py",
             "utils/wav.py", "utils/writer.py", "dsp/resample.py",
-            "data/streaming.py", "metrics/lpips_impl.py"} <= names
+            "data/streaming.py", "metrics/lpips_impl.py",
+            "parallel/__init__.py", "parallel/sharding.py"} <= names
     from neraf_tpu_torch.cli import evaluate as cli_evaluate
     from neraf_tpu_torch.cli import train as cli_train
     from neraf_tpu_torch.data.streaming import StreamingAudioSampler
@@ -116,6 +117,11 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                loader.audio_arrays, datasets.AudioSliceDataset.slice_arrays,
                StreamingAudioSampler):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # a mesh's ranks default to the cards: none here
+    from neraf_tpu_torch.parallel.sharding import make_mesh
+
+    with pytest.raises(ValueError, match="requested 2 devices, have 0"):
+        make_mesh(2, rank=0)
     for name in ("render_rirs", "eval_loss_dict", "eval_image", "render_image",
                  "evaluate_vision", "query_grid_full", "evaluate_audio",
                  "evaluate_audio_device"):
