@@ -188,16 +188,31 @@ Phases, each fatal on failure:
      against the JAX package's default separable layout (three 1-D pools,
      a yardstick written here) at the stem's output of the folded 128^3
      state (1, 64, 64^3) in bf16, fwd + bwd timed in turns, values equal;
- 26. the data mesh (parallel/sharding.py): two ranks on card 0 over gloo
-     (this process and one spawned) against one rank, the full-width
+ 26. the data mesh (parallel/sharding.py, parallel/depth_split.py): the
+     stem kernel on ranks' slabs of the step's folded volume (2 ranks'
+     both slabs, 3 ranks' middle one) against its plain version in float64
+     and cuDNN's weight gradient on the same slab, the 2 slabs summed
+     against the whole volume's, each timed; then two ranks on card 0 over
+     gloo (this process and one spawned) against one rank, the full-width
      joint step in bf16 on the bench.py inputs with the audio branch live,
-     3 steps each from the one rank's state at the same global draws:
-     losses and the step-0 gradients gated against the one rank's, the
-     replicated state bitwise equal across ranks after every step, 4 + 4
-     PE+MLP launches a step on each rank, each rank's ms a step and the
-     gradient all_reduce's ms; then evaluate_audio_device on 1,024
-     synthetic RIRs at chunks of 512, 2 ranks against 1 at
-     tests/test_parallel.py's bounds, 2 GL launches on each rank; where
+     each step from the one rank's state at the same global draws: the
+     ResNet split by depth, 3 steps with the stem kernel's gate off and 3
+     with it on (losses every step; the feature, the BatchNorm statistics
+     and the step-0 gradients gated against the one rank's), then whole
+     on every rank, 2 steps for its stage times (its gradients held to
+     the one rank's by relative L2 alone), then one split step in
+     float32 against the one rank's float32 step (the feature, the
+     BatchNorm statistics and the ResNet gradients from one cotangent
+     to a share of their peak, the rest end to end), and ResNet3D-50
+     alone in float64 over a random volume, split against whole (the
+     features, statistics and every gradient); the replicated state
+     bitwise equal across ranks after every step, 4 + 4 PE+MLP launches a
+     step on each rank (and 1 stem launch with the gate on), each rank's
+     ms a step, the gradient all_reduce's ms and the resnet_forward and
+     backward stages split against whole; then evaluate_audio_device on
+     1,024 synthetic RIRs at chunks of 512, 2 ranks against the one rank
+     from the ranks' eval feature at tests/test_parallel.py's bounds, the
+     eval features held to each other, 2 GL launches on each rank; where
      the machine has more than one card, cli.train --num-devices 2 (and
      4) over NCCL on a scene as phase 21's, each save checking the ranks'
      state bitwise; with one card it prints that no multi-card run took
@@ -1570,8 +1585,9 @@ def device_kernels(torch, fn) -> list:
 
 
 def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
     return float((got.double() - want.double()).abs().max()
-                 / want.double().abs().max())
+                 / max(float(want.double().abs().max()), 1e-30))
 
 
 def stem_folded(torch, dev, R: int = 128, bake: int = 4096) -> dict:
@@ -3527,8 +3543,9 @@ def pool_layouts(torch, dev, rounds: int = 7) -> dict:
 # same card, at full width in bf16, every step from the same state and
 # global draws. The ranks' kernels see the same rows as the one rank's (a
 # row's PE+MLP, bake and renderer values do not depend on the batch
-# beside it) and the same replicated grid in the ResNet; what differs is
-# the order of the sums: each rank's dW, loss means and
+# beside it) and, with the ResNet whole, the same replicated grid in it
+# (the split's own differences: MESH_FEATURE_REL_L2 below); what differs
+# is the order of the sums: each rank's dW, loss means and
 # spectral-convergence norms over its half, added across ranks after, and
 # cuBLAS's choice of kernel for the audio field's half-size GEMMs, whose
 # bf16 outputs may round the other way. Losses: the vision ones 1e-5
@@ -3556,6 +3573,66 @@ MESH_VISION_LOSSES = ("rgb_loss", "interlevel_loss", "distortion_loss")
 MESH_AUDIO_LOSSES = ("audio_sc_loss", "audio_mag_loss")
 MESH_GRAD_REL_L2 = 5e-2
 MESH_EVAL_RTOL, MESH_EVAL_ATOL = 2e-4, 1e-5
+# The depth split: the ranks run the ResNet on depth slabs
+# (parallel/depth_split.py), so their bf16 feature, BatchNorm statistics
+# and ResNet gradients are the one rank's up to the rounding of convs
+# on other shapes (cuDNN may take another algorithm for a slab plus its
+# halo) and of statistics merged from the ranks' f32 (mean, M2). Feature
+# (train step and eval sweep) and each BatchNorm statistic by relative L2,
+# 2e-2: ~50 bf16 layers that each round 2^-9 of a value differently give
+# ~sqrt(50) 2^-9 = 1.4e-2; a dropped halo plane, BatchNorm reduction or
+# pool sum is O(1e-1) or more. Gradients keep MESH_GRAD_REL_L2. The audio
+# losses are held to the one rank's field on the ranks' halves with the
+# ranks' own feature (MeshHalves.feature), and the sweep to the one rank's
+# sweep with the ranks' eval feature, so that those gates still see only
+# the fan-out's summation order.
+MESH_FEATURE_REL_L2 = MESH_STATS_REL_L2 = 2e-2
+# In the split variants (the replicated one holds every gradient to
+# MESH_GRAD_REL_L2), a gradient beyond MESH_GRAD_REL_L2 of the one rank's
+# must be no further
+# from the one rank's float32 step (same state and draws) than
+# MESH_VS_F32 times the one rank's own bf16 step is. The split rounds the
+# ResNet's bf16 activations differently from the one rank, and BatchNorm
+# on the bench inputs' grid amplifies bf16 rounding in its gradients to
+# tens of percent relative L2 from float32 on either side, so two bf16
+# steps sit about as far from float32 each (a ratio near 1, the worst of
+# ~160 tensors somewhat above it), while a wrong scale or a dropped
+# collective moves a gradient by 50-100% on top of that (a ratio of 2.5
+# or more).
+MESH_VS_F32 = 2.0
+# The split step in float32 (split_f32_step): the ranks' step on a
+# float32 pipeline of their own against the one rank's float32 step from
+# the same state. Losses MESH_LOSS_RTOL; the feature and each BatchNorm
+# statistic within MESH_F32_STATE_TOL of their peak
+# (tests/test_torch_parallel.py's SPLIT_STATE_TOL); the feature's
+# cotangent and the acoustic field's gradients, upstream of the ResNet's
+# backward, by relative L2, MESH_F32_E2E_REL_L2: an acoustic-field ReLU
+# within float32 rounding of 0 may flip between the split and the whole
+# feature (6e-4 of the cotangent's peak on the CPU at 3 ranks), where a
+# dropped collective or a wrong factor of N is 1e-1 or more. The ResNet's
+# gradients (from the ranks' cotangent) and the vision fields' (the bake
+# carries the ResNet's backward into them) are printed, not gated: on the
+# bench state's near-empty grid whole channels sit at a ReLU's kink, in
+# float32 as in bf16; the first run read 0.113 of a ResNet gradient's
+# peak between the split and one rank (ROADMAP.md fault (b): 9.2e-2
+# between the card and the CPU, one rank each). The float64 check holds
+# them instead: ResNet3D-50 alone over a random 7 x 128^3 volume
+# (split_resnet_f64), split on the ranks against whole on one, the
+# features, the BatchNorm statistics and every gradient within
+# MESH_F64_TOL of their peak (the CPU tests' SPLIT_F64_TOL), where no
+# unit sits within rounding of a kink.
+MESH_F32_STATE_TOL = 1e-5
+MESH_F32_E2E_REL_L2 = 1e-2
+MESH_F64_TOL = 1e-6
+# (variant, the stem kernel's gate, steps): the split step with the gate
+# off and on, then the ResNet run whole on every rank (as before the
+# split) for its stage times only
+MESH_VARIANTS = (("split", False, MESH_STEPS), ("split_gate", True, MESH_STEPS),
+                 ("replicated", False, 2))
+# the stem kernel on a rank's slab of the step's folded volume (64 planes):
+# (ranks, rank) of each slab, one starting on an even and one on an odd
+# plane among them
+MESH_STEM_SLABS = ((2, 0), (2, 1), (3, 1))
 
 
 def free_port() -> int:
@@ -3590,6 +3667,9 @@ class MeshHalves:
     def __init__(self, audio_model, n: int):
         self.n, self.busy = n, False
         self.full = self.halves = None
+        # the ranks' grid feature, which the halves take in place of the
+        # one rank's own when set
+        self.feature = None
         self.handle = audio_model.register_forward_hook(self, with_kwargs=True)
 
     def __call__(self, module, args, kwargs, output):
@@ -3599,12 +3679,15 @@ class MeshHalves:
 
         batch, aabb = args
         b = batch["data"].shape[0] // self.n
+        kw = dict(kwargs)
+        if self.feature is not None:
+            kw["grid_feature"] = self.feature
         self.busy = True
         try:
             with torch.no_grad():
                 parts = torch.cat([module(
                     {k: v[r * b:(r + 1) * b] for k, v in batch.items()}, aabb,
-                    **kwargs) for r in range(self.n)])
+                    **kw) for r in range(self.n)])
                 self.full = {k: float(v) for k, v in module.loss(
                     output.detach().float(), batch["data"]).items()}
                 self.halves = {k: float(v) for k, v in module.loss(
@@ -3618,9 +3701,14 @@ def named_grads(pipe) -> dict:
             for k, p in mod.named_parameters()}
 
 
-def mesh_rank(rank: int, world: int, init: str, out: str) -> None:
+def mesh_rank(rank: int, world: int, init: str, out: str,
+              variants=MESH_VARIANTS, sweep: bool = True, setup=None) -> None:
     """A spawned rank of phase 26 (rank 0 is the main process): its half
-    of the steps and the sweep, what it measured written to `out`."""
+    of the steps (and of the sweep), what it measured written to `out`;
+    `setup`, given, runs first (scripts/split_mutants_card.py plants a
+    dropped collective with it)."""
+    if setup is not None:
+        setup()
     import torch
 
     from neraf_tpu_torch.parallel.sharding import make_mesh
@@ -3628,17 +3716,48 @@ def mesh_rank(rank: int, world: int, init: str, out: str) -> None:
     mesh = make_mesh(world, ["cuda:0"] * world, backend="gloo", rank=rank,
                      init_method=init)
     try:
-        Path(out).write_text(json.dumps(mesh_steps(torch, mesh, None)))
+        Path(out).write_text(json.dumps(
+            mesh_steps(torch, mesh, None, None, variants, sweep)))
     finally:
         mesh.close()
 
 
-def mesh_steps(torch, mesh, ref) -> dict:
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm()
+                 / max(float(want.double().norm()), 1e-30))
+
+
+@contextlib.contextmanager
+def whole_resnet(resnet):
+    """The ResNet run whole on every rank under the mesh, as before the
+    depth split: its forward with the mesh dropped."""
+    from neraf_tpu_torch.models.resnet3d import ResNet3D
+
+    resnet.forward = lambda x, bake_slab=None, mesh=None: ResNet3D.forward(
+        resnet, x, bake_slab)
+    try:
+        yield
+    finally:
+        del resnet.forward
+
+
+def bn_stats(pipe) -> dict:
+    return {k: v for k, v in pipe.resnet.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
+               sweep: bool = True) -> dict:
     """Phase 26's work on every rank: the full-width pipeline on the mesh,
-    MESH_STEPS steps each from `ref`'s state (rank 0 copies it in and
-    broadcasts it) with their launches, ms and cross-rank mismatches, then
-    evaluate_audio_device on EVAL_RIRS synthetic RIRs; rank 0 also steps
-    and sweeps `ref` (one rank, mesh None) and compares."""
+    for each of `variants` its steps each from `ref`'s state (rank 0
+    copies it in and broadcasts it) with their launches, ms, stage ms and
+    cross-rank mismatches, then (with `sweep`) evaluate_audio_device on
+    EVAL_RIRS synthetic RIRs, then the float32 split step
+    (split_f32_step); rank 0 also steps and sweeps `ref` (one rank, mesh
+    None) and compares: losses every step, the feature, the BatchNorm
+    statistics and the gradients at each variant's step 0 (the gradients
+    also against `ref32`, the one rank in float32, stepped from the same
+    state), the sweep with the ranks' eval feature."""
     from neraf_tpu_torch.data.synthetic import synth_scene
     from neraf_tpu_torch.engine.factory import build_joint_pipeline
     from neraf_tpu_torch.parallel.sharding import (
@@ -3647,91 +3766,366 @@ def mesh_steps(torch, mesh, ref) -> dict:
         replicated_state,
     )
 
+    # float32 convs in float32 on every rank (rank 0's stem_slab_check
+    # sets it too), for the float32 step's gates
+    torch.backends.cudnn.allow_tf32 = False
     pipe = build_joint_pipeline(grid_res=128, tiny=False, seed=0, mesh=mesh)
     cams, audio, images = bench_inputs(torch, pipe.device)
-    out = {"steps": [], "loss_rel": [], "audio_vs_whole": [],
-           "halves_vs_whole": [], "grad_rel_l2": None}
+    out = {"variants": {}}
     halves = None if ref is None else MeshHalves(ref.audio_model,
                                                  mesh.world_size)
+    feats = {}
+    hooks = [pipe.resnet.register_forward_hook(
+        lambda mod, args, o: feats.__setitem__("mesh", o.detach()[0].float()))]
+    if ref is not None:
+        hooks.append(ref.resnet.register_forward_hook(
+            lambda mod, args, o: feats.__setitem__("one", o.detach()[0].float())))
 
     def from_ref():
         if ref is not None:
             copy_train_state(torch, pipe, ref)
         broadcast_state(pipe, mesh)
 
-    for k in range(MESH_STEPS):
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    for variant, gate, n_steps in variants:
+        pipe.stem_wgrad_kernel = gate
+        if ref is not None:
+            ref.stem_wgrad_kernel = gate
+        res = {"steps": [], "loss_rel": [], "audio_vs_whole": [],
+               "halves_vs_whole": []}
+        with (whole_resnet(pipe.resnet) if variant == "replicated"
+              else contextlib.nullcontext()):
+            for k in range(n_steps):
+                from_ref()
+                mesh.barrier()  # each rank's clock starts with the state loaded
+                torch.cuda.synchronize()
+                reset_counts()
+                pipe.profile = []
+                t0 = time.perf_counter()
+                m = pipe.train_step(cams, audio, images)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = read_counts()
+                marks, pipe.profile = pipe.profile, None
+                stages = stage_ms(torch, marks)
+                bad = replica_mismatches(replicated_state(pipe), mesh)
+                check_metrics(m, f"mesh {variant} step {k} rank {mesh.rank}")
+                res["steps"].append({"metrics": m, "ms": ms, "launches": counts,
+                                     "all_reduce_ms": stages["all_reduce"],
+                                     "stages": stages, "mismatches": bad})
+                if ref is None:
+                    continue
+                if k == 0:
+                    copy_train_state(torch, ref32, ref)
+                    ref32.stem_wgrad_kernel = gate
+                    ref32.train_step(cams, audio, images)
+                halves.feature = feats["mesh"]
+                m1 = ref.train_step(cams, audio, images)
+                if halves.full != {k2: m1[k2] for k2 in MESH_AUDIO_LOSSES}:
+                    fail(f"mesh: the hook's whole-batch audio losses "
+                         f"{halves.full} are not the step's {m1}")
+                res["loss_rel"].append(
+                    {**{key: rel(m[key], m1[key]) for key in MESH_VISION_LOSSES},
+                     **{key: rel(m[key], halves.halves[key])
+                        for key in MESH_AUDIO_LOSSES}})
+                res["audio_vs_whole"].append({key: rel(m[key], m1[key])
+                                              for key in MESH_AUDIO_LOSSES})
+                res["halves_vs_whole"].append(
+                    {key: rel(halves.halves[key], m1[key])
+                     for key in MESH_AUDIO_LOSSES})
+                if k == 0:
+                    g2, g1 = named_grads(pipe), named_grads(ref)
+                    g32 = named_grads(ref32)
+                    res["grad_rel_l2"] = {name: rel_l2(g2[name], g)
+                                          for name, g in g1.items()}
+                    # each tensor's distance from float32: the ranks', and
+                    # the one rank's bf16 step's
+                    res["grad_vs_f32"] = {
+                        name: [rel_l2(g2[name], g), rel_l2(g1[name], g)]
+                        for name, g in g32.items()}
+                    res["grad_max_rel"] = max(
+                        float((g2[name] - g).abs().max()
+                              / max(float(g.abs().max()), 1e-30))
+                        for name, g in g1.items())
+                    res["feature_rel_l2"] = rel_l2(feats["mesh"], feats["one"])
+                    s2, s1 = bn_stats(pipe), bn_stats(ref)
+                    res["stats_rel_l2"] = {name: rel_l2(s2[name], v)
+                                           for name, v in s1.items()}
+        if halves is not None:
+            halves.feature = None
+        out["variants"][variant] = res
+    if halves is not None:
+        halves.handle.remove()
+    if sweep:
+        cfg = pipe.audio_model.config
+        ds = synth_scene(EVAL_RIRS, fs=cfg.fs, max_len=cfg.max_len, seed=1)
         from_ref()
-        mesh.barrier()  # each rank's clock starts with the state loaded
         torch.cuda.synchronize()
         reset_counts()
-        pipe.profile = []
         t0 = time.perf_counter()
-        m = pipe.train_step(cams, audio, images)
+        metrics = pipe.evaluate_audio_device(ds, chunk=EVAL_CHUNK)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        counts = read_counts()
-        marks, pipe.profile = pipe.profile, None
-        stages = stage_ms(torch, marks)
-        bad = replica_mismatches(replicated_state(pipe), mesh)
-        check_metrics(m, f"mesh step {k} rank {mesh.rank}")
-        out["steps"].append({"metrics": m, "ms": ms, "launches": counts,
-                             "all_reduce_ms": stages["all_reduce"],
-                             "stages": stages, "mismatches": bad})
-        if ref is None:
-            continue
-        m1 = ref.train_step(cams, audio, images)
-        if halves.full != {k: m1[k] for k in MESH_AUDIO_LOSSES}:
-            fail(f"mesh: the hook's whole-batch audio losses {halves.full} "
-                 f"are not the step's {m1}")
-        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
-        out["loss_rel"].append(
-            {**{key: rel(m[key], m1[key]) for key in MESH_VISION_LOSSES},
-             **{key: rel(m[key], halves.halves[key])
-                for key in MESH_AUDIO_LOSSES}})
-        out["audio_vs_whole"].append({key: rel(m[key], m1[key])
-                                      for key in MESH_AUDIO_LOSSES})
-        out["halves_vs_whole"].append(
-            {key: rel(halves.halves[key], m1[key]) for key in MESH_AUDIO_LOSSES})
-        if k == 0:
-            g2, g1 = named_grads(pipe), named_grads(ref)
-            out["grad_rel_l2"] = {
-                name: float((g2[name] - g).float().norm()
-                            / max(float(g.float().norm()), 1e-30))
-                for name, g in g1.items()}
-            out["grad_max_rel"] = max(
-                float((g2[name] - g).abs().max()
-                      / max(float(g.abs().max()), 1e-30))
-                for name, g in g1.items())
-    cfg = pipe.audio_model.config
-    ds = synth_scene(EVAL_RIRS, fs=cfg.fs, max_len=cfg.max_len, seed=1)
-    from_ref()
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    sweep = pipe.evaluate_audio_device(ds, chunk=EVAL_CHUNK)
-    torch.cuda.synchronize()
-    out["sweep"] = {"metrics": sweep, "launches": read_counts(),
-                    "wall_s": time.perf_counter() - t0}
-    if ref is not None:
-        halves.handle.remove()
-        out["ref_sweep"] = ref.evaluate_audio_device(ds, chunk=EVAL_CHUNK)
+        out["sweep"] = {"metrics": metrics, "launches": read_counts(),
+                        "wall_s": time.perf_counter() - t0}
+        if ref is not None:
+            split_feat = feats["mesh"]
+            # the one rank's sweep from the ranks' eval feature: the
+            # fan-out alone; its own eval feature beside the ranks'
+            ref._grid_feature_eval = lambda split=True: split_feat
+            try:
+                out["ref_sweep"] = ref.evaluate_audio_device(
+                    ds, chunk=EVAL_CHUNK)
+            finally:
+                del ref._grid_feature_eval
+            with ref._eval_mode():
+                own = ref._grid_feature_eval()
+            out["eval_feature_rel_l2"] = rel_l2(split_feat, own)
+    for h in hooks:
+        h.remove()
+    del pipe
+    torch.cuda.empty_cache()
+    out["f32"] = split_f32_step(torch, mesh, ref, ref32, (cams, audio, images))
+    torch.cuda.empty_cache()
+    out["f64"] = split_resnet_f64(torch, mesh, ref is not None)
     return out
 
 
-def mesh_phase(torch, dev, tmp) -> dict:
+def split_resnet_f64(torch, mesh, ref: bool) -> dict:
+    """Phase 26: ResNet3D-50 alone in float64 over a random 7 x 128^3
+    volume and feature cotangent (seed 26): the eval feature, then in
+    train mode the feature, the BatchNorm statistics it moves and every
+    gradient of the feature's dot with the cotangent, split over the
+    mesh's ranks (the gradients averaged over them, as a step averages
+    them) and, with `ref` (rank 0), whole on one rank -> each one's error
+    as a share of its peak (rank 0), the ranks' ms and the statistics'
+    cross-rank mismatches."""
+    from neraf_tpu_torch.models.resnet3d import ResNet3D
+    from neraf_tpu_torch.parallel.sharding import (
+        average_gradients,
+        replica_mismatches,
+    )
+
+    def run(m) -> dict:
+        gen = torch.Generator().manual_seed(26)
+        net = ResNet3D("resnet50", 1024)
+        net.reset_parameters(gen)
+        vol = torch.rand((1, 128, 128, 128, 7), generator=gen,
+                         dtype=torch.float64).to(mesh.device)
+        cot = torch.randn((1, net.feature_dim), generator=gen,
+                          dtype=torch.float64).to(mesh.device)
+        net = net.double().to(mesh.device)
+        with torch.no_grad():
+            eval_feat = net(vol, mesh=m)
+        net.train()
+        feat = net(vol, mesh=m)
+        (feat * cot).sum().backward()
+        average_gradients(list(net.parameters()), m)
+        return {"eval_feat": eval_feat, "feat": feat.detach(),
+                "grads": {k: p.grad for k, p in net.named_parameters()},
+                "stats": {k: v for k, v in net.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}}
+
+    mesh.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(mesh)
+    torch.cuda.synchronize()
+    res = {"ms": (time.perf_counter() - t0) * 1e3,
+           "mismatches": replica_mismatches(got["stats"], mesh)}
+    if not ref:
+        return res
+    one = run(None)
+    res.update({
+        "eval_feature_peak": rel_err(got["eval_feat"], one["eval_feat"]),
+        "feature_peak": rel_err(got["feat"], one["feat"]),
+        "stats_peak": {k: rel_err(v, one["stats"][k])
+                       for k, v in got["stats"].items()},
+        "grad_peak": {k: rel_err(v, one["grads"][k])
+                      for k, v in got["grads"].items()}})
+    return res
+
+
+def split_f32_step(torch, mesh, ref, ref32, inputs) -> dict:
+    """Phase 26: one split step in float32 on the ranks (a float32
+    pipeline of their own, the stem kernel's gate off) from `ref`'s state,
+    and on rank 0 the one rank's float32 step (`ref32`) from the same
+    state with the ranks' feature cotangent in place of its own -> each
+    rank's metrics, ms, launches and cross-rank mismatches; on rank 0 also
+    the losses, the feature, the BatchNorm statistics and every gradient
+    against the one rank's (the ResNet's from the one cotangent, the rest
+    end to end) and the cotangent."""
+    import torch.distributed as dist
+
+    from neraf_tpu_torch.engine.factory import build_joint_pipeline
+    from neraf_tpu_torch.parallel.sharding import (
+        broadcast_state,
+        replica_mismatches,
+        replicated_state,
+    )
+
+    pipe = build_joint_pipeline(grid_res=128, tiny=False, seed=0, mesh=mesh,
+                                mixed_precision=False)
+    pipe.stem_wgrad_kernel = False
+    if ref is not None:
+        copy_train_state(torch, pipe, ref)
+    broadcast_state(pipe, mesh)
+    got = {}
+
+    def grab(key, use=None):
+        def hook(mod, args, o):
+            got[f"{key}_feat"] = o.detach().clone()
+
+            def cotangent(g):
+                got[f"{key}_cot"] = g.detach().clone()
+                return use
+            o.register_hook(cotangent)
+        return hook
+
+    handle = pipe.resnet.register_forward_hook(grab("mesh"))
+    mesh.barrier()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        m = pipe.train_step(*inputs)
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    res = {"metrics": m, "ms": (time.perf_counter() - t0) * 1e3,
+           "launches": read_counts(),
+           "mismatches": replica_mismatches(replicated_state(pipe), mesh)}
+    check_metrics(m, f"mesh split_f32 rank {mesh.rank}")
+    # the global cotangent: the ranks' summed over N, as their ResNet
+    # gradients are averaged over N
+    cot = got["mesh_cot"].contiguous()
+    dist.all_reduce(cot, group=mesh.group)
+    cot /= mesh.world_size
+    if ref is None:
+        return res
+    copy_train_state(torch, ref32, ref)
+    ref32.stem_wgrad_kernel = False
+    handle = ref32.resnet.register_forward_hook(grab("one", cot))
+    try:
+        m1 = ref32.train_step(*inputs)
+    finally:
+        handle.remove()
+
+    g2, g1 = named_grads(pipe), named_grads(ref32)
+    s2, s1 = bn_stats(pipe), bn_stats(ref32)
+    res.update({
+        "loss_rel": {k: abs(m[k] - m1[k]) / max(abs(m1[k]), 1e-30)
+                     for k in (*MESH_VISION_LOSSES, *MESH_AUDIO_LOSSES)},
+        "feature_peak": rel_err(got["mesh_feat"], got["one_feat"]),
+        "stats_peak": {k: rel_err(s2[k], v) for k, v in s1.items()},
+        "resnet_grad_peak": {k: rel_err(g2[k], g) for k, g in g1.items()
+                             if k.startswith("resnet.")},
+        "audio_grad_rel_l2": {k: rel_l2(g2[k], g) for k, g in g1.items()
+                              if k.startswith("audio_model.")},
+        "other_grad_rel_l2": {
+            k: rel_l2(g2[k], g) for k, g in g1.items()
+            if not k.startswith(("resnet.", "audio_model."))},
+        "cotangent_rel_l2": rel_l2(cot, got["one_cot"]),
+        "cotangent_peak": rel_err(cot, got["one_cot"])})
+    return res
+
+
+def stem_slab_check(torch, dev) -> dict:
+    """Phase 26: the stem kernel on ranks' slabs of the step's folded
+    volume (MESH_STEM_SLABS), as the split step hands it over
+    (ops/baked_stem.py: the window of the rank's output planes with one
+    halo plane a side, zeros beyond the volume, and the cotangent padded
+    by one zero plane a side): against stem_wgrad_folded_plain in float64
+    on the same inputs (STEM_REL_TOL of the peak) and cuDNN's weight
+    gradient of the window's conv with no depth padding
+    (STEM_CONV_BF16_TOL: cuDNN returns bf16); the two slabs of 2 ranks
+    summed against the kernel on the whole volume (STEM_REL_TOL); the
+    kernel, the plain version and cuDNN timed on each slab beside the
+    kernel's bound, and the kernel's launches counted."""
+    from neraf_tpu_torch.models.grid import fold_volume
+    from neraf_tpu_torch.ops.baked_stem import window_cotangent
+    from neraf_tpu_torch.ops.stem_wgrad import (
+        fold_weight,
+        stem_wgrad,
+        stem_wgrad_folded_plain,
+        stem_wgrad_unfold,
+        unfold_weight,
+    )
+    from neraf_tpu_torch.parallel.depth_split import local_window
+    from neraf_tpu_torch.parallel.sharding import partition
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(26)
+    xf = fold_volume(torch.rand((1, 128, 128, 128, 7), generator=gen,
+                                device=dev), torch.bfloat16)
+    g_all = torch.randn((1, 64, 64, 64, 64), generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    wp = fold_weight(torch.zeros((64, 7, 5, 5, 5), dtype=torch.bfloat16,
+                                 device=dev))
+    rows, partial = {}, []
+    for n, r in MESH_STEM_SLABS:
+        lo, hi = partition(64, n)[r]
+        xw = local_window(xf, 1, lo - 1, hi + 1)
+        g = g_all[:, :, lo:hi]
+        gp = window_cotangent(g)
+        got = stem_wgrad(xw, gp)
+        ref = stem_wgrad_unfold(stem_wgrad_folded_plain(xw.double(),
+                                                         gp.double()))
+        cudnn = lambda: unfold_weight(torch.ops.aten.convolution_backward(
+            g, xw.permute(0, 4, 1, 2, 3), wp, None, (1,) * 3, (0, 1, 1),
+            (1,) * 3, False, (0,) * 3, 1, (False, True, False))[1])
+        lib = cudnn()
+        err, rel = float((got.double() - ref).abs().max()), rel_err(got, ref)
+        lib_rel = rel_err(got, lib.float())
+        if not (rel <= STEM_REL_TOL and lib_rel <= STEM_CONV_BF16_TOL):
+            fail(f"stem wgrad on the slab {lo}-{hi} of {n} ranks: {rel:.3e} "
+                 f"from float64 (tol {STEM_REL_TOL}), {lib_rel:.3e} from "
+                 f"cuDNN (tol {STEM_CONV_BF16_TOL})")
+        if n == 2:
+            partial.append(got)
+        run_k = lambda: stem_wgrad(xw, window_cotangent(g))
+        run_p = lambda: stem_wgrad_unfold(stem_wgrad_folded_plain(
+            xw, window_cotangent(g)))
+        for f in (run_k, run_p, cudnn):
+            f()
+        p1, k1, k2, p2, c1 = (cuda_ms(torch, f, 10) for f in (
+            run_p, run_k, run_k, run_p, cudnn))
+        bound, by = stem_bound_ms(xw, g)
+        rows[f"{n}_ranks_rank{r}"] = {
+            "planes": [lo, hi], "window": list(xw.shape), "max_abs_err": err,
+            "rel_err": rel, "rel_vs_cudnn": lib_rel, "ms": (k1 + k2) / 2,
+            "plain_ms": (p1 + p2) / 2, "library_ms": c1, "bound_ms": bound,
+            "bound_by": by}
+    whole = stem_wgrad(xf, g_all)
+    sum_rel = rel_err(partial[0] + partial[1], whole)
+    if not sum_rel <= STEM_REL_TOL:
+        fail(f"stem wgrad: the 2 ranks' slabs sum to {sum_rel:.3e} of the "
+             f"whole volume's (tol {STEM_REL_TOL})")
+    print(f"stem wgrad on ranks' slabs (bf16, {smi('name,power.limit')}): "
+          f"{json.dumps(rows)}; the 2 ranks' slabs summed vs the whole "
+          f"volume {sum_rel:.3e} (tol {STEM_REL_TOL}); "
+          f"{len(MESH_STEM_SLABS)} checked calls", flush=True)
+    return {"slabs": rows, "sum_vs_whole_rel": sum_rel}
+
+
+def mesh_run(torch, dev, tmp, variants=MESH_VARIANTS, sweep: bool = True,
+             setup=None) -> tuple:
     """Phase 26: two ranks on card 0 (this process rank 0, one spawned),
-    against one rank, at full width; then, where the machine has more
-    than one card, cli.train --num-devices over NCCL (mesh_cli)."""
+    mesh_steps on each of them against one rank (and one rank in
+    float32), at full width; `setup`, given, is run by the spawned rank
+    before it starts (rank 0's caller runs it for itself) -> (rank 0's
+    results, rank 1's, the wall s)."""
     import multiprocessing
 
     from neraf_tpu_torch.engine.factory import build_joint_pipeline
     from neraf_tpu_torch.parallel.sharding import make_mesh
 
-    torch.cuda.empty_cache()
+    ref32 = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0,
+                                 mixed_precision=False)
     init = f"tcp://127.0.0.1:{free_port()}"
     out1 = tmp / "mesh_rank1.json"
     child = multiprocessing.get_context("spawn").Process(
-        target=mesh_rank, args=(1, MESH_RANKS, init, str(out1)), daemon=True)
+        target=mesh_rank, args=(1, MESH_RANKS, init, str(out1), variants,
+                                sweep, setup), daemon=True)
     t0 = time.perf_counter()
     child.start()
     try:
@@ -3740,10 +4134,10 @@ def mesh_phase(torch, dev, tmp) -> dict:
         mesh = make_mesh(MESH_RANKS, ["cuda:0"] * MESH_RANKS, backend="gloo",
                          rank=0, init_method=init)
         try:
-            r0 = mesh_steps(torch, mesh, ref)
+            r0 = mesh_steps(torch, mesh, ref, ref32, variants, sweep)
         finally:
             mesh.close()
-        child.join(300)
+        child.join(600)
     finally:
         if child.is_alive():
             child.kill()
@@ -3751,74 +4145,220 @@ def mesh_phase(torch, dev, tmp) -> dict:
     if child.exitcode != 0:
         fail(f"mesh: rank 1 exited {child.exitcode}")
     r1 = json.loads(out1.read_text())
-    wall = time.perf_counter() - t0
-    smi_line = smi("name,power.limit")
-    want = {"pe_fwd": 4, "pe_bwd": 4, "hash_fwd": 0, "hash_bwd": 0,
-            "stem": 0, "concat": 0, "gl": 0}
+    return r0, r1, time.perf_counter() - t0
+
+
+def mesh_gates(r0, r1, variants=MESH_VARIANTS, sweep: bool = True) -> tuple:
+    """Phase 26's gates on the two ranks' results (mesh_steps) -> ([(gate,
+    message)] of every gate that failed, what the gates read a variant)."""
+    bad = []
+    want0 = {"pe_fwd": 4, "pe_bwd": 4, "hash_fwd": 0, "hash_bwd": 0,
+             "stem": 0, "concat": 0, "gl": 0}
+    report = {}
+    for variant, gate, _ in variants:
+        want = {**want0, "stem": int(gate)}
+        for rank, r in enumerate((r0, r1)):
+            for k, s in enumerate(r["variants"][variant]["steps"]):
+                if s["launches"] != want:
+                    bad.append(("launches", f"mesh {variant} step {k} rank "
+                                f"{rank}: launches {s['launches']}, expected "
+                                f"{want}"))
+                if s["mismatches"]:
+                    bad.append(("replicas", f"mesh {variant} step {k} rank "
+                                f"{rank}: {s['mismatches']} differ from rank "
+                                f"0's"))
+                if s["metrics"] != r0["variants"][variant]["steps"][k][
+                        "metrics"]:
+                    bad.append(("rank_metrics", f"mesh {variant} step {k}: "
+                                f"rank {rank}'s metrics differ from rank 0's"))
+        v = r0["variants"][variant]
+        worst_loss = max(max(d.values()) for d in v["loss_rel"])
+        if not worst_loss <= MESH_LOSS_RTOL:
+            bad.append(("losses", f"mesh {variant}: losses {v['loss_rel']} "
+                        f"relative to one rank's, the audio ones to its field "
+                        f"run on the ranks' halves with the ranks' feature "
+                        f"(tol {MESH_LOSS_RTOL}); the audio ones relative to "
+                        f"its own {v['audio_vs_whole']}"))
+        grads = v["grad_rel_l2"]
+        worst_grad = max(grads, key=grads.get)
+        # beyond MESH_GRAD_REL_L2: (ranks', one rank's bf16) from float32
+        beyond = {k: v["grad_vs_f32"][k] for k, e in grads.items()
+                  if e > MESH_GRAD_REL_L2}
+        ratio = {k: a / max(b, 1e-30) for k, (a, b) in beyond.items()}
+        if variant == "replicated" and beyond:
+            bad.append(("gradients", f"mesh {variant}: {len(beyond)} step-0 "
+                        f"gradients beyond {MESH_GRAD_REL_L2} relative L2 from "
+                        f"one rank's, the worst {worst_grad} "
+                        f"{grads[worst_grad]:.3e}"))
+        elif ratio and max(ratio.values()) > MESH_VS_F32:
+            k = max(ratio, key=ratio.get)
+            bad.append(("gradients", f"mesh {variant}: step-0 gradient {k} "
+                        f"{grads[k]:.3e} relative L2 from one rank's (tol "
+                        f"{MESH_GRAD_REL_L2}) and {beyond[k][0]:.3e} from one "
+                        f"rank's float32 step, {ratio[k]:.2f} times the one "
+                        f"rank's bf16 step's {beyond[k][1]:.3e} (tol "
+                        f"{MESH_VS_F32})"))
+        stats = v["stats_rel_l2"]
+        worst_stat = max(stats, key=stats.get)
+        if not v["feature_rel_l2"] <= MESH_FEATURE_REL_L2:
+            bad.append(("feature", f"mesh {variant}: the feature "
+                        f"{v['feature_rel_l2']:.3e} relative L2 from one "
+                        f"rank's (tol {MESH_FEATURE_REL_L2})"))
+        if not stats[worst_stat] <= MESH_STATS_REL_L2:
+            bad.append(("stats", f"mesh {variant}: BatchNorm statistic "
+                        f"{worst_stat} {stats[worst_stat]:.3e} relative L2 "
+                        f"from one rank's (tol {MESH_STATS_REL_L2})"))
+        resnet = {k: e for k, e in grads.items() if k.startswith("resnet.")}
+        report[variant] = {
+            "worst_loss_rel": worst_loss,
+            "audio_vs_whole": v["audio_vs_whole"],
+            "halves_vs_whole": v["halves_vs_whole"],
+            "worst_grad": [worst_grad, grads[worst_grad]],
+            "worst_resnet_grad": max(resnet.items(), key=lambda kv: kv[1]),
+            "beyond_grad_tol": len(beyond),
+            "worst_vs_f32_ratio": (max(ratio.items(), key=lambda kv: kv[1])
+                                   if ratio else None),
+            "worst_bf16_vs_f32": max(
+                ((k, b) for k, (a, b) in v["grad_vs_f32"].items()),
+                key=lambda kv: kv[1]),
+            "grad_max_rel": v["grad_max_rel"],
+            "feature_rel_l2": v["feature_rel_l2"],
+            "worst_stat": [worst_stat, stats[worst_stat]]}
+    if sweep:
+        for rank, r in enumerate((r0, r1)):
+            if r["sweep"]["launches"] != {**want0, "pe_fwd": 0, "pe_bwd": 0,
+                                          "gl": EVAL_RIRS // EVAL_CHUNK}:
+                bad.append(("sweep", f"mesh sweep rank {rank}: launches "
+                            f"{r['sweep']['launches']}"))
+        sweep_m, ref_sweep = r0["sweep"]["metrics"], r0["ref_sweep"]
+        for k in (*EVAL_KEYS, "audio_mag"):
+            if not np.isclose(sweep_m[k], ref_sweep[k], rtol=MESH_EVAL_RTOL,
+                              atol=MESH_EVAL_ATOL):
+                bad.append(("sweep", f"mesh sweep: {k} {sweep_m[k]} on 2 "
+                            f"ranks, {ref_sweep[k]} on one from the ranks' "
+                            f"eval feature"))
+        if not r0["eval_feature_rel_l2"] <= MESH_FEATURE_REL_L2:
+            bad.append(("feature", f"mesh sweep: the ranks' eval feature "
+                        f"{r0['eval_feature_rel_l2']} relative L2 from one "
+                        f"rank's (tol {MESH_FEATURE_REL_L2})"))
+        if r1["sweep"]["metrics"] != sweep_m | {
+                k: r1["sweep"]["metrics"][k] for k in (
+                    "fps_audio", "num_rays_per_sec_audio")}:
+            bad.append(("sweep", "mesh sweep: rank 1's metrics differ from "
+                        "rank 0's"))
+    f = r0["f32"]
     for rank, r in enumerate((r0, r1)):
-        for k, s in enumerate(r["steps"]):
-            if s["launches"] != want:
-                fail(f"mesh step {k} rank {rank}: launches {s['launches']}, "
-                     f"expected {want}")
-            if s["mismatches"]:
-                fail(f"mesh step {k} rank {rank}: {s['mismatches']} differ "
-                     f"from rank 0's")
-            if s["metrics"] != r0["steps"][k]["metrics"]:
-                fail(f"mesh step {k}: rank {rank}'s metrics differ from "
-                     f"rank 0's")
-        gl = r["sweep"]["launches"]
-        if gl != {**want, "pe_fwd": 0, "pe_bwd": 0,
-                  "gl": EVAL_RIRS // EVAL_CHUNK}:
-            fail(f"mesh sweep rank {rank}: launches {gl}")
-    worst_loss = max(max(d.values()) for d in r0["loss_rel"])
-    if not worst_loss <= MESH_LOSS_RTOL:
-        fail(f"mesh: losses {r0['loss_rel']} relative to one rank's, the "
-             f"audio ones to its field run on the ranks' halves (tol "
-             f"{MESH_LOSS_RTOL}); the audio ones relative to its own "
-             f"{r0['audio_vs_whole']}")
-    grads = r0["grad_rel_l2"]
-    worst_grad = max(grads, key=grads.get)
-    if not grads[worst_grad] <= MESH_GRAD_REL_L2:
-        fail(f"mesh: step-0 gradient {worst_grad} {grads[worst_grad]:.3e} "
-             f"relative L2 from one rank's (tol {MESH_GRAD_REL_L2})")
+        if r["f32"]["mismatches"]:
+            bad.append(("replicas", f"mesh split_f32 rank {rank}: "
+                        f"{r['f32']['mismatches']} differ from rank 0's"))
+    if r1["f32"]["metrics"] != f["metrics"]:
+        bad.append(("rank_metrics", "mesh split_f32: rank 1's metrics differ "
+                    "from rank 0's"))
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1])
+    loss, stat = worst(f["loss_rel"]), worst(f["stats_peak"])
+    e2e = worst(f["audio_grad_rel_l2"])
+    if not loss[1] <= MESH_LOSS_RTOL:
+        bad.append(("f32_losses", f"mesh split_f32: loss {loss[0]} {loss[1]:.3e}"
+                    f" relative to one rank's float32 step (tol "
+                    f"{MESH_LOSS_RTOL})"))
+    if not f["feature_peak"] <= MESH_F32_STATE_TOL:
+        bad.append(("f32_feature", f"mesh split_f32: the feature "
+                    f"{f['feature_peak']:.3e} of its peak from one rank's "
+                    f"(tol {MESH_F32_STATE_TOL})"))
+    if not stat[1] <= MESH_F32_STATE_TOL:
+        bad.append(("f32_stats", f"mesh split_f32: BatchNorm statistic "
+                    f"{stat[0]} {stat[1]:.3e} of its peak from one rank's "
+                    f"(tol {MESH_F32_STATE_TOL})"))
+    if not max(e2e[1], f["cotangent_rel_l2"]) <= MESH_F32_E2E_REL_L2:
+        bad.append(("f32_end_to_end", f"mesh split_f32: gradient {e2e[0]} "
+                    f"{e2e[1]:.3e}, the feature's cotangent "
+                    f"{f['cotangent_rel_l2']:.3e} relative L2 from one "
+                    f"rank's (tol {MESH_F32_E2E_REL_L2})"))
+    report["split_f32"] = {
+        "worst_loss_rel": loss, "feature_peak": f["feature_peak"],
+        "worst_stat_peak": stat, "worst_audio_grad_rel_l2": e2e,
+        "cotangent_rel_l2": f["cotangent_rel_l2"],
+        "cotangent_peak": f["cotangent_peak"],
+        "printed_only": {
+            "worst_resnet_grad_peak": worst(f["resnet_grad_peak"]),
+            "worst_other_grad_rel_l2": worst(f["other_grad_rel_l2"])},
+        "ms": [f["ms"], r1["f32"]["ms"]], "launches": f["launches"]}
+    d = r0["f64"]
+    for rank, r in enumerate((r0, r1)):
+        if r["f64"]["mismatches"]:
+            bad.append(("replicas", f"mesh resnet_f64 rank {rank}: "
+                        f"{r['f64']['mismatches']} differ from rank 0's"))
+    parts = {"eval_feature": d["eval_feature_peak"],
+             "feature": d["feature_peak"],
+             "stats": worst(d["stats_peak"]), "grads": worst(d["grad_peak"])}
+    for name, v in parts.items():
+        e = v if isinstance(v, float) else v[1]
+        if not e <= MESH_F64_TOL:
+            bad.append((f"f64_{name}", f"mesh resnet_f64: {name} {v} of its "
+                        f"peak from one rank's (tol {MESH_F64_TOL})"))
+    report["resnet_f64"] = {**parts, "ms": [d["ms"], r1["f64"]["ms"]]}
+    return bad, report
+
+
+def mesh_phase(torch, dev, tmp) -> dict:
+    """Phase 26: the stem kernel on ranks' slabs (stem_slab_check); two
+    ranks on card 0 against one rank, at full width, for each of
+    MESH_VARIANTS and in float32 (mesh_run), every gate of mesh_gates
+    fatal; then, where the machine has more than one card, cli.train
+    --num-devices over NCCL (mesh_cli)."""
+    torch.cuda.empty_cache()
+    slabs = stem_slab_check(torch, dev)
+    torch.cuda.empty_cache()
+    r0, r1, wall = mesh_run(torch, dev, tmp)
+    bad, report = mesh_gates(r0, r1)
+    if bad:
+        fail("; ".join(msg for _, msg in bad))
+    smi_line = smi("name,power.limit")
     sweep, ref_sweep = r0["sweep"]["metrics"], r0["ref_sweep"]
-    for k in (*EVAL_KEYS, "audio_mag"):
-        if not np.isclose(sweep[k], ref_sweep[k], rtol=MESH_EVAL_RTOL,
-                          atol=MESH_EVAL_ATOL):
-            fail(f"mesh sweep: {k} {sweep[k]} on 2 ranks, {ref_sweep[k]} "
-                 f"on one")
-    if r1["sweep"]["metrics"] != sweep | {
-            k: r1["sweep"]["metrics"][k] for k in ("fps_audio",
-                                                  "num_rays_per_sec_audio")}:
-        fail("mesh sweep: rank 1's metrics differ from rank 0's")
+    steps = lambda r, v: r["variants"][v]["steps"]
     per_rank = {f"rank{i}": {
-        "ms": [round(s["ms"], 3) for s in r["steps"]],
-        "all_reduce_ms": [round(s["all_reduce_ms"], 3) for s in r["steps"]],
-        "pe_fwd": sum(s["launches"]["pe_fwd"] for s in r["steps"]),
-        "pe_bwd": sum(s["launches"]["pe_bwd"] for s in r["steps"]),
+        "ms": {v: [round(s["ms"], 3) for s in steps(r, v)]
+               for v, _, _ in MESH_VARIANTS},
+        "f32_ms": round(r["f32"]["ms"], 3),
+        "all_reduce_ms": [round(s["all_reduce_ms"], 3)
+                          for s in steps(r, "split")],
+        "pe_fwd": sum(s["launches"]["pe_fwd"] for s in steps(r, "split")),
+        "pe_bwd": sum(s["launches"]["pe_bwd"] for s in steps(r, "split")),
+        "stem_split": sum(s["launches"]["stem"]
+                          for s in steps(r, "split_gate")),
         "sweep_gl": r["sweep"]["launches"]["gl"],
-        "sweep_s": round(r["sweep"]["wall_s"], 3)} for i, r in enumerate((r0, r1))}
-    print(f"mesh (gloo, 2 ranks sharing card 0: {smi_line}): {MESH_STEPS} "
-          f"full-width bf16 steps each from one rank's state; per rank "
-          f"{json.dumps(per_rank)}; worst loss {worst_loss:.3e} relative "
-          f"(tol {MESH_LOSS_RTOL}; the audio ones against the one rank's "
-          f"field on the ranks' halves); the audio losses against the one "
-          f"rank's own {json.dumps(r0['audio_vs_whole'])}, its halves "
-          f"against its own {json.dumps(r0['halves_vs_whole'])}; step-0 "
-          f"gradients: worst relative L2 "
-          f"{grads[worst_grad]:.3e} ({worst_grad}; tol {MESH_GRAD_REL_L2}), "
-          f"worst max-abs of the peak {r0['grad_max_rel']:.3e}; replicas "
-          f"bitwise equal after every step; the sweep of {EVAL_RIRS} RIRs on "
-          f"2 ranks {json.dumps(sweep)} vs one {json.dumps(ref_sweep)}; "
+        "sweep_s": round(r["sweep"]["wall_s"], 3)}
+        for i, r in enumerate((r0, r1))}
+    stage_times = {f"rank{i}": {
+        v: {st: [round(s["stages"][st], 3) for s in steps(r, v)]
+            for st in ("resnet_forward", "backward")}
+        for v in ("split", "replicated")} for i, r in enumerate((r0, r1))}
+    print(f"mesh (gloo, 2 ranks sharing card 0: {smi_line}): full-width "
+          f"bf16 steps each from one rank's state, the ResNet split by depth "
+          f"(gate off and on) and whole, one split step in float32 and the "
+          f"ResNet alone in float64; per "
+          f"rank {json.dumps(per_rank)}; against one rank "
+          f"{json.dumps(report)} (tols: losses {MESH_LOSS_RTOL}, gradients "
+          f"{MESH_GRAD_REL_L2} or, split, within {MESH_VS_F32} x the one "
+          f"rank's bf16 distance from its float32 step, feature "
+          f"{MESH_FEATURE_REL_L2}, statistics {MESH_STATS_REL_L2}; float32: "
+          f"feature and statistics {MESH_F32_STATE_TOL} of the peak, the "
+          f"cotangent and acoustic-field gradients {MESH_F32_E2E_REL_L2} "
+          f"relative L2; the float64 ResNet: features, statistics and "
+          f"gradients {MESH_F64_TOL} of the peak); replicas bitwise equal "
+          f"after every step; the sweep "
+          f"of {EVAL_RIRS} RIRs on 2 ranks {json.dumps(sweep)} vs one from "
+          f"the ranks' eval feature {json.dumps(ref_sweep)}, the eval feature "
+          f"{r0['eval_feature_rel_l2']:.3e} relative L2 from one rank's; "
           f"phase wall {wall:.2f} s. The shared card's gloo times are not "
           f"a speed of the data-parallel path.", flush=True)
-    return {"per_rank": per_rank, "worst_loss_rel": worst_loss,
-            "audio_vs_whole": r0["audio_vs_whole"],
-            "halves_vs_whole": r0["halves_vs_whole"],
-            "worst_grad_rel_l2": grads[worst_grad],
-            "grad_max_rel": r0["grad_max_rel"], "sweep": sweep,
-            "ref_sweep": ref_sweep, "wall_s": wall,
-            "cli": mesh_cli(torch, tmp)}
+    print(f"mesh stage ms, resnet_forward and backward, each rank, the "
+          f"ResNet split against whole (a shared card's, gloo; {smi_line}): "
+          f"{json.dumps(stage_times)}", flush=True)
+    return {"per_rank": per_rank, "stage_ms": stage_times, "report": report,
+            "sweep": sweep, "ref_sweep": ref_sweep,
+            "eval_feature_rel_l2": r0["eval_feature_rel_l2"], "wall_s": wall,
+            "stem_slabs": slabs, "cli": mesh_cli(torch, tmp)}
 
 
 def mesh_cli(torch, tmp) -> dict | None:
@@ -4402,7 +4942,9 @@ def main() -> int:
         "train_step_stem_kernels": {"gate_on": sjoint["stem_kernels"],
                                     "gate_off": joint["stem_kernels"]},
         "gate_off_resnet_ms": joint["stem_ms"],
-        "gate_on_resnet_ms": sjoint["stem_ms"]}, {
+        "gate_on_resnet_ms": sjoint["stem_ms"],
+        "mesh_split_step_launches_per_rank": mesh_launches("stem_split"),
+        "mesh_slabs": mesh["stem_slabs"]}, {
         "name": "shifted_value_concat", "route": "cuda",
         "source": "neraf_tpu_torch/csrc/shifted_concat.cu",
         "replaces": "neraf_tpu/ops/pallas/gl_crash_repro.py:48",

@@ -32,8 +32,9 @@ processes, and main() returns rank 0's Trainer. On the card every rank
 takes a card of its own (NCCL; fewer cards than ranks raise ValueError),
 with device="cpu" every rank runs on the CPU (gloo), the ranks splitting
 the caller's torch threads. Each step and
-on-device eval sweep runs on the global batch (engine/pipeline.py); the
-rays, STFT slices and grid-bake cells a step must divide by N. Rank 0
+on-device eval sweep runs on the global batch (engine/pipeline.py), in
+blocks of ceil(n / N) where a count does not divide by N, and the ResNet
+runs split by depth over the ranks (parallel/depth_split.py). Rank 0
 writes the run directory and serves --viewer-port (its viewer requests
 take no collective path); a resume loads on rank 0 and hands its state to
 the others. A rank that fails fails the run: rank 0 raises, and the

@@ -46,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from neraf_tpu_torch.parallel.sharding import shard_batch
+from neraf_tpu_torch.parallel.sharding import block_range, shard_batch
 
 _TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -99,8 +99,9 @@ class StreamingAudioSampler:
     `gather_ms` and `copy_ms()` keep the producer's gather time and the
     copies' device time of the latest batches.
 
-    With a data mesh (`mesh`), a batch is this rank's block of
-    batch_size / (number of ranks) columns of the global draw.
+    With a data mesh (`mesh`), a batch is this rank's block of the
+    global draw's columns (parallel/sharding.py::partition: ceil(batch_size
+    / N) columns, the last blocks shorter).
     """
 
     def __init__(self, dataset, batch_size: int, max_len: int | None = None,
@@ -128,9 +129,6 @@ class StreamingAudioSampler:
                          ("source_pose", o.source_poses),
                          ("rot", o.rotations))}
         self.batch_size = batch_size
-        if mesh is not None and batch_size % mesh.world_size:
-            raise ValueError(f"a batch of {batch_size} does not divide over "
-                             f"{mesh.world_size} ranks")
         self.max_len = int(max_len if max_len is not None else dataset.max_len)
         shape = self.log_stft.shape
         self._cf = shape[2:] if self._tm else shape[1:3]
@@ -157,7 +155,8 @@ class StreamingAudioSampler:
         self._thread.start()
 
     def _host_buffer(self, pin: bool) -> dict:
-        B = self.batch_size // (1 if self.mesh is None else self.mesh.world_size)
+        lo, hi = block_range(self.batch_size, self.mesh)
+        B = hi - lo
         return {"data": torch.empty((B, *self._cf), dtype=self._dtype,
                                     pin_memory=pin),
                 "idx": torch.empty((2, B), dtype=torch.int64, pin_memory=pin)}

@@ -66,6 +66,7 @@ from neraf_tpu_torch.models.vision import VisionModel
 from neraf_tpu_torch.parallel.sharding import (
     all_gather_batch,
     average_gradients,
+    block_range,
     shard_batch,
 )
 from neraf_tpu_torch.viz.panels import grid_top_view, stft_comparison_panel
@@ -292,18 +293,24 @@ class JointPipeline:
     one device a rank) a step computes what the JAX package's mesh step
     computes, the step on the global batch: every rank draws the global
     DRAW_KEYS from its generator (the same on every rank) and takes its
-    block of the rays and STFT slices; it bakes its block of the fresh
-    cells and gathers the others' (all_gather_batch), so that the grid,
-    the folded state and the live slab are the same on every rank and the
-    bake's gradient goes back to the rank that computed each cell; the
-    ResNet runs on the replicated grid (its BatchNorm statistics are then
-    the same everywhere); the losses are the global batch's
-    (models/vision.py, models/audio.py); after the backward the gradients
-    are averaged over ranks before the four Adam groups, so the
-    parameters stay bitwise equal across ranks. The kernels run on each
-    rank's blocks as on one device. evaluate_audio_device fans each
-    chunk's RIRs out over the ranks; the other eval paths run whole on
-    every rank, as the JAX package runs them.
+    block of the rays and STFT slices (parallel/sharding.py::partition:
+    blocks of ceil(n / N), the last shorter, so no count need divide by
+    N); it bakes its block of the fresh cells and gathers the others'
+    (all_gather_batch), so that the grid, the folded state and the live
+    slab are the same on every rank and the bake's gradient goes back to
+    the rank that computed each cell; the ResNet runs split by depth over
+    the ranks where the JAX package's reshard rule splits it
+    (parallel/depth_split.py: halo exchanges, BatchNorm statistics and the
+    final pool over the global volume, the same statistics and feature on
+    every rank); the losses are the global batch's (models/vision.py,
+    models/audio.py); after the backward the gradients are averaged over
+    ranks before the four Adam groups, so the parameters stay bitwise
+    equal across ranks. The kernels run on each rank's blocks as on one
+    device. evaluate_audio_device fans each chunk's RIRs out over the
+    ranks; the eval paths that every rank calls (eval_loss_dict and both
+    sweeps) compute the grid feature split, as the JAX package does under
+    its mesh; render_rirs, which rank 0 alone calls for the viewer, runs
+    the ResNet whole.
 
     The stem's weight gradient on the folded path: with
     NERAF_STEM_WGRAD_PALLAS=1 in the environment when the pipeline is
@@ -343,13 +350,6 @@ class JointPipeline:
         assert bake > 0 and self.cells.shape[0] % bake == 0, (
             f"grid_bake_cells_per_step={bake} must divide grid_res^3="
             f"{self.cells.shape[0]}: the bake would double-write cells")
-        for what, n in (("grid_bake_cells_per_step", bake),
-                        ("vision_data.train_rays_per_batch",
-                         config.vision_data.train_rays_per_batch),
-                        ("audio_data.batch_size", config.audio_data.batch_size)):
-            if n % self.world:
-                raise ValueError(f"{what}={n} does not divide over "
-                                 f"{self.world} ranks")
         self.folded_bake = folded_bake_supported(grid_res, bake)
         self.folded_dtype = torch.bfloat16 if self.mixed else torch.float32
         # an empty grid at cursor and step 0; bridge.load_joint_state
@@ -459,11 +459,11 @@ class JointPipeline:
         losses = self.vision_model.loss(vout, gt_rgb, self.mesh)
         self._mark("vision_forward")
         # this rank's block of the cursor batch, then every rank's
-        n_bake = tcfg.grid_bake_cells_per_step // self.world
+        n_bake = tcfg.grid_bake_cells_per_step
+        lo, hi = block_range(n_bake, self.mesh)
         fresh = all_gather_batch(compute_fresh_cells(
-            self.vision_model.query_density_rgb,
-            self.cursor + self.rank * n_bake, self.cells, self.vision_aabb,
-            n_bake, self.view_dirs), self.mesh)
+            self.vision_model.query_density_rgb, self.cursor + lo, self.cells,
+            self.vision_aabb, hi - lo, self.view_dirs), self.mesh, n=n_bake)
         if self.grid_folded is not None:
             # the flat grid is bookkeeping; the live slab is spliced into
             # the folded state, which is not written again before backward
@@ -478,7 +478,7 @@ class JointPipeline:
         self._mark("bake")
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.mixed):
-            feat = self.resnet(vol, **stem_args)[0]
+            feat = self.resnet(vol, mesh=self.mesh, **stem_args)[0]
             self._mark("resnet_forward")
             aout = self.audio_model(batch, self.audio_aabb,
                                     grid_feature=feat.float())
@@ -542,12 +542,15 @@ class JointPipeline:
         return (torch.Generator(device=self.device).manual_seed(0)
                 if generator is None else generator)
 
-    def _grid_feature_eval(self) -> torch.Tensor:
+    def _grid_feature_eval(self, split: bool = True) -> torch.Tensor:
         """The scene descriptor, eval-mode BatchNorm, under the step's
         autocast (call inside _eval_mode); the s2d stem folds the flat grid,
-        as the reference's eval paths do."""
+        as the reference's eval paths do. Under a data mesh, with `split`
+        (every rank calling), the ResNet runs split by depth over the
+        ranks; without it, whole on the calling rank alone."""
         with self._autocast():
-            return self.resnet(grid_to_volume(self.grid, self.grid_res))[0].float()
+            return self.resnet(grid_to_volume(self.grid, self.grid_res),
+                               mesh=self.mesh if split else None)[0].float()
 
     def _render_log(self, feat, mic, src, rot) -> torch.Tensor:
         with self._autocast():
@@ -556,9 +559,11 @@ class JointPipeline:
 
     def render_rirs(self, mic, src, rot) -> torch.Tensor:
         """(N, 3) poses and orientations -> (N, C, F, T) log-magnitudes
-        (the counterpart of _render_rirs_impl)."""
+        (the counterpart of _render_rirs_impl). It takes no collective
+        under a data mesh (a viewer request reaches rank 0 alone): the
+        ResNet runs whole."""
         with self._eval_mode():
-            return self._render_log(self._grid_feature_eval(),
+            return self._render_log(self._grid_feature_eval(split=False),
                                     *_as_f32(self.device, mic, src, rot))
 
     def eval_draws(self, n_cams: int, height: int, width: int,
@@ -586,7 +591,8 @@ class JointPipeline:
         if self.mesh is not None and "data" in audio_arrays:
             # a rank's block of a streamed batch: the eval takes the whole
             audio_arrays = {**audio_arrays, **{
-                k: all_gather_batch(audio_arrays[k], self.mesh)
+                k: all_gather_batch(audio_arrays[k], self.mesh,
+                                    n=self.config.audio_data.batch_size)
                 for k in ("data", "audio_idx", "time_query")}}
         if draws is None:
             draws = self.eval_draws(images.shape[0], images.shape[1],
@@ -702,10 +708,11 @@ class JointPipeline:
                          feat: torch.Tensor | None = None):
         """One chunk -> (log_pred, mag_pred, mag_gt, wav_pred, wav_gt_istft):
         both Griffin-Lim runs from `angles` (M, C, F, T); `feat` is the grid
-        feature, computed here when not given."""
+        feature, computed here (whole, on the calling rank) when not
+        given."""
         with self._eval_mode():
             if feat is None:
-                feat = self._grid_feature_eval()
+                feat = self._grid_feature_eval(split=False)
             mic, src, rot, gt_log = _as_f32(self.device, mic, src, rot, gt_log)
             log_pred = self._render_log(feat, mic, src, rot)
             mag_pred = log_to_magnitude(log_pred)
@@ -722,7 +729,9 @@ class JointPipeline:
         the dataset's evaluator (the metric of record) -> the mean and
         `_std` of each, and fps_audio / num_rays_per_sec_audio over the
         render time only (the device synchronised before each clock read;
-        the grid feature, computed once a sweep, counted in it)."""
+        the grid feature, computed once a sweep, counted in it). Under a
+        data mesh every rank calls it: the feature is computed split, and
+        every rank sweeps every RIR."""
         cfg = self.audio_model.config
         o = dataset.outputs
         n = len(o.audio_filenames)
@@ -776,12 +785,14 @@ class JointPipeline:
         borderline invalid-T60 flag on a degenerate RIR against the host
         path, which stays the metric of record.
 
-        Under a data mesh every rank calls it: each chunk's RIRs fan out
-        over the ranks in contiguous blocks, each with its rows of the
-        chunk's Griffin-Lim angles, and the per-RIR vectors are gathered on
-        every rank before the mean. A chunk that does not divide over the
-        ranks is padded with copies of its last RIR, whose results are
-        dropped (as XLA pads an uneven shard)."""
+        Under a data mesh every rank calls it: the grid feature is computed
+        split by depth over the ranks, and each chunk's RIRs fan out over
+        the ranks in contiguous blocks of ceil(m / N) (partition's), each
+        with its rows of the chunk's Griffin-Lim angles, and the per-RIR
+        vectors are gathered on every rank before the mean. A block short
+        of ceil(m / N) is padded with copies of the chunk's last RIR, whose
+        results are dropped (as XLA pads an uneven shard), so that no rank
+        runs an empty batch."""
         cfg = self.audio_model.config
         o = dataset.outputs
         n = len(o.audio_filenames)
@@ -818,7 +829,8 @@ class JointPipeline:
                                           cfg.dataset, cfg.fs)
                 for k, v in vals.items():
                     per_rir.setdefault(k, []).append(
-                        all_gather_batch(v, self.mesh)[:m].cpu().numpy())
+                        all_gather_batch(v, self.mesh, n=b * self.world)[:m]
+                        .cpu().numpy())
             synchronize(self.device)
             dt = time.perf_counter() - t0
         out = {k: float(np.mean(np.concatenate(v))) for k, v in per_rir.items()}

@@ -119,7 +119,8 @@ class AudioModel(nn.Module):
         cfg = self.config
         if cfg.criterion == "MSE":
             return {"audio_mse": global_mean(torch.mean((predicted - gt) ** 2),
-                                             mesh) * cfg.loss_factor}
+                                             mesh, predicted.numel())
+                    * cfg.loss_factor}
         parts = stft_loss(predicted, gt,
                           loss_type="mse" if "MSE" in cfg.criterion else "l1",
                           mesh=mesh)

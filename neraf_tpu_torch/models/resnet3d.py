@@ -33,6 +33,15 @@ and, with the slab's use_kernel flag (NERAF_STEM_WGRAD_PALLAS=1), the
 weight gradient from the CUDA kernel csrc/stem_wgrad.cu on a card (the
 plain version on the CPU).
 
+Under a data mesh (forward's `mesh`) the ResNet runs split by depth over
+the ranks where the JAX package's reshard hook splits it: each rank's
+block of planes, with halo exchanges for the windowed ops, BatchNorm
+statistics and the final pool over the global volume, the stages below
+the rule's 2 planes a shard whole on every rank (parallel/depth_split.py;
+the stem reads its window of the volume every rank holds whole). One
+forward serves both: without a mesh the rule splits nothing and each op
+of DepthSplit is the plain one.
+
 BatchNorm (eps 1e-5) follows flax: in eval mode it uses the running
 statistics in flax's own arithmetic; in train mode (the joint step) it
 normalises with the batch-1 statistics over D, H and W and, while
@@ -50,6 +59,7 @@ from torch import nn
 from neraf_tpu_torch.models.grid import fold_volume
 from neraf_tpu_torch.ops.baked_stem import stem_conv_baked
 from neraf_tpu_torch.ops.stem_wgrad import fold_weight
+from neraf_tpu_torch.parallel.depth_split import DepthSplit, local_window, splits
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -77,9 +87,27 @@ class BatchNorm3d(nn.BatchNorm3d):
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         if self.update_stats:
             with torch.no_grad():
-                var = invstd.float().reciprocal().square() - self.eps
-                self.running_mean.lerp_(mean.float(), self.momentum)
+                dt = self.running_mean.dtype  # float32, float64 for a .double()
+                var = invstd.to(dt).reciprocal().square() - self.eps
+                self.running_mean.lerp_(mean.to(dt), self.momentum)
                 self.running_var.lerp_(var, self.momentum)
+        return out
+
+    def forward_split(self, x: torch.Tensor, mean: torch.Tensor,
+                      var: torch.Tensor) -> torch.Tensor:
+        """Train mode on a rank's slab of a depth-split volume, normalised
+        with the global batch mean and biased variance in float32
+        (parallel/depth_split.py::batch_norm_stats, differentiable),
+        which move the running statistics as forward does; computed in
+        the statistics' type and returned in x's type."""
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        out = ((x.to(mean.dtype) - mean.view(shape)) * mul.view(shape)
+               + self.bias.view(shape)).to(x.dtype)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
         return out
 
 
@@ -104,13 +132,23 @@ class Bottleneck3D(nn.Module):
             self.down_conv = nn.Conv3d(in_ch, out_ch, 1, stride, bias=False)
             self.down_bn = _bn(out_ch)
         self.downsample = downsample
+        self.stride = stride
 
-    def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = self.down_bn(self.down_conv(x)) if self.downsample else x
-        return F.relu(out + residual)
+    def forward(self, x, depth=None, sp: DepthSplit | None = None):
+        """x, or a rank's slab of `depth` planes of it (None: whole), under
+        sp (default one rank) -> (out, its depth)."""
+        sp = sp or DepthSplit()
+        out, d = sp.conv(self.conv1, x, depth)
+        out = F.relu(sp.batch_norm(self.bn1, out, d))
+        out, d = sp.conv(self.conv2, out, d)
+        out = F.relu(sp.batch_norm(self.bn2, out, d))
+        out, d = sp.conv(self.conv3, out, d)
+        out = sp.batch_norm(self.bn3, out, d)
+        residual = x
+        if self.downsample:
+            residual, _ = sp.conv(self.down_conv, x, depth)
+            residual = sp.batch_norm(self.down_bn, residual, d)
+        return F.relu(out + residual), d
 
 
 class BasicBlock3D(nn.Module):
@@ -127,12 +165,21 @@ class BasicBlock3D(nn.Module):
             self.down_conv = nn.Conv3d(in_ch, planes, 1, stride, bias=False)
             self.down_bn = _bn(planes)
         self.downsample = downsample
+        self.stride = stride
 
-    def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = self.down_bn(self.down_conv(x)) if self.downsample else x
-        return F.relu(out + residual)
+    def forward(self, x, depth=None, sp: DepthSplit | None = None):
+        """x, or a rank's slab of `depth` planes of it (None: whole), under
+        sp (default one rank) -> (out, its depth)."""
+        sp = sp or DepthSplit()
+        out, d = sp.conv(self.conv1, x, depth)
+        out = F.relu(sp.batch_norm(self.bn1, out, d))
+        out, d = sp.conv(self.conv2, out, d)
+        out = sp.batch_norm(self.bn2, out, d)
+        residual = x
+        if self.downsample:
+            residual, _ = sp.conv(self.down_conv, x, depth)
+            residual = sp.batch_norm(self.down_bn, residual, d)
+        return F.relu(out + residual), d
 
 
 _BACKBONES = {
@@ -214,11 +261,72 @@ class ResNet3D(nn.Module):
         return F.conv3d(fold_volume(x, dtype).permute(0, 4, 1, 2, 3),
                         fold_weight(w.to(dtype)), None, 1, 1)
 
-    def forward(self, x: torch.Tensor, bake_slab=None) -> torch.Tensor:
-        """x as ResNet3D.stem takes it -> (1, feature_dim) float32."""
-        x = F.relu(self.bn1(self.stem(x, bake_slab)))
-        x = F.max_pool3d(x, 3, 2, 1)
+    def _stem_split(self, x, bake_slab, sp: DepthSplit):
+        """The stem under sp -> (out, its depth): where the JAX
+        rule splits the stem's input (depth >= 4 N before the fold, 2 N
+        after it), this rank's block of the output planes, from a window of
+        the volume (every rank holds it whole) with one output plane's
+        halo on each side, zeros beyond the edge; else the whole stem."""
+        w = self.conv1.weight
+        world = sp.world
+        if bake_slab is not None:
+            depth = x.shape[1]
+            if not splits(depth, 1, world):
+                sp.trace.append(("conv", depth, depth, False))
+                return self.stem(x, bake_slab), None
+            lo, hi = sp.block(depth)
+            slab, d0, h0, ch_off, use_kernel = bake_slab
+            out = stem_conv_baked(x, slab, d0, h0, ch_off, w, use_kernel,
+                                  planes=(lo, max(hi, lo + 1)))
+            sp.trace.append(("conv", out.shape[2] + 2, depth, True))
+            return out[:, :, :hi - lo], depth
+        depth = x.shape[1]
+        if not splits(depth, 2, world):
+            # the conv's input: the folded volume, or the volume (odd sides)
+            d_in = depth if any(n % 2 for n in x.shape[1:4]) else depth // 2
+            sp.trace.append(("conv", d_in, d_in, False))
+            return self.stem(x), None
+        dev = x.device.type
+        dtype = (torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev)
+                 else w.dtype)
+        if any(n % 2 for n in x.shape[1:4]):
+            d_out = (depth - 1) // 2 + 1
+            lo, hi = sp.block(d_out)
+            win = local_window(x, 1, 2 * lo - 2, 2 * max(hi, lo + 1) + 1)
+            out = F.conv3d(win.permute(0, 4, 1, 2, 3).to(dtype), w.to(dtype),
+                           None, 2, (0, 2, 2))
+            sp.trace.append(("conv", win.shape[1], depth, True))
+        else:
+            d_out = depth // 2
+            lo, hi = sp.block(d_out)
+            win = local_window(x, 1, 2 * lo - 2, 2 * max(hi, lo + 1) + 2)
+            out = F.conv3d(fold_volume(win, dtype).permute(0, 4, 1, 2, 3),
+                           fold_weight(w.to(dtype)), None, 1, (0, 1, 1))
+            # the conv's input: the folded window of the folded volume
+            sp.trace.append(("conv", win.shape[1] // 2, d_out, True))
+        return out[:, :, :hi - lo], d_out
+
+    def forward(self, x: torch.Tensor, bake_slab=None,
+                mesh=None) -> torch.Tensor:
+        """x as ResNet3D.stem takes it -> (1, feature_dim) float32. Under a
+        data mesh of more than one rank (parallel/sharding.py, every rank
+        calling it on the same x) the volume is split by depth over the
+        ranks where the JAX package's reshard hook splits it
+        (parallel/depth_split.py: the stem's input, before the max pool
+        and at each stage's entry), and every rank returns the feature;
+        without one (or at one rank) the rule splits nothing and every op
+        runs whole. `split_trace` lists the planes each conv and the pool
+        read on this rank (DepthSplit.trace)."""
+        sp = DepthSplit(mesh)
+        x, d = self._stem_split(x, bake_slab, sp)
+        x = F.relu(sp.batch_norm(self.bn1, x, d))
+        x, d = sp.reshard(x, d, 2)
+        x, d = sp.max_pool(x, d)
         for i in range(self.n_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+            layer = getattr(self, f"layer{i + 1}")
+            x, d = sp.reshard(x, d, layer[0].stride)
+            for block in layer:
+                x, d = block(x, d, sp)
+        self.split_trace = sp.trace
         # the grid is a cube, so the JAX pool's window is the whole volume
-        return x.mean(dim=(2, 3, 4)).to(torch.float32)
+        return sp.mean(x, d).to(torch.float32)

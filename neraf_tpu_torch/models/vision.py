@@ -128,8 +128,8 @@ class VisionModel(nn.Module):
     def loss(self, outputs: dict, gt_rgb: torch.Tensor, mesh=None) -> dict:
         """rgb MSE, interlevel (each proposal level against the final
         weights) and distortion losses, with their multipliers; means over
-        the rays, of the global batch under a data mesh (the mean of the
-        ranks' means, parallel/sharding.py::global_mean)."""
+        the rays, of the global batch under a data mesh (each rank's means
+        weighted by its rays, parallel/sharding.py::global_mean)."""
         cfg = self.config
         losses = {"rgb_loss": torch.mean((outputs["rgb"] - gt_rgb) ** 2)}
         w_final = outputs["weights_list"][-1]
@@ -143,7 +143,8 @@ class VisionModel(nn.Module):
             w_final, ss, se)
         if mesh is None:
             return losses
-        values = global_mean(torch.stack(list(losses.values())), mesh)
+        values = global_mean(torch.stack(list(losses.values())), mesh,
+                             gt_rgb.shape[0])
         return dict(zip(losses, values.unbind()))
 
     def query_density_rgb(self, positions: torch.Tensor,

@@ -7,13 +7,16 @@ their leading axis, while parameters, the grid and the optimizer states are
 replicated; XLA inserts the gradient reductions. Here every rank is a
 process of its own that holds the replicated state and computes its
 contiguous block of each batch (`shard_batch`, what P("data") gives a
-device), and the collectives are explicit:
+device). A length n is split as XLA tiles P("data") (`partition`): blocks
+of ceil(n / N) in rank order, the last ones shorter (or empty), so a batch
+need not divide by the number of ranks. The collectives are explicit:
 
-- `all_reduce_sum` and `all_gather_batch` are differentiable; the backward
-  of each sums the cotangents of every rank, so a loss that every rank
-  computes on global sums (metrics/losses.py under a mesh) and cells that
-  every rank gathers (the grid bake) give each rank its part of the
-  global-batch gradient, times the number of ranks;
+- `all_reduce_sum`, `global_mean` and `all_gather_batch` are
+  differentiable; the backward of each sums the cotangents of every rank,
+  so a loss that every rank computes on global sums (metrics/losses.py
+  under a mesh) and cells that every rank gathers (the grid bake) give
+  each rank its part of the global-batch gradient, times the number of
+  ranks;
 - `average_gradients` all-reduces the flattened gradients in buckets and
   divides by the number of ranks, which turns those parts into the
   gradient of the global batch, the same on every rank (so the parameters
@@ -28,9 +31,9 @@ two ranks on one card, which NCCL refuses, need `backend="gloo"` given
 explicitly. Every collective runs under the process group's timeout, so a
 rank that died fails the others instead of hanging them.
 
-The JAX package's depth split of the ResNet over the mesh and its 2-D
-(data, model) mesh are not here (ROADMAP.md): every rank runs the ResNet
-on the whole replicated grid.
+The JAX package's depth split of the ResNet over the mesh, with its halo
+exchanges and cross-rank BatchNorm, is parallel/depth_split.py. Its 2-D
+(data, model) mesh is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -132,20 +135,31 @@ def make_mesh(num_devices: int | None = None, devices=None,
     return DataMesh(rank, num_devices, device, dist.group.WORLD)
 
 
+def partition(n: int, world: int) -> list:
+    """[(lo, hi)] of each rank's block of a length n over `world` ranks, as
+    XLA tiles P("data"): blocks of ceil(n / world) in rank order, the last
+    ones shorter or empty."""
+    b = -(-n // world)
+    return [(min(r * b, n), min((r + 1) * b, n)) for r in range(world)]
+
+
+def block_range(n: int, mesh: DataMesh | None) -> tuple:
+    """(lo, hi) of this rank's block of a length n; (0, n) without a
+    mesh."""
+    return (0, n) if mesh is None else partition(n, mesh.world_size)[mesh.rank]
+
+
 def _block(x, mesh: DataMesh):
-    n = x.shape[0]
-    if n % mesh.world_size:
-        raise ValueError(f"a batch of {n} does not divide over "
-                         f"{mesh.world_size} ranks")
-    b = n // mesh.world_size
-    return x[mesh.rank * b:(mesh.rank + 1) * b]
+    lo, hi = block_range(x.shape[0], mesh)
+    return x[lo:hi]
 
 
 def shard_batch(tree, mesh: DataMesh | None):
     """This rank's contiguous block of the leading axis of every tensor or
     array in `tree` (a dict, list or tuple of them, or one), as P("data")
-    shards it; the tree itself without a mesh. A leading axis that does not
-    divide by the number of ranks raises ValueError."""
+    shards it (`partition`: a leading axis that does not divide by the
+    number of ranks gives shorter last blocks); the tree itself without a
+    mesh."""
     if mesh is None:
         return tree
     if isinstance(tree, dict):
@@ -155,13 +169,25 @@ def shard_batch(tree, mesh: DataMesh | None):
     return _block(tree, mesh)
 
 
+def gloo_needs_f32(x: torch.Tensor, mesh: DataMesh) -> bool:
+    """Whether x is bfloat16 on a gloo group, which takes no bfloat16
+    tensor on a card ("Invalid scalar type"): such a tensor travels as
+    float32 (exactly, for a gather)."""
+    return x.dtype == torch.bfloat16 and dist.get_backend(mesh.group) == "gloo"
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum over ranks; the backward sums the cotangents over ranks (as
-    torch.distributed.nn.functional.all_reduce, which is deprecated)."""
+    torch.distributed.nn.functional.all_reduce, which is deprecated). A
+    bfloat16 x on gloo is summed in float32 and rounded once."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
+        if gloo_needs_f32(x, mesh):
+            y = x.float()
+            dist.all_reduce(y, group=mesh.group)
+            return y.to(x.dtype)
         x = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(x, group=mesh.group)
         return x
@@ -177,39 +203,61 @@ def all_reduce_sum(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
     return x if mesh is None else _AllReduceSum.apply(x, mesh)
 
 
-def global_mean(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
-    """The global-batch mean from this rank's mean over its block (blocks
-    of equal size): the mean of the ranks' means, on every rank;
+def global_mean(x: torch.Tensor, mesh: DataMesh | None,
+                count: int) -> torch.Tensor:
+    """The global-batch mean from x, this rank's mean over the `count`
+    items of its block (a rank with none may pass anything): the mean over
+    every rank's items, sum(count_r x_r) / sum(count_r), on every rank;
     differentiable. x itself without a mesh."""
     if mesh is None:
         return x
-    return all_reduce_sum(x, mesh) / mesh.world_size
+    # an empty block's mean is NaN; it stays in the graph, as every rank's
+    # must for the collective's backward
+    part = (x if count else x.nan_to_num(0.0)) * count
+    n = torch.full((1,), float(count), dtype=x.dtype, device=x.device)
+    s = all_reduce_sum(torch.cat([part.reshape(-1), n]), mesh)
+    return (s[:-1] / s[-1]).reshape(x.shape)
 
 
-class _AllGatherBatch(torch.autograd.Function):
-    """Concatenate every rank's block along the leading axis; the backward
-    sums the cotangents of every rank and returns this rank's block (an
-    all_reduce, which gloo also runs on card tensors, where it has no
-    reduce_scatter)."""
+class _AllGatherBlocks(torch.autograd.Function):
+    """Concatenate every rank's block along `dim`, blocks of the given
+    sizes in rank order (padded to the largest for the collective, then
+    trimmed); the backward sums the cotangents of every rank and returns
+    this rank's block (an all_reduce, which gloo also runs on card
+    tensors, where it has no reduce_scatter)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        x = x.contiguous()
+    def forward(ctx, x, mesh, sizes, dim):
+        ctx.mesh, ctx.sizes, ctx.dim = mesh, sizes, dim
+        dtype = x.dtype
+        x = x.movedim(dim, 0).to(torch.float32 if gloo_needs_f32(x, mesh)
+                                 else dtype).contiguous()
+        m = max(sizes)
+        if x.shape[0] < m:
+            x = torch.cat([x, x.new_zeros((m - x.shape[0], *x.shape[1:]))])
         parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
         dist.all_gather(parts, x, group=mesh.group)
-        return torch.cat(parts)
+        out = torch.cat([p[:k] for p, k in zip(parts, sizes)])
+        return out.movedim(0, dim).to(dtype).contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        return _block(_AllReduceSum.apply(grad, ctx.mesh), ctx.mesh), None
+        lo = sum(ctx.sizes[:ctx.mesh.rank])
+        total = _AllReduceSum.apply(grad, ctx.mesh)
+        return (total.narrow(ctx.dim, lo, ctx.sizes[ctx.mesh.rank]), None,
+                None, None)
 
 
-def all_gather_batch(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
-    """Every rank's (b, ...) block -> the (N b, ...) batch in rank order,
-    on every rank; differentiable (the backward sums over ranks). x itself
-    without a mesh."""
-    return x if mesh is None else _AllGatherBatch.apply(x, mesh)
+def all_gather_batch(x: torch.Tensor, mesh: DataMesh | None, n: int,
+                     dim: int = 0) -> torch.Tensor:
+    """Every rank's block along `dim` of a length n, as partition(n) splits
+    it -> the whole (n along dim) in rank order, on every rank;
+    differentiable (the backward sums over ranks and returns this rank's
+    block). x itself without a mesh."""
+    if mesh is None:
+        return x
+    sizes = [hi - lo for lo, hi in partition(n, mesh.world_size)]
+    return _AllGatherBlocks.apply(x, mesh, sizes, dim)
 
 
 def average_gradients(params, mesh: DataMesh | None) -> None:

@@ -38,8 +38,28 @@ a join deadline, past which its ranks are killed and the test fails.
 (f) cli.train --num-devices 2 on the CPU: the run directory written once
     (each record of the cadences once, the checkpoint, the eval images),
     and its step-2 checkpoint resumed by a 1-rank run.
-(g) ValueError for a batch that does not divide over the ranks and for
-    more ranks than cards.
+(g) Uneven blocks: a batch that does not divide over the ranks splits as
+    XLA tiles P("data") (ceil-sized blocks, the last shorter or empty);
+    ValueError for more ranks than cards.
+(h) The depth-split ResNet (parallel/depth_split.py), where the JAX
+    reshard rule splits it (at grid 32: the stem, the pool and layer1 at
+    every N of 2-4, layer2 at N = 2, the rest whole): the eval feature of
+    (d)'s randomized state at 2, 3 and 4 ranks against the port's one
+    rank and the JAX package's _grid_feature_eval_impl without a mesh
+    (tests/test_parallel.py's rtol 2e-4, atol 1e-5); (b)'s live step at 2
+    and 3 ranks, the stem kernel's gate off and on, against one rank: the
+    train-mode feature, losses, every ResNet gradient, the BatchNorm
+    statistics and the live bake slab's gradient (SPLIT_TOL, SPLIT_STATE_TOL
+    below), the ResNet's from the ranks' feature cotangent; the split step
+    end to end, every gradient and the cotangent too, at 2 and 3 ranks,
+    gate off and on, on the uneven config's state below with 512 bake
+    cells; each rank's convs and pool read at most ceil(D / N) + 2 of
+    their input's D planes wherever the rule splits, and the whole volume
+    elsewhere; a step without the halo exchange, the BatchNorm reduction
+    or the pool's sum over ranks misses one rank's ResNet gradients.
+    3 ranks on 4,096 rays, 2,048 STFT slices and 4,096 bake cells (none
+    divides by 3; the flat bake path) against one rank, and the device
+    sweep of (d) at 3 ranks.
 """
 
 import json
@@ -76,7 +96,12 @@ from neraf_tpu_torch.engine.factory import (
     build_joint_pipeline,
     joint_config,
 )
-from neraf_tpu_torch.parallel.sharding import DataMesh, make_mesh, shard_batch
+from neraf_tpu_torch.parallel.sharding import (
+    DataMesh,
+    make_mesh,
+    partition,
+    shard_batch,
+)
 from scripts.validate_learning import synth_scene as jsynth_scene
 from test_torch_cli import EVALS_ON, TINY
 from test_torch_eval_paths import _audio_config, _jax_angles, _randomized
@@ -84,6 +109,20 @@ from test_torch_eval_paths import _audio_config, _jax_angles, _randomized
 GRID_RES, STEPS, N_EVAL = 32, 3, 8
 RANKS = (2, 4)
 ONE_RANK_TOL = 1e-5  # of each gradient's peak: (b)
+# (h), of each tensor's peak: the split step sums a weight gradient over
+# the ranks' slabs, and BatchNorm's statistics from the ranks' (mean, M2)
+# pairs, in another order than one rank's float32 sums, on the near-empty
+# grid of (b)'s state (where BatchNorm amplifies the order, ROADMAP.md);
+# a dropped halo, BatchNorm reduction or pool sum is O(1e-1) off
+SPLIT_TOL = 1e-4  # ResNet gradients, the bake slab's gradient
+SPLIT_STATE_TOL = 1e-5  # the feature, the BatchNorm statistics
+# (h), the ResNet alone in float64 at grid 64, of each tensor's peak: in
+# float32 a random volume there puts ReLU inputs within 3e-7 of their peak
+# of 0, which flip between any two summation orders (one rank's float32
+# flips other units against float64 than the split's) and move a
+# gradient by up to 8e-2; float64 leaves the order's rounding alone
+SPLIT_F64_TOL = 1e-6
+FEATURE_RTOL, FEATURE_ATOL = 2e-4, 1e-5  # tests/test_parallel.py:159
 JOIN_S = 240  # a group of ranks' deadline
 
 
@@ -92,6 +131,37 @@ def _port_config(T=12):
     cfg.trainer.mixed_precision = False
     if T != 12:
         cfg.audio_model = _audio_config()
+    return cfg
+
+
+def _grid64_checkpoint(tmp: Path) -> str:
+    """(h): a tiny state at grid 64, where the rule splits every stage at
+    2 ranks (the final pool's sum too): the grid's rgb and alpha and the
+    BatchNorm statistics drawn as _randomized draws them, at step 2 (the
+    audio branch live), checkpointed."""
+    pipe = build_joint_pipeline(grid_res=64, tiny=True, device="cpu",
+                                mixed_precision=False, config=_port_config())
+    rng = np.random.default_rng(64)
+    grid = pipe.grid.clone()
+    grid[:, :4] = torch.as_tensor(rng.uniform(0.0, 1.0, (grid.shape[0], 4)),
+                                  dtype=grid.dtype)
+    pipe.grid = grid
+    for k, v in pipe.resnet.state_dict().items():
+        if k.endswith("running_mean"):
+            v.copy_(torch.as_tensor(rng.normal(0.0, 0.1, v.shape)))
+        elif k.endswith("running_var"):
+            v.copy_(torch.as_tensor(rng.uniform(0.5, 1.5, v.shape)))
+    pipe.step = 2
+    return str(save_checkpoint(tmp / "h64", 2, pipe))
+
+
+def _uneven_config(cells=4096):
+    """(h): the tiny config at 4,096 rays, 2,048 STFT slices and `cells`
+    bake cells a step, none of which divides by 3."""
+    cfg = _port_config()
+    cfg.vision_data.train_rays_per_batch = 4096
+    cfg.audio_data.batch_size = 2048
+    cfg.trainer.grid_bake_cells_per_step = cells
     return cfg
 
 
@@ -262,6 +332,22 @@ def runs(tmp_path_factory):
              "checkpoint": e_ckpt, "dataset": ds, "angles": angles}
     live = [b_steps[2]]
     coll = {"x": x, "y": y, "w": w}
+    # (h): the live step split, gate off and on; at grid 64 (every stage
+    # split at 2 ranks) the eval feature, the step and the mutants; 3 ranks
+    # on uneven batches
+    split = {gate: {**base, "checkpoint": b_steps[2][0], "gate": gate}
+             for gate in (False, True)}
+    split64 = {**base, "grid_res": 64, "gate": False,
+               "checkpoint": _grid64_checkpoint(tmp)}
+    rspec = {"backbone": "resnet18", "grid": 64, "seed": 64}
+    uneven = {**base, "config": _uneven_config(), "steps": live}
+    # the split step end to end, gate off and on, on the uneven config
+    # with the folded bake path's 512 cells (the checkpoint's cursor, 512,
+    # starts a batch of them)
+    e2e = {gate: {**base, "config": _uneven_config(cells=512), "gate": gate,
+                  "checkpoint": b_steps[2][0]} for gate in (False, True)}
+    e2e_jobs = [("split_step", e2e[False], "e2e_off"),
+                ("split_step", e2e[True], "e2e_on")]
     jobs = {"2": [("steps", {**base, "steps": b_steps}, "b"),
                   ("steps", {**base, "steps": live, "mutate": "sc_per_shard"},
                    "sc_per_shard"),
@@ -270,12 +356,37 @@ def runs(tmp_path_factory):
                   ("sweeps", {**ebase, "chunks": (4, 3)}, "d"),
                   ("streamed", {**base, "checkpoint": b_steps[2][0],
                                 "n_steps": 2}, "e"),
-                  ("collectives", coll, "c")],
+                  ("collectives", coll, "c"), ("features", ebase, "f"),
+                  ("split_step", split[False], "split_off"),
+                  ("split_step", split[True], "split_on"),
+                  ("features", split64, "f64"),
+                  ("resnet_split", rspec, "r64"),
+                  *[("resnet_split", {**rspec, "mutate": m}, m)
+                    for m in torch_parallel_ranks.SPLIT_MUTANTS]],
+            "3": [("features", ebase, "f"),
+                  ("split_step", split[False], "split_off"),
+                  ("split_step", split[True], "split_on"),
+                  ("steps", uneven, "uneven"), *e2e_jobs,
+                  ("sweeps", {**ebase, "chunks": (4, 3)}, "d"),
+                  ("resnet_split", rspec, "r64")],
             "4": [("steps", {**base, "steps": b_steps}, "b"),
                   ("sweeps", {**ebase, "chunks": (4, 3)}, "d"),
-                  ("collectives", coll, "c")]}
+                  ("collectives", coll, "c"), ("features", ebase, "f")],
+            "2e": e2e_jobs}
     groups = {name: _start(tmp, name, js) for name, js in jobs.items()}
     try:
+        one_split = {gate: _one_thread(torch_parallel_ranks.split_step, None,
+                                       spec) for gate, spec in split.items()}
+        one_r64 = _one_thread(torch_parallel_ranks.resnet_split, None, rspec)
+        one_feat64 = _one_thread(torch_parallel_ranks.features, None,
+                                 split64)["feat"]
+        one_uneven = _one_thread(torch_parallel_ranks.steps, None, uneven)
+        one_e2e = {gate: _one_thread(torch_parallel_ranks.split_step, None,
+                                     spec) for gate, spec in e2e.items()}
+        with eport._eval_mode():
+            one_feat = _one_thread(eport._grid_feature_eval)
+        jax_feat = np.asarray(jax.jit(epipe._grid_feature_eval_impl)(
+            estate.params, estate.batch_stats, estate.grid))
         jax_steps, a_steps = _jax_mesh_steps(tmp, inputs, cams)
         jobs["2a"] = [("steps", {**base, "steps": a_steps}, "a")]
         groups["2a"] = _start(tmp, "2a", jobs["2a"])
@@ -291,10 +402,20 @@ def runs(tmp_path_factory):
 
     results = {name: _join(groups[name], jobs[name]) for name in groups}
     ranks = {n: {k: v for name, res in results.items() if name[0] == str(n)
-                 for k, v in res.items()} for n in RANKS}
+                 for k, v in res.items()} for n in (2, 3, 4)}
+    # one rank's ResNet backward from each split step's feature cotangent
+    one_vjp = {(n, gate): _one_thread(
+        torch_parallel_ranks.split_step, None,
+        {**split[gate], "feat_grad": ranks[n][
+            "split_on" if gate else "split_off"]["feat_grad"]})
+        for n in (2, 3) for gate in (False, True)}
     yield {"jax": jax_steps, "one": one, "ranks": ranks,
            "jax_sweep": jax_sweep, "one_sweeps": one_sweeps,
-           "collectives": coll}
+           "collectives": coll, "one_split": one_split, "one_vjp": one_vjp,
+           "one_uneven": one_uneven[0], "one_e2e": one_e2e,
+           "one_feat": one_feat,
+           "one_feat64": one_feat64, "one_r64": one_r64,
+           "jax_feat": jax_feat}
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -341,11 +462,13 @@ def test_ranks_match_one_rank(runs, n, step):
 
 
 @pytest.mark.parametrize("n,job", [
-    (2, "a"), (2, "b"), (2, "sc_per_shard"), (2, "gather_no_sum"), (4, "b")])
+    (2, "a"), (2, "b"), (2, "sc_per_shard"), (2, "gather_no_sum"), (4, "b"),
+    (2, "split_on"), (3, "split_off"), (3, "split_on")])
 def test_replicas_stay_bitwise_equal(runs, n, job):
-    """(b) after every step, on every rank: parameters, BatchNorm
+    """(b), (h) after every step, on every rank: parameters, BatchNorm
     statistics, grid, folded grid, cursor and step as rank 0's, bitwise."""
     records = runs["ranks"][n][job]
+    records = records if isinstance(records, list) else [records]
     assert records and all(r["folded_is_grid"] for r in records)
     assert [r["mismatches"] for r in records] == [[]] * len(records)
 
@@ -388,10 +511,11 @@ _SWEEP_KEYS = ("audio_T60_mean_error", "audio_total_invalids_T60",
 
 
 @pytest.mark.parametrize("chunk", [4, 3])
-@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("n", (2, 3, 4))
 def test_device_sweep_fans_out_over_ranks(runs, n, chunk):
-    """(d) against 1 rank at tests/test_parallel.py's bounds; chunk 3
-    leaves ragged chunks that the ranks pad."""
+    """(d), (h) against 1 rank at tests/test_parallel.py's bounds; chunk 3
+    leaves ragged chunks that the ranks pad, and 3 ranks split both
+    chunks unevenly. The grid feature is computed split over the ranks."""
     got, ref = runs["ranks"][n]["d"][chunk], runs["one_sweeps"][chunk]
     assert set(got) == set(ref)
     for k in _SWEEP_KEYS:
@@ -480,14 +604,24 @@ def test_cli_num_devices_trains_once_and_resumes_on_one_rank(tmp_path,
 
 # ------------------------------------------------------------------ (g)
 def test_indivisible_batches_and_too_few_cards_raise():
-    """(g)"""
-    mesh = DataMesh(rank=1, world_size=3, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="a batch of 64 does not divide "
-                                         "over 3 ranks"):
-        shard_batch({"rays": torch.zeros(64, 3)}, mesh)
+    """(g) a batch that does not divide over the ranks no longer raises: it
+    splits into ceil-sized blocks in rank order, the last shorter (or
+    empty), as XLA tiles P("data"), and a pipeline on 3 ranks builds at
+    the tiny config's 64 rays, 32 slices and 256 cells; more ranks than
+    cards still raise."""
+    cpu = torch.device("cpu")
+    blocks = [shard_batch({"rays": torch.arange(64)},
+                          DataMesh(rank=r, world_size=3, device=cpu))["rays"]
+              for r in range(3)]
+    assert [b.tolist() for b in blocks] == [list(range(0, 22)),
+                                           list(range(22, 44)),
+                                           list(range(44, 64))]
+    mesh = DataMesh(rank=1, world_size=3, device=cpu)
     assert shard_batch(torch.arange(6), mesh).tolist() == [2, 3]
-    with pytest.raises(ValueError, match="does not divide over 3 ranks"):
-        build_joint_pipeline(grid_res=8, tiny=True, device="cpu", mesh=mesh)
+    assert partition(10, 4) == [(0, 3), (3, 6), (6, 9), (9, 10)]
+    assert partition(9, 4) == [(0, 3), (3, 6), (6, 9), (9, 9)]
+    pipe = build_joint_pipeline(grid_res=8, tiny=True, device="cpu", mesh=mesh)
+    assert pipe.world == 3
     # the default devices are the cards: none here
     with pytest.raises(ValueError, match="requested 2 devices, have 0"):
         make_mesh(2, rank=0)
@@ -496,3 +630,181 @@ def test_indivisible_batches_and_too_few_cards_raise():
     with pytest.raises(ValueError, match="backend='gloo'"):
         make_mesh(2, ["cuda:0", "cuda:0"], rank=0)
     assert not torch.distributed.is_initialized()
+
+
+# ------------------------------------------------------------------ (h)
+def _peak_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("n", (2, 3, 4))
+def test_split_feature_matches_one_rank_and_jax(runs, n):
+    """(h) the eval feature split over n ranks, against one rank and the
+    JAX package's unsharded feature."""
+    got = runs["ranks"][n]["f"]["feat"].numpy()
+    np.testing.assert_allclose(got, runs["one_feat"].numpy(),
+                               rtol=FEATURE_RTOL, atol=FEATURE_ATOL)
+    np.testing.assert_allclose(got, runs["jax_feat"], rtol=FEATURE_RTOL,
+                               atol=FEATURE_ATOL)
+
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("n", (2, 3))
+def test_split_step_matches_one_rank(runs, n, gate):
+    """(h) the live step split over n ranks against one rank, the stem
+    kernel's gate off and on: losses (1e-5 relative, as (b)), the
+    train-mode feature and the BatchNorm statistics (SPLIT_STATE_TOL of
+    their peak); every ResNet gradient and the live slab's (SPLIT_TOL)
+    against one rank's ResNet backward from the ranks' (global) feature
+    cotangent. That cotangent comes from the audio field, whose ReLUs
+    see the feature: at 3 ranks one unit of its third layer sits within
+    3e-8 of 0 (of a peak 1.67) and flips between the split and the whole
+    feature, which differ by f32 rounding, moving the cotangent by 6e-4
+    of its peak; from one cotangent the check sees the ResNet alone."""
+    got = runs["ranks"][n]["split_on" if gate else "split_off"]
+    ref, vjp = runs["one_split"][gate], runs["one_vjp"][n, gate]
+    assert ref["metrics"]["audio_mag_loss"] > 0
+    for k, v in ref["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5,
+                                   atol=1e-5 * ref["metrics"]["total_loss"],
+                                   err_msg=k)
+    assert _peak_err(got["feat"], ref["feat"]) <= SPLIT_STATE_TOL
+    stats = {k: _peak_err(v, ref["stats"][k]) for k, v in got["stats"].items()}
+    assert max(stats.values()) <= SPLIT_STATE_TOL, stats
+    assert torch.equal(vjp["feat_grad"], got["feat_grad"])
+    assert set(got["grads"]) == set(vjp["grads"])
+    resnet = {k: e for k, e in _worst(got["grads"], vjp["grads"]).items()
+              if k.startswith("resnet.")}
+    bad = {k: e for k, e in resnet.items() if e > SPLIT_TOL}
+    assert resnet and not bad, sorted(bad.items(), key=lambda kv: -kv[1])
+    assert float(vjp["slab_grad"].abs().max()) > 0
+    assert _peak_err(got["slab_grad"], vjp["slab_grad"]) <= SPLIT_TOL
+
+
+def test_split_feature_with_every_stage_split(runs):
+    """(h) at grid 64 and 2 ranks, where the rule splits every stage and
+    the final pool sums over ranks: the pipeline's eval feature against
+    one rank's (FEATURE_RTOL, FEATURE_ATOL)."""
+    np.testing.assert_allclose(runs["ranks"][2]["f64"]["feat"].numpy(),
+                               runs["one_feat64"].numpy(), rtol=FEATURE_RTOL,
+                               atol=FEATURE_ATOL)
+    assert all(t[3] for t in runs["ranks"][2]["f64"]["traces"][0])
+
+
+@pytest.mark.parametrize("n", (2, 3))
+def test_split_resnet_matches_one_rank_in_float64(runs, n):
+    """(h) the ResNet alone in float64 at grid 64 (every stage split at 2
+    ranks, all but layer3 at 3): the eval and train-mode features, the
+    BatchNorm statistics and every gradient within SPLIT_F64_TOL of one
+    rank's."""
+    got, ref = runs["ranks"][n]["r64"], runs["one_r64"]
+    for k in ("eval_feat", "feat"):
+        assert _peak_err(got[k], ref[k]) <= SPLIT_F64_TOL, k
+    assert max(_peak_err(v, ref["stats"][k])
+               for k, v in got["stats"].items()) <= SPLIT_F64_TOL
+    worst = _worst(got["grads"], ref["grads"])
+    assert set(worst) == set(ref["grads"])
+    assert max(worst.values()) <= SPLIT_F64_TOL, sorted(
+        worst.items(), key=lambda kv: -kv[1])[:5]
+    splits = [t[3] for t in got["traces"][0]]
+    assert all(splits) if n == 2 else splits == [True] * 11 + [False] * 5
+
+
+def _rule_splits(n: int) -> list:
+    """The JAX reshard rule at grid 32 for resnet18, op by op in the order
+    the port's ResNet traces them: the stem (its input depth D >= 2 N once
+    folded), the pool (its input D >= 4 N), then each stage's convs (the
+    stage's input D >= 2 x stride x N)."""
+    d, out = 16, []
+    out.append(d >= 2 * n)  # the stem on the folded 16 planes -> 16
+    out.append(d >= 4 * n)  # the pool on 16 planes -> 8
+    d //= 2
+    for stride, convs in ((1, 4), (2, 5), (2, 5)):
+        out += [d >= 2 * stride * n] * convs
+        d //= stride
+    return out
+
+
+@pytest.mark.parametrize("n", (2, 3, 4))
+def test_split_ranks_read_their_block(runs, n):
+    """(h) each rank's convs and pool (eval feature; train step at 2 and 3
+    ranks) ran split exactly where the JAX rule splits, reading at most
+    ceil(D / N) + 2 of their input's D planes there, and the whole input
+    elsewhere."""
+    traces = [runs["ranks"][n]["f"]["traces"]]
+    if n in (2, 3):
+        traces.append(runs["ranks"][n]["split_on"]["traces"])
+    for ranks in traces:
+        assert len(ranks) == n
+        for trace in ranks:
+            assert [t[3] for t in trace] == _rule_splits(n)
+            for op, planes, depth, split in trace:
+                assert planes <= (-(-depth // n) + 2 if split else depth), \
+                    (op, planes, depth)
+    assert any(t[3] for t in traces[0][0]) and not all(t[3] for t in traces[0][0])
+
+
+@pytest.mark.parametrize("mutant", list(torch_parallel_ranks.SPLIT_MUTANTS))
+def test_a_dropped_split_collective_misses_the_one_rank_gradients(runs,
+                                                                    mutant):
+    """(h) the float64 ResNet at grid 64 and 2 ranks without the halo
+    exchange, the BatchNorm reduction or the pool's sum over ranks: some
+    gradient misses one rank's by more than 1e3 x SPLIT_F64_TOL, where the
+    intact split holds SPLIT_F64_TOL
+    (test_split_resnet_matches_one_rank_in_float64)."""
+    worst = _worst(runs["ranks"][2][mutant]["grads"], runs["one_r64"]["grads"])
+    assert max(worst.values()) > 1e3 * SPLIT_F64_TOL, mutant
+
+
+def test_uneven_batches_match_one_rank(runs):
+    """(h) 3 ranks on 4,096 rays, 2,048 STFT slices and 4,096 bake cells a
+    step (blocks of 1,366, 1,366, 1,364 and 683, 683, 682) against one
+    rank: losses 1e-5 relative, every gradient within SPLIT_TOL of its
+    peak, the grid within SPLIT_STATE_TOL, the cursor and step equal, and
+    the replicas bitwise equal."""
+    got, ref = runs["ranks"][3]["uneven"][0], runs["one_uneven"]
+    assert ref["metrics"]["audio_mag_loss"] > 0
+    for k, v in ref["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5,
+                                   atol=1e-5 * ref["metrics"]["total_loss"],
+                                   err_msg=k)
+    assert set(got["grads"]) == set(ref["grads"])
+    bad = {k: e for k, e in _worst(got["grads"], ref["grads"]).items()
+           if e > SPLIT_TOL}
+    assert not bad, sorted(bad.items(), key=lambda kv: -kv[1])
+    assert _peak_err(got["grid"], ref["grid"]) <= SPLIT_STATE_TOL
+    assert (got["cursor"], got["step"]) == (ref["cursor"], ref["step"])
+    assert got["mismatches"] == []
+
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("n", (2, 3))
+def test_split_step_end_to_end_matches_one_rank(runs, n, gate):
+    """(h) the split step on the uneven config's state with 512 bake
+    cells (the folded path, where the gate picks the stem's weight
+    gradient), the stem kernel's gate off and on, held end to end to one
+    rank's step from the same state (no cotangent handed over): losses
+    1e-5 relative, the
+    train-mode feature and the BatchNorm statistics within
+    SPLIT_STATE_TOL of their peak, the feature's cotangent, every
+    gradient (the ResNet's and the rest) and the live slab's within
+    SPLIT_TOL, the replicas bitwise equal."""
+    got = runs["ranks"][n]["e2e_on" if gate else "e2e_off"]
+    ref = runs["one_e2e"][gate]
+    assert ref["metrics"]["audio_mag_loss"] > 0
+    for k, v in ref["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5,
+                                   atol=1e-5 * ref["metrics"]["total_loss"],
+                                   err_msg=k)
+    assert _peak_err(got["feat"], ref["feat"]) <= SPLIT_STATE_TOL
+    stats = {k: _peak_err(v, ref["stats"][k]) for k, v in got["stats"].items()}
+    assert max(stats.values()) <= SPLIT_STATE_TOL, stats
+    assert _peak_err(got["feat_grad"], ref["feat_grad"]) <= SPLIT_TOL
+    assert set(got["grads"]) == set(ref["grads"])
+    worst = _worst(got["grads"], ref["grads"])
+    bad = {k: e for k, e in worst.items() if e > SPLIT_TOL}
+    assert any(k.startswith("resnet.") for k in worst) and not bad, sorted(
+        bad.items(), key=lambda kv: -kv[1])
+    assert float(ref["slab_grad"].abs().max()) > 0
+    assert _peak_err(got["slab_grad"], ref["slab_grad"]) <= SPLIT_TOL
+    assert got["mismatches"] == []

@@ -69,15 +69,21 @@ def test_config_matches_jax_field_by_field(make, monkeypatch):
 
 def test_port_imports_no_jax_and_defaults_to_the_card():
     """No module of the port, and not chip_smoke.py,
-    scripts/validate_joint_torch.py or scripts/validate_audio_torch.py,
-    imports jax or the JAX package (neraf_tpu); the port imports neither
+    scripts/validate_joint_torch.py, scripts/validate_audio_torch.py,
+    scripts/full_step_card_vs_cpu.py, scripts/split_mutants_card.py,
+    scripts/split_host_cost.py or tests/torch_parallel_ranks.py (which the
+    mutant script imports), imports jax or the JAX package (neraf_tpu); the port imports neither
     matplotlib, PIL, torchaudio, yaml, tensorboard, orbax nor ml_dtypes,
     which the card's machine lacks; the public builders, pipelines,
     engines, CLIs and the streaming sampler run on the card unless asked
     for the CPU, and so do a data mesh's ranks (parallel/sharding.py)."""
-    files = sorted((REPO / "neraf_tpu_torch").rglob("*.py")) + [
-        REPO / "scripts" / "validate_joint_torch.py",
-        REPO / "scripts" / "validate_audio_torch.py", REPO / "chip_smoke.py"]
+    others = [REPO / "scripts" / "validate_joint_torch.py",
+              REPO / "scripts" / "validate_audio_torch.py",
+              REPO / "scripts" / "full_step_card_vs_cpu.py",
+              REPO / "scripts" / "split_mutants_card.py",
+              REPO / "scripts" / "split_host_cost.py",
+              REPO / "tests" / "torch_parallel_ranks.py", REPO / "chip_smoke.py"]
+    files = sorted((REPO / "neraf_tpu_torch").rglob("*.py")) + others
     refused = ("jax", "jaxlib", "flax", "optax", "neraf_tpu", "matplotlib",
                "PIL", "torchaudio", "yaml", "tensorboard", "orbax",
                "ml_dtypes")
@@ -93,7 +99,8 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                     bad.append(f"{f.relative_to(REPO)}: {name}")
     assert not bad, bad
     assert len(files) > 30
-    names = {str(f.relative_to(REPO / "neraf_tpu_torch")) for f in files[:-3]}
+    names = {str(f.relative_to(REPO / "neraf_tpu_torch"))
+             for f in files[:-len(others)]}
     assert {"ops/hashgrid.py", "ops/cuda/hash_encoding.py"} <= names
     assert {"dsp/filters.py", "metrics/room_acoustics.py",
             "metrics/evaluators.py", "data/dataparsers.py", "data/datasets.py",
@@ -103,7 +110,8 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
             "configs/config.py", "configs/yaml_subset.py", "utils/png.py",
             "utils/wav.py", "utils/writer.py", "dsp/resample.py",
             "data/streaming.py", "metrics/lpips_impl.py",
-            "parallel/__init__.py", "parallel/sharding.py"} <= names
+            "parallel/__init__.py", "parallel/sharding.py",
+            "parallel/depth_split.py"} <= names
     from neraf_tpu_torch.cli import evaluate as cli_evaluate
     from neraf_tpu_torch.cli import train as cli_train
     from neraf_tpu_torch.data.streaming import StreamingAudioSampler

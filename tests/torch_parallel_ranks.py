@@ -22,11 +22,13 @@ from neraf_tpu_torch.engine.factory import build_joint_pipeline
 from neraf_tpu_torch.metrics import losses
 from neraf_tpu_torch.metrics.losses import stft_loss
 from neraf_tpu_torch.models.grid import fold_grid
-from neraf_tpu_torch.parallel import sharding
+from neraf_tpu_torch.parallel import depth_split, sharding
+from neraf_tpu_torch.parallel.depth_split import local_window
 from neraf_tpu_torch.parallel.sharding import (
     all_gather_batch,
     broadcast_state,
     make_mesh,
+    partition,
     replica_mismatches,
     replicated_state,
 )
@@ -73,7 +75,7 @@ def _pipe(spec: dict, mesh):
 def _load(pipe, path: str, mesh, broadcast: bool = False) -> None:
     """Every rank restores the checkpoint; with `broadcast`, rank 0 alone,
     and every rank then takes rank 0's state (as a resume does)."""
-    if mesh.rank == 0 or not broadcast:
+    if mesh is None or mesh.rank == 0 or not broadcast:
         restore_checkpoint(path, pipe)
     if broadcast:
         broadcast_state(pipe, mesh)
@@ -109,9 +111,9 @@ def _step_record(pipe, metrics: dict, mesh) -> dict:
 
 
 class _GatherNoSum(torch.autograd.Function):
-    """all_gather_batch with the backward's sum over ranks dropped: each
-    rank keeps its own cotangent of its block (a mutation the tests must
-    catch)."""
+    """all_gather_batch (blocks of equal size) with the backward's sum over
+    ranks dropped: each rank keeps its own cotangent of its block (a
+    mutation the tests must catch)."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -141,8 +143,8 @@ def steps(mesh, spec: dict) -> list:
     if mutate == "sc_per_shard":
         losses.all_reduce_sum = lambda x, mesh: x
     elif mutate == "gather_no_sum":
-        pipeline_mod.all_gather_batch = lambda x, mesh: _GatherNoSum.apply(
-            x, mesh)
+        pipeline_mod.all_gather_batch = lambda x, mesh, n: \
+            _GatherNoSum.apply(x, mesh)
     try:
         out = []
         for path, draws in spec["steps"]:
@@ -231,7 +233,7 @@ def collectives(mesh, spec: dict) -> dict:
     sc.backward()
     shard_sc = float(stft_loss(x.detach(), y)["audio_sc_loss"])
     cells = sharding.shard_batch(w_all, mesh).clone().requires_grad_()
-    (w_all * all_gather_batch(cells, mesh)).sum().backward()
+    (w_all * all_gather_batch(cells, mesh, w_all.shape[0])).sum().backward()
     parts = [torch.empty(1, dtype=torch.float64) for _ in range(mesh.world_size)]
     torch.distributed.all_gather(parts, torch.tensor([shard_sc],
                                                      dtype=torch.float64))
@@ -243,3 +245,149 @@ def collectives(mesh, spec: dict) -> dict:
     return {"sc": float(sc), "shard_sc": gathered,
             "sc_grad": torch.cat(block_grads),
             "cell_grad": torch.cat(cell_grads)}
+
+
+# ------------------------------------------------- the depth-split ResNet
+def _traces(pipe, mesh) -> list:
+    """Every rank's record of its ResNet's last split forward (op, planes
+    its input window held, the op's global input depth), in rank order;
+    None on one rank."""
+    if mesh is None:
+        return None
+    mine = pipe.resnet.split_trace
+    out = [None] * mesh.world_size
+    torch.distributed.all_gather_object(out, mine)
+    return out
+
+
+def features(mesh, spec: dict) -> dict:
+    """The eval-mode grid feature of the checkpoint's state (the eval
+    paths' _grid_feature_eval: split over the ranks under a mesh) and
+    every rank's trace of its windowed ops."""
+    pipe = _pipe(spec, mesh)
+    _load(pipe, spec["checkpoint"], mesh)
+    with pipe._eval_mode():
+        feat = pipe._grid_feature_eval()
+    return {"feat": feat, "traces": _traces(pipe, mesh)}
+
+
+def _no_halo(x, mesh, depth, wins, fill=0.0):
+    """halo_window with the exchange dropped: the window from this rank's
+    own planes, every other plane set to `fill`."""
+    lo, hi = wins[mesh.rank]
+    b0 = partition(depth, mesh.world_size)[mesh.rank][0]
+    return local_window(x, 2, lo - b0, hi - b0, fill)
+
+
+def _local_stats(x, depth, mesh):
+    """batch_norm_stats with the reduction dropped: this rank's slab's."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = x32.mean(dim=(0, 2, 3, 4))
+    return mean, ((x32 - mean.view(1, -1, 1, 1, 1)) ** 2).mean(dim=(0, 2, 3, 4))
+
+
+def _local_pool(x, depth, mesh):
+    """global_mean_pool with the sum over ranks dropped."""
+    return (x.sum(dim=(2, 3, 4))
+            / float(depth * x.shape[3] * x.shape[4])).to(x.dtype)
+
+
+SPLIT_MUTANTS = {"no_halo": ("halo_window", _no_halo),
+                 "no_bn_reduction": ("batch_norm_stats", _local_stats),
+                 "no_pool_sum": ("global_mean_pool", _local_pool)}
+
+
+def split_step(mesh, spec: dict) -> dict:
+    """One train_step from spec["checkpoint"] (draws from its generator),
+    the stem kernel's gate as spec["gate"], on the mesh or on one rank
+    (mesh None) -> the step's record, the train-mode feature and its
+    cotangent, the gradient of the bake's live slab (both summed over
+    ranks and divided by their number: the global batch's), every rank's
+    trace of its windowed ops. spec["mutate"] names a SPLIT_MUTANTS entry
+    to run; spec["feat_grad"], given, replaces the feature's cotangent
+    (one rank's ResNet backward from the ranks' cotangent)."""
+    pipe = _pipe(spec, mesh)
+    pipe.stem_wgrad_kernel = spec["gate"]
+    _load(pipe, spec["checkpoint"], mesh)
+    got = {}
+    kept_bake = pipeline_mod.bake_cells_folded
+
+    def bake(*args, **kwargs):
+        slab, *rest = kept_bake(*args, **kwargs)
+        slab.retain_grad()
+        got["slab"] = slab
+        return (slab, *rest)
+
+    def cotangent(g):
+        used = spec.get("feat_grad")
+        got["feat_grad"] = (g if used is None else used).clone()
+        return used
+
+    def feature(mod, args, out):
+        got["feat"] = out.detach().clone()
+        out.register_hook(cotangent)
+
+    hook = pipe.resnet.register_forward_hook(feature)
+    name, mutant = SPLIT_MUTANTS.get(spec.get("mutate"), (None, None))
+    kept = getattr(depth_split, name) if name else None
+    pipeline_mod.bake_cells_folded = bake
+    if name:
+        setattr(depth_split, name, mutant)
+    try:
+        metrics = pipe.train_step(*_arrays(spec["inputs"]))
+    finally:
+        pipeline_mod.bake_cells_folded = kept_bake
+        hook.remove()
+        if name:
+            setattr(depth_split, name, kept)
+    summed = {k: got[k] for k in ("feat_grad",)}
+    summed["slab_grad"] = got["slab"].grad.clone()
+    if mesh is not None:
+        for v in summed.values():
+            torch.distributed.all_reduce(v, group=mesh.group)
+            v /= mesh.world_size
+    return {**_step_record(pipe, metrics, mesh), "feat": got["feat"],
+            **summed, "traces": _traces(pipe, mesh)}
+
+
+def resnet_split(mesh, spec: dict) -> dict:
+    """The ResNet alone in float64 (spec: backbone, grid, seed), its
+    weights, BatchNorm statistics, a random volume and a feature cotangent
+    drawn from the seed: the eval feature, then the train-mode feature,
+    the BatchNorm statistics it moved and every gradient of the feature's
+    dot with the cotangent (averaged over ranks as a step averages them),
+    split over the mesh or whole (mesh None); every rank's traces.
+    spec["mutate"] names a SPLIT_MUTANTS entry to run."""
+    from neraf_tpu_torch.models.resnet3d import ResNet3D
+    from neraf_tpu_torch.parallel.sharding import average_gradients
+
+    gen = torch.Generator().manual_seed(spec["seed"])
+    net = ResNet3D(spec["backbone"], 1024).double()
+    net.reset_parameters(gen)
+    for mod in net.modules():
+        if hasattr(mod, "running_mean"):
+            mod.running_mean.normal_(0.0, 0.1, generator=gen)
+            mod.running_var.uniform_(0.5, 1.5, generator=gen)
+    R = spec["grid"]
+    vol = torch.rand((1, R, R, R, 7), generator=gen, dtype=torch.float64)
+    cot = torch.randn((1, net.feature_dim), generator=gen, dtype=torch.float64)
+    name, mutant = SPLIT_MUTANTS.get(spec.get("mutate"), (None, None))
+    kept = getattr(depth_split, name) if name else None
+    if name:
+        setattr(depth_split, name, mutant)
+    try:
+        with torch.no_grad():
+            eval_feat = net(vol, mesh=mesh)
+        net.train()
+        feat = net(vol, mesh=mesh)
+        (feat * cot).sum().backward()
+    finally:
+        if name:
+            setattr(depth_split, name, kept)
+    average_gradients(list(net.parameters()), mesh)
+    return {"eval_feat": eval_feat, "feat": feat.detach(),
+            "grads": {k: p.grad.clone() for k, p in net.named_parameters()},
+            "stats": {k: v.clone() for k, v in net.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "traces": None if mesh is None else _traces(
+                types.SimpleNamespace(resnet=net), mesh)}
