@@ -216,7 +216,27 @@ Phases, each fatal on failure:
      the machine has more than one card, cli.train --num-devices 2 (and
      4) over NCCL on a scene as phase 21's, each save checking the ranks'
      state bitwise; with one card it prints that no multi-card run took
-     place.
+     place;
+ 27. the 2-D (data, model) mesh (parallel/sharding.py::make_mesh_2d, the
+     acoustic field column-sharded over the model axis): first the pure
+     model axis, (1, 2), two ranks on card 0 over gloo, the full-width
+     field (in_dim 1187, 2,048 slices) forward and backward against one
+     rank's whole field, float32 at tests/test_parallel.py's rtol 2e-4,
+     atol 1e-5 (the gradients' atol of each tensor's peak; a tensor
+     upstream of a leaky-ReLU kink printed, not gated) and bf16 by
+     relative L2, with the sharded and whole field's ms, the all-gathers'
+     ms and the per-rank field FLOPs printed; then (2, 2), four ranks on
+     card 0 over gloo against one rank, the full-width joint step in bf16
+     on the bench.py inputs with the audio branch live, the field sharded
+     at min_dim 512 as the JAX dry run shards it and the ResNet split
+     over the 2 data ranks, 3 steps each from the one rank's state: phase
+     26's gates (losses every step, the step-0 gradients with the field's
+     gathered, the feature and statistics, 4 + 4 PE+MLP launches a rank a
+     step), the replicated state bitwise across the 4 ranks and each
+     field shard across its data column after every step; then
+     parallel/dryrun.py::dryrun_multichip(4) on card 0 over gloo, and over
+     NCCL one card a rank where the machine has 4 cards (else it prints
+     that it was skipped).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -3701,23 +3721,45 @@ def named_grads(pipe) -> dict:
             for k, p in mod.named_parameters()}
 
 
+def mesh_grads(pipe, mesh) -> dict:
+    """named_grads of a pipeline on a mesh, each model-sharded field
+    gradient gathered whole (every rank of its model row calls this)."""
+    from neraf_tpu_torch.parallel.sharding import gather_model
+
+    placed = pipe.audio_model.field.placements
+    return {name: gather_model(g, mesh)
+            if name.removeprefix("audio_model.field.") in placed else g
+            for name, g in named_grads(pipe).items()}
+
+
+def card_mesh(world: int, rank: int, init: str, shape=None):
+    """Rank `rank` of `world` gloo ranks sharing card 0: the 1-D mesh, or
+    the 2-D one of `shape` (data, model)."""
+    from neraf_tpu_torch.parallel.sharding import make_mesh, make_mesh_2d
+
+    devices = ["cuda:0"] * world
+    if shape is None:
+        return make_mesh(world, devices, backend="gloo", rank=rank,
+                         init_method=init)
+    return make_mesh_2d(*shape, devices, backend="gloo", rank=rank,
+                        init_method=init)
+
+
 def mesh_rank(rank: int, world: int, init: str, out: str,
-              variants=MESH_VARIANTS, sweep: bool = True, setup=None) -> None:
-    """A spawned rank of phase 26 (rank 0 is the main process): its half
-    of the steps (and of the sweep), what it measured written to `out`;
-    `setup`, given, runs first (scripts/split_mutants_card.py plants a
-    dropped collective with it)."""
+              variants=MESH_VARIANTS, sweep: bool = True, setup=None,
+              shape=None, min_dim=None, extras: bool = True) -> None:
+    """A spawned rank of phases 26 and 27 (rank 0 is the main process):
+    its part of the steps (and of the sweep), what it measured written to
+    `out`; `setup`, given, runs first (scripts/split_mutants_card.py
+    plants a dropped collective with it)."""
     if setup is not None:
         setup()
     import torch
 
-    from neraf_tpu_torch.parallel.sharding import make_mesh
-
-    mesh = make_mesh(world, ["cuda:0"] * world, backend="gloo", rank=rank,
-                     init_method=init)
+    mesh = card_mesh(world, rank, init, shape)
     try:
-        Path(out).write_text(json.dumps(
-            mesh_steps(torch, mesh, None, None, variants, sweep)))
+        Path(out).write_text(json.dumps(mesh_steps(
+            torch, mesh, None, None, variants, sweep, extras, min_dim)))
     finally:
         mesh.close()
 
@@ -3747,29 +3789,37 @@ def bn_stats(pipe) -> dict:
 
 
 def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
-               sweep: bool = True) -> dict:
-    """Phase 26's work on every rank: the full-width pipeline on the mesh,
-    for each of `variants` its steps each from `ref`'s state (rank 0
-    copies it in and broadcasts it) with their launches, ms, stage ms and
-    cross-rank mismatches, then (with `sweep`) evaluate_audio_device on
-    EVAL_RIRS synthetic RIRs, then the float32 split step
-    (split_f32_step); rank 0 also steps and sweeps `ref` (one rank, mesh
-    None) and compares: losses every step, the feature, the BatchNorm
-    statistics and the gradients at each variant's step 0 (the gradients
-    also against `ref32`, the one rank in float32, stepped from the same
-    state), the sweep with the ranks' eval feature."""
+               sweep: bool = True, extras: bool = True,
+               min_dim: int | None = None) -> dict:
+    """Phases 26 and 27's work on every rank: the full-width pipeline on
+    the mesh (its acoustic field sharded over a 2-D mesh's model axis at
+    `min_dim` when given), for each of `variants` its steps each from
+    `ref`'s state (rank 0 broadcasts a copy) with their launches, ms,
+    stage ms and cross-rank mismatches (each field shard over its data
+    column), then (with `sweep`) evaluate_audio_device on EVAL_RIRS
+    synthetic RIRs, then (with `extras`) the float32 split step
+    (split_f32_step) and the float64 ResNet (split_resnet_f64); rank 0
+    also steps and sweeps `ref` (one rank, mesh None) and compares:
+    losses every step, the feature, the BatchNorm statistics and the
+    gradients (the field's gathered) at each variant's step 0 (the
+    gradients also against `ref32`, the one rank in float32, stepped from
+    the same state), the sweep with the ranks' eval feature."""
     from neraf_tpu_torch.data.synthetic import synth_scene
+    from neraf_tpu_torch.engine.checkpoints import train_state as ckpt_state
     from neraf_tpu_torch.engine.factory import build_joint_pipeline
     from neraf_tpu_torch.parallel.sharding import (
         broadcast_state,
         replica_mismatches,
         replicated_state,
+        sharded_names,
     )
 
     # float32 convs in float32 on every rank (rank 0's stem_slab_check
     # sets it too), for the float32 step's gates
     torch.backends.cudnn.allow_tf32 = False
     pipe = build_joint_pipeline(grid_res=128, tiny=False, seed=0, mesh=mesh)
+    if min_dim is not None:
+        pipe.shard_field(min_dim)
     cams, audio, images = bench_inputs(torch, pipe.device)
     out = {"variants": {}}
     halves = None if ref is None else MeshHalves(ref.audio_model,
@@ -3782,9 +3832,7 @@ def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
             lambda mod, args, o: feats.__setitem__("one", o.detach()[0].float())))
 
     def from_ref():
-        if ref is not None:
-            copy_train_state(torch, pipe, ref)
-        broadcast_state(pipe, mesh)
+        broadcast_state(pipe, mesh, None if ref is None else ckpt_state(ref))
 
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     for variant, gate, n_steps in variants:
@@ -3808,11 +3856,14 @@ def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
                 counts = read_counts()
                 marks, pipe.profile = pipe.profile, None
                 stages = stage_ms(torch, marks)
-                bad = replica_mismatches(replicated_state(pipe), mesh)
-                check_metrics(m, f"mesh {variant} step {k} rank {mesh.rank}")
+                bad = replica_mismatches(replicated_state(pipe), mesh,
+                                         sharded_names(pipe))
+                check_metrics(m, f"mesh {variant} step {k} rank "
+                              f"{mesh.global_rank}")
                 res["steps"].append({"metrics": m, "ms": ms, "launches": counts,
                                      "all_reduce_ms": stages["all_reduce"],
                                      "stages": stages, "mismatches": bad})
+                grads = mesh_grads(pipe, mesh) if k == 0 else None
                 if ref is None:
                     continue
                 if k == 0:
@@ -3834,7 +3885,7 @@ def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
                     {key: rel(halves.halves[key], m1[key])
                      for key in MESH_AUDIO_LOSSES})
                 if k == 0:
-                    g2, g1 = named_grads(pipe), named_grads(ref)
+                    g2, g1 = grads, named_grads(ref)
                     g32 = named_grads(ref32)
                     res["grad_rel_l2"] = {name: rel_l2(g2[name], g)
                                           for name, g in g1.items()}
@@ -3884,9 +3935,11 @@ def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
         h.remove()
     del pipe
     torch.cuda.empty_cache()
-    out["f32"] = split_f32_step(torch, mesh, ref, ref32, (cams, audio, images))
-    torch.cuda.empty_cache()
-    out["f64"] = split_resnet_f64(torch, mesh, ref is not None)
+    if extras:
+        out["f32"] = split_f32_step(torch, mesh, ref, ref32,
+                                    (cams, audio, images))
+        torch.cuda.empty_cache()
+        out["f64"] = split_resnet_f64(torch, mesh, ref is not None)
     return out
 
 
@@ -4108,56 +4161,66 @@ def stem_slab_check(torch, dev) -> dict:
 
 
 def mesh_run(torch, dev, tmp, variants=MESH_VARIANTS, sweep: bool = True,
-             setup=None) -> tuple:
-    """Phase 26: two ranks on card 0 (this process rank 0, one spawned),
-    mesh_steps on each of them against one rank (and one rank in
-    float32), at full width; `setup`, given, is run by the spawned rank
-    before it starts (rank 0's caller runs it for itself) -> (rank 0's
-    results, rank 1's, the wall s)."""
+             setup=None, shape=None, min_dim=None,
+             extras: bool = True) -> tuple:
+    """Phases 26 and 27: the ranks on card 0 (this process rank 0, the
+    others spawned; MESH_RANKS on the 1-D mesh, data x model on a 2-D
+    `shape`), mesh_steps on each of them against one rank (and one rank
+    in float32), at full width; `setup`, given, is run by each spawned
+    rank before it starts (rank 0's caller runs it for itself) ->
+    (rank 0's results, the other ranks' in rank order, the wall s)."""
     import multiprocessing
 
     from neraf_tpu_torch.engine.factory import build_joint_pipeline
-    from neraf_tpu_torch.parallel.sharding import make_mesh
 
+    world = MESH_RANKS if shape is None else shape[0] * shape[1]
     ref32 = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0,
                                  mixed_precision=False)
     init = f"tcp://127.0.0.1:{free_port()}"
-    out1 = tmp / "mesh_rank1.json"
-    child = multiprocessing.get_context("spawn").Process(
-        target=mesh_rank, args=(1, MESH_RANKS, init, str(out1), variants,
-                                sweep, setup), daemon=True)
+    outs = [tmp / f"mesh_rank{r}.json" for r in range(1, world)]
+    ctx = multiprocessing.get_context("spawn")
+    children = [ctx.Process(target=mesh_rank, args=(
+        r, world, init, str(outs[r - 1]), variants, sweep, setup, shape,
+        min_dim, extras), daemon=True) for r in range(1, world)]
     t0 = time.perf_counter()
-    child.start()
+    for child in children:
+        child.start()
     try:
         ref = build_joint_pipeline(grid_res=128, tiny=False, device=dev, seed=0)
         ref.step = 3000  # past start_step_audio: the audio branch is live
-        mesh = make_mesh(MESH_RANKS, ["cuda:0"] * MESH_RANKS, backend="gloo",
-                         rank=0, init_method=init)
+        mesh = card_mesh(world, 0, init, shape)
         try:
-            r0 = mesh_steps(torch, mesh, ref, ref32, variants, sweep)
+            r0 = mesh_steps(torch, mesh, ref, ref32, variants, sweep, extras,
+                            min_dim)
         finally:
             mesh.close()
-        child.join(600)
+        for child in children:
+            child.join(600)
     finally:
-        if child.is_alive():
-            child.kill()
-            child.join()
-    if child.exitcode != 0:
-        fail(f"mesh: rank 1 exited {child.exitcode}")
-    r1 = json.loads(out1.read_text())
-    return r0, r1, time.perf_counter() - t0
+        for child in children:
+            if child.is_alive():
+                child.kill()
+                child.join()
+    codes = [child.exitcode for child in children]
+    if any(codes):
+        fail(f"mesh: ranks 1-{world - 1} exited {codes}")
+    rest = [json.loads(out.read_text()) for out in outs]
+    return r0, rest, time.perf_counter() - t0
 
 
-def mesh_gates(r0, r1, variants=MESH_VARIANTS, sweep: bool = True) -> tuple:
-    """Phase 26's gates on the two ranks' results (mesh_steps) -> ([(gate,
-    message)] of every gate that failed, what the gates read a variant)."""
+def mesh_gates(r0, rest, variants=MESH_VARIANTS, sweep: bool = True,
+               extras: bool = True) -> tuple:
+    """Phases 26 and 27's gates on the ranks' results (mesh_steps: rank
+    0's, then the others' in rank order) -> ([(gate, message)] of every
+    gate that failed, what the gates read a variant)."""
+    ranks = [r0, *rest]
     bad = []
     want0 = {"pe_fwd": 4, "pe_bwd": 4, "hash_fwd": 0, "hash_bwd": 0,
              "stem": 0, "concat": 0, "gl": 0}
     report = {}
     for variant, gate, _ in variants:
         want = {**want0, "stem": int(gate)}
-        for rank, r in enumerate((r0, r1)):
+        for rank, r in enumerate(ranks):
             for k, s in enumerate(r["variants"][variant]["steps"]):
                 if s["launches"] != want:
                     bad.append(("launches", f"mesh {variant} step {k} rank "
@@ -4225,7 +4288,7 @@ def mesh_gates(r0, r1, variants=MESH_VARIANTS, sweep: bool = True) -> tuple:
             "feature_rel_l2": v["feature_rel_l2"],
             "worst_stat": [worst_stat, stats[worst_stat]]}
     if sweep:
-        for rank, r in enumerate((r0, r1)):
+        for rank, r in enumerate(ranks):
             if r["sweep"]["launches"] != {**want0, "pe_fwd": 0, "pe_bwd": 0,
                                           "gl": EVAL_RIRS // EVAL_CHUNK}:
                 bad.append(("sweep", f"mesh sweep rank {rank}: launches "
@@ -4241,18 +4304,21 @@ def mesh_gates(r0, r1, variants=MESH_VARIANTS, sweep: bool = True) -> tuple:
             bad.append(("feature", f"mesh sweep: the ranks' eval feature "
                         f"{r0['eval_feature_rel_l2']} relative L2 from one "
                         f"rank's (tol {MESH_FEATURE_REL_L2})"))
-        if r1["sweep"]["metrics"] != sweep_m | {
-                k: r1["sweep"]["metrics"][k] for k in (
-                    "fps_audio", "num_rays_per_sec_audio")}:
-            bad.append(("sweep", "mesh sweep: rank 1's metrics differ from "
-                        "rank 0's"))
+        for rank, r in enumerate(rest, 1):
+            if r["sweep"]["metrics"] != sweep_m | {
+                    k: r["sweep"]["metrics"][k] for k in (
+                        "fps_audio", "num_rays_per_sec_audio")}:
+                bad.append(("sweep", f"mesh sweep: rank {rank}'s metrics "
+                            f"differ from rank 0's"))
+    if not extras:
+        return bad, report
     f = r0["f32"]
-    for rank, r in enumerate((r0, r1)):
+    for rank, r in enumerate(ranks):
         if r["f32"]["mismatches"]:
             bad.append(("replicas", f"mesh split_f32 rank {rank}: "
                         f"{r['f32']['mismatches']} differ from rank 0's"))
-    if r1["f32"]["metrics"] != f["metrics"]:
-        bad.append(("rank_metrics", "mesh split_f32: rank 1's metrics differ "
+    if any(r["f32"]["metrics"] != f["metrics"] for r in rest):
+        bad.append(("rank_metrics", "mesh split_f32: a rank's metrics differ "
                     "from rank 0's"))
     worst = lambda d: max(d.items(), key=lambda kv: kv[1])
     loss, stat = worst(f["loss_rel"]), worst(f["stats_peak"])
@@ -4282,9 +4348,9 @@ def mesh_gates(r0, r1, variants=MESH_VARIANTS, sweep: bool = True) -> tuple:
         "printed_only": {
             "worst_resnet_grad_peak": worst(f["resnet_grad_peak"]),
             "worst_other_grad_rel_l2": worst(f["other_grad_rel_l2"])},
-        "ms": [f["ms"], r1["f32"]["ms"]], "launches": f["launches"]}
+        "ms": [r["f32"]["ms"] for r in ranks], "launches": f["launches"]}
     d = r0["f64"]
-    for rank, r in enumerate((r0, r1)):
+    for rank, r in enumerate(ranks):
         if r["f64"]["mismatches"]:
             bad.append(("replicas", f"mesh resnet_f64 rank {rank}: "
                         f"{r['f64']['mismatches']} differ from rank 0's"))
@@ -4296,7 +4362,7 @@ def mesh_gates(r0, r1, variants=MESH_VARIANTS, sweep: bool = True) -> tuple:
         if not e <= MESH_F64_TOL:
             bad.append((f"f64_{name}", f"mesh resnet_f64: {name} {v} of its "
                         f"peak from one rank's (tol {MESH_F64_TOL})"))
-    report["resnet_f64"] = {**parts, "ms": [d["ms"], r1["f64"]["ms"]]}
+    report["resnet_f64"] = {**parts, "ms": [r["f64"]["ms"] for r in ranks]}
     return bad, report
 
 
@@ -4309,8 +4375,8 @@ def mesh_phase(torch, dev, tmp) -> dict:
     torch.cuda.empty_cache()
     slabs = stem_slab_check(torch, dev)
     torch.cuda.empty_cache()
-    r0, r1, wall = mesh_run(torch, dev, tmp)
-    bad, report = mesh_gates(r0, r1)
+    r0, rest, wall = mesh_run(torch, dev, tmp)
+    bad, report = mesh_gates(r0, rest)
     if bad:
         fail("; ".join(msg for _, msg in bad))
     smi_line = smi("name,power.limit")
@@ -4328,11 +4394,11 @@ def mesh_phase(torch, dev, tmp) -> dict:
                           for s in steps(r, "split_gate")),
         "sweep_gl": r["sweep"]["launches"]["gl"],
         "sweep_s": round(r["sweep"]["wall_s"], 3)}
-        for i, r in enumerate((r0, r1))}
+        for i, r in enumerate((r0, *rest))}
     stage_times = {f"rank{i}": {
         v: {st: [round(s["stages"][st], 3) for s in steps(r, v)]
             for st in ("resnet_forward", "backward")}
-        for v in ("split", "replicated")} for i, r in enumerate((r0, r1))}
+        for v in ("split", "replicated")} for i, r in enumerate((r0, *rest))}
     print(f"mesh (gloo, 2 ranks sharing card 0: {smi_line}): full-width "
           f"bf16 steps each from one rank's state, the ResNet split by depth "
           f"(gate off and on) and whole, one split step in float32 and the "
@@ -4359,6 +4425,285 @@ def mesh_phase(torch, dev, tmp) -> dict:
             "sweep": sweep, "ref_sweep": ref_sweep,
             "eval_feature_rel_l2": r0["eval_feature_rel_l2"], "wall_s": wall,
             "stem_slabs": slabs, "cli": mesh_cli(torch, tmp)}
+
+
+# Phase 27, the 2-D mesh. The (2, 2) step takes phase 26's gates on the
+# bench inputs (the field's gathered gradients among the step-0 ones): the
+# sharded field computes each output column with the same dot as the
+# whole one, so the ranks differ from one rank by the depth split's
+# rounding alone. The (1, 2) field: float32 at the JAX test's bounds
+# (FIELD_RTOL, FIELD_ATOL; a gradient's atol of its peak, as
+# tests/test_torch_mesh2d.py holds it: weight gradients of a 2,048-row sum
+# reach far above 1, where an absolute 1e-5 is below float32's rounding);
+# cuBLAS may take another kernel for a block of columns than for all of
+# them, so a leaky-ReLU input within rounding of 0 can flip (relu_flips)
+# and a tensor upstream of one is printed, not gated. bf16 by phase 26's
+# gate: a tensor beyond MESH_GRAD_REL_L2 of the one rank's bf16 must be
+# no further from the one rank's float32 than MESH_VS_F32 times the one
+# rank's bf16 is. On an H100 the two bf16 backwards read 9.4e-2 relative
+# L2 apart at trunk.0.bias, each of them 5.0e-2 (trunk.4) to 0.105
+# (trunk.0) from float32, the bf16 cotangent rounded at every layer, so
+# two of them can be that far apart.
+MESH2D_SHAPE, MESH2D_STEPS, MESH2D_MIN_DIM = (2, 2), 3, 512
+MESH2D_VARIANTS = (("split", False, MESH2D_STEPS),)
+FIELD_MODEL, FIELD_ROWS, FIELD_IN_DIM, FIELD_MIN_DIM = 2, 2048, 1187, 1024
+FIELD_RTOL, FIELD_ATOL = 2e-4, 1e-5  # tests/test_parallel.py:216
+
+
+def field_rank(rank: int, world: int, init: str, out: str,
+               setup=None) -> None:
+    """A spawned rank of phase 27's (1, world) field check; `setup`,
+    given, runs first."""
+    if setup is not None:
+        setup()
+    import torch
+
+    mesh = card_mesh(world, rank, init, (1, world))
+    try:
+        Path(out).write_text(json.dumps(field_model_axis(torch, mesh)))
+    finally:
+        mesh.close()
+
+
+def field_model_axis(torch, mesh) -> dict:
+    """Phase 27 on every rank of a (1, M) mesh: the full-width acoustic
+    field (weights from seed 27, FIELD_ROWS random inputs and output
+    cotangents) sharded at FIELD_MIN_DIM, forward and backward in float32
+    and in bf16 (autocast), its gradients gathered; the sharded forward +
+    backward and the field's all-gathers timed (the gathers alone, each
+    sharded layer's output block, as the forward gathers them) and its
+    forward FLOPs counted; rank 0 also runs the whole field and compares
+    -> what rank 0 read (the others: their times)."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from neraf_tpu_torch.fields.acoustic import AcousticSoundField
+    from neraf_tpu_torch.parallel.sharding import (
+        apply_param_shardings,
+        gather_model,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    whole = AcousticSoundField(FIELD_IN_DIM)
+    whole.reset_parameters(torch.Generator().manual_seed(27))
+    whole = whole.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn((FIELD_ROWS, FIELD_IN_DIM), generator=gen, device=dev)
+    cot = torch.randn((FIELD_ROWS, 2, 257), generator=gen, device=dev)
+    sharded = apply_param_shardings(copy.deepcopy(whole), mesh, FIELD_MIN_DIM)
+    names = dict(whole.named_parameters())
+
+    def run(field, bf16):
+        xx = x.clone().requires_grad_()
+        with torch.autocast("cuda", torch.bfloat16, enabled=bf16):
+            y = field(xx)
+        (y.float() * cot).sum().backward()
+        grads = {k: (gather_model(p.grad, mesh) if k in field.placements
+                     else p.grad) for k, p in field.named_parameters()}
+        for p in field.parameters():
+            p.grad = None
+        return {"out": y.detach().float(), "dx": xx.grad, **grads}
+
+    def timed(fn, reps=5, alone=False):
+        fn()
+        if not alone:
+            mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out = {"rows": FIELD_ROWS, "placements": sorted(sharded.placements)}
+    for bf16 in (False, True):
+        key = "bf16" if bf16 else "f32"
+        mine = run(sharded, bf16)
+        blocks = [torch.zeros((FIELD_ROWS, names[k].shape[0]
+                               // mesh.model_size), device=dev,
+                              dtype=torch.bfloat16 if bf16 else torch.float32)
+                  for k in sharded.placements if k.endswith(".weight")]
+        out[key] = {
+            "ms": timed(lambda: run(sharded, bf16)),
+            "gather_ms": timed(lambda: [gather_model(b, mesh, dim=1)
+                                        for b in blocks])}
+        with relu_inputs(torch, {"field": sharded}) as calls:
+            again = run(sharded, bf16)
+        if mesh.global_rank != 0:
+            continue
+        if any(not torch.equal(again[k], v) for k, v in mine.items()):
+            fail(f"mesh2d field {key}: two sharded runs differ")
+        with relu_inputs(torch, {"field": whole}) as one_calls:
+            one = run(whole, bf16)
+        out[key]["whole_ms"] = timed(lambda: run(whole, bf16), alone=True)
+        if bf16:
+            rel = {k: rel_l2(mine[k], v) for k, v in one.items()}
+            # (sharded, whole) bf16 from the whole field's float32
+            vs32 = {k: [rel_l2(mine[k], v), rel_l2(one[k], v)]
+                    for k, v in one32.items()}
+            ratio = {k: a / max(b, 1e-30) for k, (a, b) in vs32.items()
+                     if rel[k] > MESH_GRAD_REL_L2}
+            out[key].update({"rel_l2": rel, "vs_f32": vs32,
+                             "ratio": ratio})
+            if ratio and max(ratio.values()) > MESH_VS_F32:
+                k = max(ratio, key=ratio.get)
+                fail(f"mesh2d field bf16: {k} {rel[k]:.3e} relative L2 from "
+                     f"one rank's (tol {MESH_GRAD_REL_L2}) and "
+                     f"{vs32[k][0]:.3e} from its float32, {ratio[k]:.2f} "
+                     f"times the one rank's bf16 {vs32[k][1]:.3e} (tol "
+                     f"{MESH_VS_F32})")
+            continue
+        one32 = one
+        leaf = {id(p): k for k, p in names.items()}
+        kinks, upstream = relu_flips(torch, calls, one_calls, leaf,
+                                     "mesh2d field f32")
+        errs, held = {}, []
+        for k, want in one.items():
+            got = mine[k]
+            atol = FIELD_ATOL * (1.0 if k == "out"
+                                 else float(want.abs().max()))
+            over = (got - want).abs() - FIELD_RTOL * want.abs() - atol
+            errs[k] = float((got - want).abs().max()
+                            / max(float(want.abs().max()), 1e-30))
+            gated = k == "out" or not (upstream and (k == "dx"
+                                                      or k in upstream))
+            if gated:
+                held.append(k)
+                if float(over.max()) > 0:
+                    fail(f"mesh2d field f32: {k} off by {errs[k]:.3e} of "
+                         f"its peak (rtol {FIELD_RTOL}, atol {FIELD_ATOL})")
+        out[key].update({"peak_err": errs, "kinks": kinks,
+                         "not_gated": sorted(set(one) - set(held))})
+    with torch.no_grad():
+        flops = {}
+        for name, field in (("rank", sharded), ("whole", whole)):
+            with FlopCounterMode(display=False) as counter:
+                field(x)
+            flops[name] = counter.get_total_flops()
+    out["flops"] = flops
+    return out
+
+
+def field_check(torch, tmp, setup=None) -> tuple:
+    """Phase 27's (1, FIELD_MODEL) check: this process rank 0, the
+    others spawned (each running `setup` first, when given) -> (rank 0's
+    results, the others', the wall s)."""
+    import multiprocessing
+
+    world = FIELD_MODEL
+    init = f"tcp://127.0.0.1:{free_port()}"
+    outs = [tmp / f"field_rank{r}.json" for r in range(1, world)]
+    ctx = multiprocessing.get_context("spawn")
+    children = [ctx.Process(target=field_rank,
+                            args=(r, world, init, str(outs[r - 1]), setup),
+                            daemon=True) for r in range(1, world)]
+    t0 = time.perf_counter()
+    for child in children:
+        child.start()
+    try:
+        mesh = card_mesh(world, 0, init, (1, world))
+        try:
+            r0 = field_model_axis(torch, mesh)
+        finally:
+            mesh.close()
+        for child in children:
+            child.join(600)
+    finally:
+        for child in children:
+            if child.is_alive():
+                child.kill()
+                child.join()
+    if any(child.exitcode for child in children):
+        fail(f"mesh2d field: ranks exited "
+             f"{[child.exitcode for child in children]}")
+    return (r0, [json.loads(out.read_text()) for out in outs],
+            time.perf_counter() - t0)
+
+
+def mesh2d_phase(torch, dev, tmp) -> dict:
+    """Phase 27: the (1, 2) field (field_check), the (2, 2) full-width
+    step against one rank (mesh_run, mesh_gates), every gate fatal, then
+    dryrun_multichip(4) on card 0 over gloo and, with 4 cards, over
+    NCCL."""
+    from neraf_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    smi_line = smi("name,power.limit")
+    torch.cuda.empty_cache()
+    f0, frest, f_wall = field_check(torch, tmp)
+    each = lambda key: [round(r[k][key], 3) for r in (f0, *frest)
+                        for k in ("f32", "bf16")]
+    print(f"mesh2d field (1, {FIELD_MODEL}), gloo ranks sharing card 0 "
+          f"({smi_line}): the full-width acoustic field on {FIELD_ROWS} "
+          f"rows, sharded at min_dim {FIELD_MIN_DIM} ({f0['placements']}); "
+          f"float32 against one rank's whole field, each output's worst "
+          f"error of its peak {json.dumps(f0['f32']['peak_err'])} (rtol "
+          f"{FIELD_RTOL}, atol {FIELD_ATOL}; not gated, upstream of a kink: "
+          f"{f0['f32']['not_gated']}; kinks {f0['f32']['kinks']}); bf16 "
+          f"relative L2 {json.dumps(f0['bf16']['rel_l2'])}, (sharded, whole) "
+          f"from float32 {json.dumps(f0['bf16']['vs_f32'])} (beyond "
+          f"{MESH_GRAD_REL_L2}: within {MESH_VS_F32} x the whole field's "
+          f"distance); fwd + bwd ms a rank, sharded "
+          f"{each('ms')} (f32, bf16 of each rank), whole on one rank "
+          f"{round(f0['f32']['whole_ms'], 3)}, "
+          f"{round(f0['bf16']['whole_ms'], 3)}; the field's all-gathers "
+          f"alone {each('gather_ms')} ms; forward FLOPs a rank "
+          f"{f0['flops']['rank']:.4e} against "
+          f"one rank's {f0['flops']['whole']:.4e} (ratio "
+          f"{f0['flops']['rank'] / f0['flops']['whole']:.4f}); wall "
+          f"{f_wall:.2f} s. Gloo ranks sharing one card say nothing of the "
+          f"model axis's speed.", flush=True)
+    torch.cuda.empty_cache()
+    r0, rest, wall = mesh_run(torch, dev, tmp, MESH2D_VARIANTS, sweep=False,
+                              shape=MESH2D_SHAPE, min_dim=MESH2D_MIN_DIM,
+                              extras=False)
+    bad, report = mesh_gates(r0, rest, MESH2D_VARIANTS, sweep=False,
+                             extras=False)
+    if bad:
+        fail("; ".join(msg for _, msg in bad))
+    steps = [r["variants"]["split"]["steps"] for r in (r0, *rest)]
+    per_rank = {f"rank{i}": {
+        "ms": [round(s["ms"], 3) for s in st],
+        "all_reduce_ms": [round(s["all_reduce_ms"], 3) for s in st],
+        "audio_forward_ms": [round(s["stages"]["audio_forward"], 3)
+                             for s in st],
+        "pe_fwd": sum(s["launches"]["pe_fwd"] for s in st),
+        "pe_bwd": sum(s["launches"]["pe_bwd"] for s in st)}
+        for i, st in enumerate(steps)}
+    print(f"mesh2d step {MESH2D_SHAPE} (data, model), 4 gloo ranks sharing "
+          f"card 0 ({smi_line}): full-width bf16 steps each from one rank's "
+          f"state, the field sharded at min_dim {MESH2D_MIN_DIM}, the ResNet "
+          f"split over the 2 data ranks; per rank {json.dumps(per_rank)}; "
+          f"against one rank {json.dumps(report)} (tols: losses "
+          f"{MESH_LOSS_RTOL}, gradients {MESH_GRAD_REL_L2} or within "
+          f"{MESH_VS_F32} x the one rank's bf16 distance from its float32 "
+          f"step, feature {MESH_FEATURE_REL_L2}, statistics "
+          f"{MESH_STATS_REL_L2}); replicas bitwise over the 4 ranks and each "
+          f"field shard over its data column after every step; wall "
+          f"{wall:.2f} s. The shared card's gloo times are not a speed of "
+          f"the 2-D mesh.", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, ["cuda:0"] * 4, backend="gloo")
+    dry_s = time.perf_counter() - t0
+    print(f"mesh2d dryrun_multichip(4), gloo ranks sharing card 0: "
+          f"{dry_s:.2f} s, ranks (data, model) "
+          f"{[(r['data'], r['model']) for r in dry]}, sharded "
+          f"{dry[0]['sharded']}", flush=True)
+    nccl = None
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        t0 = time.perf_counter()
+        nccl = dryrun_multichip(4)
+        print(f"mesh2d dryrun_multichip(4) over NCCL, one card a rank: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    else:
+        print(f"mesh2d dryrun_multichip(4) over NCCL: skipped, {n_cards} "
+              f"card here (it needs 4, one a rank)", flush=True)
+    return {"field": f0, "per_rank": per_rank, "report": report,
+            "wall_s": wall, "dryrun": dry, "dryrun_s": dry_s,
+            "nccl": nccl}
 
 
 def mesh_cli(torch, tmp) -> dict | None:
@@ -4809,10 +5154,18 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.2f} s", flush=True)
         print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
               f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        t0 = time.perf_counter()
+        mesh2d = mesh2d_phase(torch, dev, tmp)
+        print(f"phase 27: {time.perf_counter() - t0:.2f} s; the run so far "
+              f"{time.perf_counter() - t_start:.2f} s", flush=True)
+        print(f"nvidia-smi clocks.sm,power.draw,power.limit,temp: "
+              f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cli_launches = lambda k: {run: c[k] for run, c in cli["launches"].items()}
     mesh_launches = lambda k: {rank: r[k] for rank, r in mesh["per_rank"].items()}
+    mesh2d_launches = lambda k: {rank: r[k]
+                                 for rank, r in mesh2d["per_rank"].items()}
     viewer_launches = lambda k: {
         name: r["launches"][k]
         for name, r in serving["viewer"]["requests"].items()}
@@ -4864,6 +5217,7 @@ def main() -> int:
         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
         "train_step_launches": joint["pe_fwd"], "shapes": pe_rows,
         "mesh_step_launches_per_rank": mesh_launches("pe_fwd"),
+        "mesh2d_step_launches_per_rank": mesh2d_launches("pe_fwd"),
         "streamed_train_step_launches": stream["step"]["streamed"][
             "launches"]["pe_fwd"],
         "hash_render_launches": hvis["launches"]["pe_mlp"],
@@ -4879,6 +5233,7 @@ def main() -> int:
         "replaces": "neraf_tpu/ops/pallas/fused_pe_mlp.py:298",
         "launches": joint["pe_bwd"], "max_abs_err": bwd_main["max_abs_err"],
         "mesh_step_launches_per_rank": mesh_launches("pe_bwd"),
+        "mesh2d_step_launches_per_rank": mesh2d_launches("pe_bwd"),
         "streamed_train_step_launches": stream["step"]["streamed"][
             "launches"]["pe_bwd"],
         "rel_l2_vs_plain": bwd_rows["main_field"]["rel_l2_vs_plain"],

@@ -25,11 +25,19 @@ from pathlib import Path
 
 import torch
 
+from neraf_tpu_torch.parallel.sharding import (
+    gather_model,
+    map_model_shards,
+    model_shard,
+)
+
 
 def train_state(obj) -> dict:
     """The checkpoint's contents of a pipeline or engine (`models`,
     `optimizers`, `generator`, `step`, and `grid` / `cursor` when it has a
-    grid)."""
+    grid). A pipeline whose acoustic field is sharded over a mesh's model
+    axis gathers the shards and their Adam moments (every rank of its
+    model row calls this), so the contents are the one-rank format."""
     state = {
         "step": int(obj.step),
         "models": {k: m.state_dict() for k, m in obj.models.items()},
@@ -40,14 +48,19 @@ def train_state(obj) -> dict:
     if getattr(obj, "grid", None) is not None:
         state["grid"] = obj.grid
         state["cursor"] = int(obj.cursor)
-    return state
+    mesh = getattr(obj, "mesh", None)
+    return map_model_shards(obj, state, lambda t: gather_model(t, mesh))
 
 
 def load_train_state(obj, state: dict) -> None:
     """Restore `state` into obj in place: modules strictly, the Adam states
     onto the same parameters (build obj on its device first: a card's Adam
     is the fused one), counts, generator, step, grid (a JointPipeline
-    refolds its grid_folded from it) and cursor."""
+    refolds its grid_folded from it) and cursor. A pipeline whose acoustic
+    field is sharded over a model axis takes its shards of the field and
+    of their Adam moments from the one-rank format."""
+    mesh = getattr(obj, "mesh", None)
+    state = map_model_shards(obj, state, lambda t: model_shard(t, mesh))
     for k, m in obj.models.items():
         m.load_state_dict(state["models"][k], strict=True)
     for k, o in obj.optimizers.items():

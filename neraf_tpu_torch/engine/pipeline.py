@@ -65,9 +65,12 @@ from neraf_tpu_torch.models.resnet3d import ResNet3D
 from neraf_tpu_torch.models.vision import VisionModel
 from neraf_tpu_torch.parallel.sharding import (
     all_gather_batch,
+    apply_param_shardings,
     average_gradients,
     block_range,
+    model_shard,
     shard_batch,
+    sharded_params,
 )
 from neraf_tpu_torch.viz.panels import grid_top_view, stft_comparison_panel
 
@@ -312,6 +315,16 @@ class JointPipeline:
     its mesh; render_rirs, which rank 0 alone calls for the viewer, runs
     the ResNet whole.
 
+    On a 2-D (data, model) mesh (parallel/sharding.py::make_mesh_2d) the
+    mesh's rank and world are its data axis, so all of the above runs over
+    the data axis and is replicated over the model axis, as the JAX rule
+    does; `shard_field` then column-shards the acoustic field's wide
+    layers (and their Adam moments) over the model axis. A step averages
+    each shard's gradient over its data column and every other gradient
+    over all ranks; a checkpoint holds the gathered field. Every rank of a
+    model row runs the field's collectives, so render_rirs, which one rank
+    calls alone, refuses a sharded field.
+
     The stem's weight gradient on the folded path: with
     NERAF_STEM_WGRAD_PALLAS=1 in the environment when the pipeline is
     built (the reference's own gate, neraf_tpu/engine/pipeline.py:88-100,
@@ -376,6 +389,24 @@ class JointPipeline:
         }
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.profile = None  # a list: train_step appends (stage, CUDA event)
+
+    def shard_field(self, min_dim: int = 1024) -> None:
+        """Column-shard the acoustic field over the mesh's model axis with
+        the JAX rule (parallel/sharding.py::apply_param_shardings: the
+        layers with >= min_dim outputs; 1024 as the JAX package's tests,
+        512 as its dry run), and its Adam moments with it. Call it on
+        every rank, after the state is the same on all of them
+        (broadcast_state sends a whole one); ValueError for a width the
+        model axis does not divide."""
+        field = self.audio_model.field
+        apply_param_shardings(field, self.mesh, min_dim)
+        ids = sharded_params(self)
+        for o in self.optimizers.values():
+            for p in o.params:
+                st = o.opt.state.get(p, {}) if id(p) in ids else {}
+                for k in ("exp_avg", "exp_avg_sq"):
+                    if k in st:
+                        st[k] = model_shard(st[k], self.mesh)
 
     @property
     def grid(self) -> torch.Tensor:
@@ -496,7 +527,8 @@ class JointPipeline:
         self._mark("backward")
         if self.mesh is not None:
             average_gradients([p for opt in self.optimizers.values()
-                               for p in opt.params], self.mesh)
+                               for p in opt.params], self.mesh,
+                              sharded_params(self))
             self._mark("all_reduce")
         lrs = {"lr_fields": self.optimizers["fields"].lr,
                "lr_audio_fields": self.optimizers["audio_fields"].lr}
@@ -561,7 +593,14 @@ class JointPipeline:
         """(N, 3) poses and orientations -> (N, C, F, T) log-magnitudes
         (the counterpart of _render_rirs_impl). It takes no collective
         under a data mesh (a viewer request reaches rank 0 alone): the
-        ResNet runs whole."""
+        ResNet runs whole. A field sharded over a model axis would need
+        its whole model row to take part: that raises RuntimeError."""
+        if self.audio_model.field.placements:
+            raise RuntimeError(
+                "render_rirs is called by one rank alone, but the acoustic "
+                "field is sharded over the mesh's model axis and needs every "
+                "rank of its model row: serve from a pipeline without a "
+                "model axis")
         with self._eval_mode():
             return self._render_log(self._grid_feature_eval(split=False),
                                     *_as_f32(self.device, mic, src, rot))

@@ -71,7 +71,7 @@ class Trainer:
         self.output_dir = Path(self.output_dir)
         self.ckpt_dir = self.output_dir / "neraf_models"
         # rank 0 of a multi-rank run writes the run directory
-        self.writes = self.mesh is None or self.mesh.rank == 0
+        self.writes = self.mesh is None or self.mesh.global_rank == 0
         self.writer = MetricsWriter(self.output_dir) if self.writes else None
         self.timings: list[tuple[int, str, float]] = []
 

@@ -4,6 +4,12 @@ Maps an encoded (scene feature, time, mic pose, source pose, orientation)
 query to one STFT frame of per-channel log-magnitudes: Linear layers
 in -> 5096 -> 2048 -> 1024 -> 1024 -> W, each followed by LeakyReLU(0.1), then
 one Linear(W, n_freq) head per channel with tanh(h) * 10.
+
+On a mesh with a model axis (parallel/sharding.py::apply_param_shardings)
+each layer wide enough for the JAX rule holds its block of output rows on
+each model rank: it computes that block of its outputs and all-gathers the
+blocks (sharding.sharded_linear) before the activation, which every model
+rank then computes whole, as the layers after it do.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from neraf_tpu_torch.parallel.sharding import sharded_linear
 
 TRUNK_WIDTHS = (5096, 2048, 1024, 1024)
 
@@ -36,6 +44,9 @@ class AcousticSoundField(nn.Module):
             nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
         self.heads = nn.ModuleList(
             nn.Linear(hidden_w, n_frequencies) for _ in range(sound_rez))
+        # set by parallel/sharding.py::apply_param_shardings: the mesh and
+        # {parameter name: spec} of the model-sharded parameters
+        self.mesh, self.placements = None, {}
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """flax Dense defaults: lecun_normal kernels, zero biases."""
@@ -43,9 +54,16 @@ class AcousticSoundField(nn.Module):
             lecun_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
 
+    def _dense(self, name: str, lin: nn.Linear, h: torch.Tensor):
+        if f"{name}.weight" in self.placements:
+            return sharded_linear(h, lin.weight, lin.bias, self.mesh)
+        return lin(h)
+
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         h = h.to(self.trunk[0].weight.dtype)
-        for lin in self.trunk:
-            h = F.leaky_relu(lin(h), negative_slope=0.1)
-        return torch.stack([torch.tanh(head(h)) * 10.0 for head in self.heads],
+        for i, lin in enumerate(self.trunk):
+            h = F.leaky_relu(self._dense(f"trunk.{i}", lin, h),
+                             negative_slope=0.1)
+        return torch.stack([torch.tanh(self._dense(f"heads.{i}", head, h))
+                            * 10.0 for i, head in enumerate(self.heads)],
                            dim=-2)

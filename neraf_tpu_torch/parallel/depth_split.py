@@ -136,7 +136,7 @@ class _HaloWindow(torch.autograd.Function):
             mine = x.new_zeros((*x.shape[:2], m, *x.shape[3:]))
             if sends[rank]:
                 mine[:, :, :len(sends[rank])] = x[:, :, [p - b0 for p in sends[rank]]]
-            if gloo_needs_f32(mine, mesh):
+            if gloo_needs_f32(mine, mesh.group):
                 mine = mine.float()  # exact, and back
             parts = [torch.empty_like(mine) for _ in range(world)]
             dist.all_gather(parts, mine, group=mesh.group)

@@ -15,7 +15,20 @@ difference over the CPU tensor's peak. The ReLU units whose input changes
 sign between the two runs (kinks at the float32 noise floor,
 chip_smoke.py::relu_flips) are listed with the tensors upstream of them.
 
+With --pin-kinks the kinks are pinned instead: the CPU step runs first
+and records the sign mask of every ReLU and leaky-ReLU input of the step
+(with gradients on, in call order), and the card's step takes those masks
+in place of its own (relu(x) as where(mask, x, 0), leaky_relu(x) as
+where(mask, x, slope x)), so that both sides pass every cotangent through
+the same units; the count of units whose sign the card would have
+flipped is reported. The radiance fields' PE + MLP then run on both sides
+through their plain chain (the card's: the encoding in float64, exactly
+as the kernel reduces it, the layers in float32), whose ReLUs the masks
+reach; inside the kernel they cannot. A diagnostic: the kernel stays the
+main path.
+
     PYTHONPATH=. python3 scripts/full_step_card_vs_cpu.py [--out PATH]
+        [--pin-kinks]
 
 prints one JSON line and writes it to --out (default
 build/full_step_card_vs_cpu.json); --tiny runs the tiny
@@ -45,6 +58,63 @@ def gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
+class PinnedReLUs:
+    """A torch function mode over a step: records the sign mask of every
+    ReLU and leaky-ReLU input taken with gradients on (`masks` None), or
+    imposes the masks it is given in call order, counting the units whose
+    own sign differs (`flips`)."""
+
+    def __init__(self, masks=None):
+        import torch.nn.functional as F
+        from torch.overrides import TorchFunctionMode
+
+        self.masks, self.recorded, self.flips = masks, [], []
+        funcs = {F.relu: 0.0, torch.relu: 0.0, F.leaky_relu: None}
+        owner = self
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if func not in funcs or not torch.is_grad_enabled():
+                    return func(*args, **kwargs)
+                x = args[0]
+                if owner.masks is None:
+                    owner.recorded.append((tuple(x.shape),
+                                           (x.detach() > 0).cpu()))
+                    return func(*args, **kwargs)
+                shape, mask = owner.masks[len(owner.flips)]
+                if shape != tuple(x.shape):
+                    raise RuntimeError(f"ReLU {len(owner.flips)}: shape "
+                                       f"{tuple(x.shape)}, recorded {shape}")
+                mask = mask.to(x.device)
+                owner.flips.append(int(((x.detach() > 0) != mask).sum()))
+                slope = funcs[func]
+                if slope is None:
+                    slope = (args[1] if len(args) > 1
+                             else kwargs.get("negative_slope", 0.01))
+                return torch.where(mask, x, x * slope)
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def plain_pe_mlp(x, layers, num_frequencies=6, min_exp=0.0, max_exp=8.0,
+                 dtype=torch.float32):
+    """The PE + MLP's plain chain with the encoding in float64 (as the
+    kernel reduces its angles exactly) and the layers in `dtype`."""
+    from neraf_tpu_torch.ops.pe_mlp import pe_mlp_plain
+
+    return pe_mlp_plain(x.double(), layers, num_frequencies, min_exp,
+                        max_exp, dtype).to(torch.promote_types(
+                            dtype, torch.float32))
+
+
 def params(pipe) -> dict:
     """Every parameter by name, in the order a step's backward reaches
     them last (the vision fields, the camera correction, the acoustic
@@ -63,6 +133,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/full_step_card_vs_cpu.json")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pin-kinks", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("full_step_card_vs_cpu: no CUDA device", file=sys.stderr)
@@ -88,25 +159,46 @@ def main(argv=None) -> int:
     draws = {k: v.cpu().numpy() for k, v in card.draw(
         n_cams, H, W, audio["log_stft"].shape[0]).items()}
     metrics, calls, seconds = {}, {}, {}
-    for side, p in on.items():
-        t = time.perf_counter()
-        with chip_smoke.relu_inputs(torch, {"resnet": p.resnet,
-                                            "audio": p.audio_model}) as calls[side]:
-            metrics[side] = p.train_step(*data[side], draws=draws)
-        seconds[side] = time.perf_counter() - t
+    if args.pin_kinks:
+        from neraf_tpu_torch.fields import nerfacto
+
+        nerfacto.pe_mlp = plain_pe_mlp
+        pins = {}
+        for side in ("cpu", "card"):
+            t = time.perf_counter()
+            masks = None if side == "cpu" else pins["cpu"].recorded
+            with PinnedReLUs(masks) as pins[side]:
+                metrics[side] = on[side].train_step(*data[side], draws=draws)
+            seconds[side] = time.perf_counter() - t
+        flips = pins["card"].flips
+        if len(flips) != len(pins["cpu"].recorded):
+            raise RuntimeError(f"the card took {len(flips)} ReLUs, the CPU "
+                               f"{len(pins['cpu'].recorded)}")
+        kinks = {"relus": len(flips), "pinned_units": sum(flips),
+                 "relus_with_a_pinned_unit": sum(1 for f in flips if f)}
+        upstream = set()
+    else:
+        for side, p in on.items():
+            t = time.perf_counter()
+            with chip_smoke.relu_inputs(torch, {"resnet": p.resnet,
+                                                "audio": p.audio_model}) as calls[side]:
+                metrics[side] = p.train_step(*data[side], draws=draws)
+            seconds[side] = time.perf_counter() - t
     losses = {k: abs(metrics["card"][k] - v) / max(abs(v), 1e-30)
               for k, v in metrics["cpu"].items() if not k.startswith("lr_")}
     g_card, g_cpu = params(card), params(cpu)
     grads = {k: gap(g_card[k].grad, t.grad) for k, t in g_cpu.items()}
     names = {id(t): k for k, t in g_cpu.items()}
-    kinks, upstream = chip_smoke.relu_flips(torch, calls["card"], calls["cpu"],
-                                            names, "full step")
+    if not args.pin_kinks:
+        kinks, upstream = chip_smoke.relu_flips(
+            torch, calls["card"], calls["cpu"], names, "full step")
     state = {"grid": gap(card.grid, cpu.grid), **{
         k: gap(v, cpu.resnet.state_dict()[k])
         for k, v in card.resnet.state_dict().items() if "running" in k}}
     over = [k for k, e in grads.items() if e > LIMIT]
     out = {
         "config": "tiny, grid 32" if args.tiny else "full width, grid 128",
+        "pinned_kinks": args.pin_kinks,
         "card": (torch.cuda.get_device_name(0) if args.device == "cuda"
                  else args.device),
         "card_power_limit": (chip_smoke.smi("name,power.limit")

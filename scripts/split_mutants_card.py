@@ -86,10 +86,10 @@ def main() -> int:
         kept = plant(name)
         try:
             with tempfile.TemporaryDirectory() as tmp:
-                r0, r1, wall = chip_smoke.mesh_run(
+                r0, rest, wall = chip_smoke.mesh_run(
                     torch, dev, Path(tmp), VARIANTS, sweep=False,
                     setup=functools.partial(plant, name))
-            bad, report = chip_smoke.mesh_gates(r0, r1, VARIANTS,
+            bad, report = chip_smoke.mesh_gates(r0, rest, VARIANTS,
                                                 sweep=False)
         except SystemExit:  # a rank failed (chip_smoke.fail)
             bad, report, wall = [("rank_failed", "a rank failed")], {}, None
