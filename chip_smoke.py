@@ -749,11 +749,17 @@ def pe_fwd_bound_ms(shape, F, n, dtype=None) -> tuple:
                                        else "bytes")
 
 
-def stage_ms(torch, marks):
-    """Consecutive (stage, CUDA event) marks -> ms per stage."""
-    torch.cuda.synchronize()
-    return {name: a.elapsed_time(b) for (_, a), (name, b)
-            in zip(marks[:-1], marks[1:])}
+def stage_ms() -> list:
+    """The device ms of each stage of every train step in the span store
+    (steps run inside profiling.recording(), which times each span with
+    CUDA events) -> [{stage: ms}] a step, its stages the children of
+    train.step without the "train." prefix."""
+    from neraf_tpu_torch.utils import profiling
+
+    records = profiling.spans()
+    return [{c["name"].split(".", 1)[1]: c["device_ms"] for c in records
+             if c["parent"] == step["id"]}
+            for step in records if step["name"] == "train.step"]
 
 
 def bench_inputs(torch, dev):
@@ -782,31 +788,27 @@ def check_metrics(metrics, what):
         fail(f"{what}: metrics {metrics}")
 
 
-def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
-    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
-    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
-    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
-    from neraf_tpu_torch.ops.cuda import shifted_concat as sc_cuda
-    from neraf_tpu_torch.ops.cuda import stem_wgrad as stem_cuda
+# read_counts()'s keys: the kernel wrappers' launch counters
+# (utils/profiling.py)
+KERNEL_COUNTERS = {"pe_fwd": "kernel.pe_mlp_fwd", "pe_bwd": "kernel.pe_mlp_bwd",
+                   "hash_fwd": "kernel.hash_fwd", "hash_bwd": "kernel.hash_bwd",
+                   "stem": "kernel.stem_wgrad", "concat": "kernel.shifted_concat",
+                   "gl": "kernel.griffin_lim"}
 
-    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = pe_cuda.BWD_LAUNCHES = 0
-    hash_cuda.FWD_LAUNCHES = hash_cuda.BWD_LAUNCHES = 0
-    stem_cuda.LAUNCHES = sc_cuda.LAUNCHES = 0
+
+def reset_counts() -> None:
+    """Every counter, the kernel wrappers' launch counts among them, to 0."""
+    from neraf_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count."""
-    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
-    from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
-    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
-    from neraf_tpu_torch.ops.cuda import shifted_concat as sc_cuda
-    from neraf_tpu_torch.ops.cuda import stem_wgrad as stem_cuda
+    from neraf_tpu_torch.utils import profiling
 
-    return {"pe_fwd": pe_cuda.LAUNCHES, "pe_bwd": pe_cuda.BWD_LAUNCHES,
-            "hash_fwd": hash_cuda.FWD_LAUNCHES,
-            "hash_bwd": hash_cuda.BWD_LAUNCHES, "stem": stem_cuda.LAUNCHES,
-            "concat": sc_cuda.LAUNCHES, "gl": gl_cuda.LAUNCHES}
+    c = profiling.counters()
+    return {k: c.get(name, 0) for k, name in KERNEL_COUNTERS.items()}
 
 
 class stem_gate:
@@ -882,11 +884,13 @@ def joint_step_phase(torch, pipe, per_step: dict, what: str = "joint step",
           f"{1e3 / ms:.3f} steps/s, {rays * 1e3 / ms:.1f} rays/s; peak memory "
           f"{peak / 2**30:.3f} GiB; launches {counts} in {steps} steps; last "
           f"metrics {json.dumps(metrics[-1])}", flush=True)
-    pipe.profile = []
-    for _ in range(3):
-        pipe.train_step(cams, audio, images)
-    marks, pipe.profile = pipe.profile, None
-    per = [stage_ms(torch, marks[i:i + 7]) for i in range(0, len(marks), 7)]
+    from neraf_tpu_torch.utils import profiling
+
+    profiling.clear()
+    with profiling.recording():
+        for _ in range(3):
+            pipe.train_step(cams, audio, images)
+    per = stage_ms()
     parts = {k: float(np.mean([d[k] for d in per])) for k in per[0]}
     print(f"{what} breakdown, mean of 3 steps (ms, CUDA events): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}",
@@ -958,9 +962,10 @@ def stem_profile(events, what: str, n: int) -> dict:
     backward ranges, printed; fatal if one runs on f32 operands
     ("f32f32") -> {"forward": .., "backward": .., "ms": total a step}."""
     from neraf_tpu_torch.ops.baked_stem import PROFILE_BACKWARD, PROFILE_FORWARD
+    from neraf_tpu_torch.utils.profiling import PREFIX
 
-    rows = {"forward": range_kernels(events, PROFILE_FORWARD, n),
-            "backward": range_kernels(events, PROFILE_BACKWARD, n)}
+    rows = {"forward": range_kernels(events, PREFIX + PROFILE_FORWARD, n),
+            "backward": range_kernels(events, PREFIX + PROFILE_BACKWARD, n)}
     rows["ms"] = sum(v[1] for k in ("forward", "backward")
                      for v in rows[k].values())
     fmt = lambda d: "; ".join(f"{k} x{v[0]:g} {v[1]:.4f} ms"
@@ -3813,6 +3818,7 @@ def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
         replicated_state,
         sharded_names,
     )
+    from neraf_tpu_torch.utils import profiling
 
     # float32 convs in float32 on every rank (rank 0's stem_slab_check
     # sets it too), for the float32 step's gates
@@ -3848,14 +3854,14 @@ def mesh_steps(torch, mesh, ref, ref32=None, variants=MESH_VARIANTS,
                 mesh.barrier()  # each rank's clock starts with the state loaded
                 torch.cuda.synchronize()
                 reset_counts()
-                pipe.profile = []
+                profiling.clear()
                 t0 = time.perf_counter()
-                m = pipe.train_step(cams, audio, images)
+                with profiling.recording():
+                    m = pipe.train_step(cams, audio, images)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 counts = read_counts()
-                marks, pipe.profile = pipe.profile, None
-                stages = stage_ms(torch, marks)
+                stages = stage_ms()[0]
                 bad = replica_mismatches(replicated_state(pipe), mesh,
                                          sharded_names(pipe))
                 check_metrics(m, f"mesh {variant} step {k} rank "
@@ -4776,8 +4782,6 @@ def main() -> int:
     )
     from neraf_tpu_torch.engine.pipeline import gl_waveforms
     from neraf_tpu_torch.ops.cuda import build
-    from neraf_tpu_torch.ops.cuda import griffin_lim as gl_cuda
-    from neraf_tpu_torch.ops.cuda import pe_mlp as pe_cuda
 
     dev = torch.device("cuda")
     # phase 1: the card
@@ -4814,7 +4818,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gl_cuda.LAUNCHES = pe_cuda.LAUNCHES = 0
+    reset_counts()
     times = []
     for mic, src, rot in requests:
         t0 = time.perf_counter()
@@ -4828,7 +4832,8 @@ def main() -> int:
             fail("slice output not finite")
         if not float(wav.abs().max()) > 0:
             fail("slice output is all zero")
-    launches, rir_pe_launches = gl_cuda.LAUNCHES, pe_cuda.LAUNCHES
+    counts = read_counts()
+    launches, rir_pe_launches = counts["gl"], counts["pe_fwd"]
     peak = torch.cuda.max_memory_allocated()
     if launches != len(requests) or rir_pe_launches != 0:
         fail(f"RIR path: GL kernel launched {launches} times for "

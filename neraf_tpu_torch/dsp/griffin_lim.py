@@ -16,6 +16,7 @@ import math
 import torch
 
 from neraf_tpu_torch.dsp.stft import istft, stft_complex
+from neraf_tpu_torch.utils.profiling import span
 
 
 def random_angles(shape, generator: torch.Generator | None = None,
@@ -23,13 +24,14 @@ def random_angles(shape, generator: torch.Generator | None = None,
     """Unit phasors exp(i*phi), phi ~ uniform[0, 2*pi), as complex64.
 
     Drawn on the generator's device (a fresh generator seeded 0 when none is
-    given) and moved to `device`.
+    given) and moved to `device` (span rir.angles).
     """
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    phase = torch.rand(shape, generator=generator, device=generator.device,
-                       dtype=torch.float32) * (2 * math.pi)
-    return torch.polar(torch.ones_like(phase), phase).to(device)
+    with span("rir.angles"):
+        phase = torch.rand(shape, generator=generator, device=generator.device,
+                           dtype=torch.float32) * (2 * math.pi)
+        return torch.polar(torch.ones_like(phase), phase).to(device)
 
 
 def griffin_lim_plain(

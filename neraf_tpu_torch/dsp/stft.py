@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from neraf_tpu_torch.utils.profiling import span
+
 
 def _hann_np(win_length: int) -> np.ndarray:
     n = np.arange(win_length)
@@ -86,8 +88,10 @@ def log_magnitude(mag: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
 
 def log_to_magnitude(log_mag: torch.Tensor, eps: float = 1e-3,
                      max_val: float = 1e4) -> torch.Tensor:
-    """clip(exp(x) - 1e-3, 0, 1e4), the inverse log transform."""
-    return torch.clamp(torch.exp(log_mag) - eps, 0.0, max_val)
+    """clip(exp(x) - 1e-3, 0, 1e4), the inverse log transform (span
+    rir.magnitude)."""
+    with span("rir.magnitude"):
+        return torch.clamp(torch.exp(log_mag) - eps, 0.0, max_val)
 
 
 @functools.lru_cache(maxsize=32)

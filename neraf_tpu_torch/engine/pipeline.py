@@ -72,6 +72,7 @@ from neraf_tpu_torch.parallel.sharding import (
     shard_batch,
     sharded_params,
 )
+from neraf_tpu_torch.utils.profiling import count, request, span
 from neraf_tpu_torch.viz.panels import grid_top_view, stft_comparison_panel
 
 # the JAX package's explicit LPIPS skip marker (engine/pipeline.py:43-71)
@@ -110,15 +111,30 @@ def synchronize(device: torch.device) -> None:
 
 def gl_waveforms(audio_config, mag: torch.Tensor,
                  angles: torch.Tensor) -> torch.Tensor:
-    """Griffin-Lim at the audio model's STFT geometry from `angles`."""
+    """Griffin-Lim at the audio model's STFT geometry from `angles` (span
+    rir.griffin_lim)."""
     cfg = audio_config
-    return griffin_lim(mag, n_fft=cfg.n_fft, hop_length=cfg.hop_len,
-                       win_length=cfg.win_len, init_angles=angles)
+    with span("rir.griffin_lim"):
+        return griffin_lim(mag, n_fft=cfg.n_fft, hop_length=cfg.hop_len,
+                           win_length=cfg.win_len, init_angles=angles)
 
 
 def _as_f32(device, *arrays) -> list:
     return [torch.as_tensor(a, dtype=torch.float32, device=device)
             for a in arrays]
+
+
+def render_field(audio_model: AudioModel, aabb: torch.Tensor,
+                 grid_feature: torch.Tensor, mic, src, rot) -> torch.Tensor:
+    """(N, 3) poses and orientations -> (N, C, F, T) log-magnitudes: the
+    query batch of every STFT frame of every RIR through the acoustic
+    field (span rir.field; counters rir.rirs, rir.frames)."""
+    with span("rir.field"):
+        mic, src, rot = _as_f32(aabb.device, mic, src, rot)
+        count("rir.rirs", mic.shape[0])
+        count("rir.frames", mic.shape[0] * audio_model.config.max_len)
+        return audio_model.render_rirs_batch(mic, src, rot, aabb,
+                                             grid_feature=grid_feature)
 
 
 class RenderPipeline:
@@ -142,15 +158,17 @@ class RenderPipeline:
 
     @torch.inference_mode()
     def grid_feature(self) -> torch.Tensor:
-        """The (feature_dim,) f32 scene descriptor (eval-mode BN)."""
-        return self.resnet(grid_to_volume(self.grid, self.grid_res))[0]
+        """The (feature_dim,) f32 scene descriptor (eval-mode BN; span
+        rir.grid_feature, counter rir.grid_features)."""
+        with span("rir.grid_feature"):
+            count("rir.grid_features")
+            return self.resnet(grid_to_volume(self.grid, self.grid_res))[0]
 
     @torch.inference_mode()
     def render_rirs(self, mic, src, rot) -> torch.Tensor:
         """(N, 3) poses and orientations -> (N, C, F, T) log-magnitudes."""
-        mic, src, rot = _as_f32(self.device, mic, src, rot)
-        return self.audio_model.render_rirs_batch(
-            mic, src, rot, self.audio_aabb, grid_feature=self.grid_feature())
+        return render_field(self.audio_model, self.audio_aabb,
+                            self.grid_feature(), mic, src, rot)
 
     @torch.inference_mode()
     def render_rir_chunk(self, mic, src, rot, gt_log, generator=None):
@@ -166,10 +184,13 @@ class RenderPipeline:
 
     @torch.inference_mode()
     def render_waveforms(self, mic, src, rot, generator=None) -> torch.Tensor:
-        """The served request: poses -> (N, C, length) f32 waveforms."""
-        mag = log_to_magnitude(self.render_rirs(mic, src, rot))
-        angles = random_angles(mag.shape, generator, self.device)
-        return gl_waveforms(self.audio_model.config, mag, angles)
+        """The served request: poses -> (N, C, length) f32 waveforms (span
+        rir.request, counter rir.requests)."""
+        with request("rir.request"):
+            count("rir.requests")
+            mag = log_to_magnitude(self.render_rirs(mic, src, rot))
+            angles = random_angles(mag.shape, generator, self.device)
+            return gl_waveforms(self.audio_model.config, mag, angles)
 
 
 class VisionPipeline:
@@ -195,23 +216,30 @@ class VisionPipeline:
                      width: int, use_average_appearance: bool = True) -> dict:
         """One full image in chunks of eval_num_rays_per_chunk rays (the
         last chunk is ragged) -> rgb (H, W, 3), depth and accumulation
-        (H, W), on the pipeline's device."""
+        (H, W), on the pipeline's device. Spans: image.request; each chunk
+        image.chunk, its pixels' rays image.rays; the parts put together
+        image.assemble. Counters image.requests, image.rays, image.chunks."""
         chunk = self.config.vision_model.eval_num_rays_per_chunk
-        ys, xs = torch.meshgrid(torch.arange(height, device=self.device),
-                                torch.arange(width, device=self.device),
-                                indexing="ij")
-        ys, xs = ys.reshape(-1), xs.reshape(-1)
-        parts = []
-        for i in range(0, ys.shape[0], chunk):
-            px, py = xs[i:i + chunk], ys[i:i + chunk]
-            cam = torch.full_like(px, cam_index)
-            out = self.render_rays(generate_rays(cam_arrays, cam, px, py),
-                                   use_average_appearance)
-            parts.append([out[k] for k in ("rgb", "depth", "accumulation")])
-        rgb, depth, acc = (torch.cat(p) for p in zip(*parts))
-        return {"rgb": rgb.reshape(height, width, 3),
-                "depth": depth.reshape(height, width),
-                "accumulation": acc.reshape(height, width)}
+        n = height * width
+        with request("image.request"):
+            count("image.requests")
+            count("image.rays", n)
+            parts = []
+            for i in range(0, n, chunk):
+                with span("image.chunk"):
+                    count("image.chunks")
+                    with span("image.rays"):
+                        pixel = torch.arange(i, min(i + chunk, n), device=self.device)
+                        py, px = pixel // width, pixel % width
+                        rays = generate_rays(cam_arrays, torch.full_like(px, cam_index),
+                                             px, py)
+                    out = self.render_rays(rays, use_average_appearance)
+                    parts.append([out[k] for k in ("rgb", "depth", "accumulation")])
+            with span("image.assemble"):
+                rgb, depth, acc = (torch.cat(p) for p in zip(*parts))
+                return {"rgb": rgb.reshape(height, width, 3),
+                        "depth": depth.reshape(height, width),
+                        "accumulation": acc.reshape(height, width)}
 
     def evaluate_vision(self, cam_arrays: dict, images: np.ndarray,
                         use_average_appearance: bool = True) -> dict:
@@ -388,7 +416,6 @@ class JointPipeline:
                 ocfg.audio_fields),
         }
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.profile = None  # a list: train_step appends (stage, CUDA event)
 
     def shard_field(self, min_dim: int = 1024) -> None:
         """Column-shard the acoustic field over the mesh's model axis with
@@ -426,12 +453,6 @@ class JointPipeline:
         return {"vision_model": self.vision_model,
                 "audio_model": self.audio_model, "resnet": self.resnet}
 
-    def _mark(self, stage: str) -> None:
-        if self.profile is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.profile.append((stage, ev))
-
     def draw(self, n_cams: int, height: int, width: int, n_rec: int) -> dict:
         """One step's random draws (DRAW_KEYS) from the pipeline's
         generator, on its device."""
@@ -462,83 +483,86 @@ class JointPipeline:
         (data/loader.py::resolve_audio_batch); a streamed batch brings its
         own (rec, t), and the step still draws, so that its other draws
         are the resident step's. `draws` holds DRAW_KEYS (numpy or
-        tensors), else they are drawn."""
+        tensors), else they are drawn. Spans: train.step, and under it
+        train.vision_forward (the draws, rays and batches, the vision
+        forward and its losses), train.bake, train.resnet_forward,
+        train.audio_forward (the field and its losses), train.backward,
+        train.all_reduce (under a mesh), train.optimizers (the Adam steps
+        and the state advanced); the metrics are read back after it."""
         tcfg = self.config.trainer
-        images = image_arrays["images"]
-        if draws is None:
-            draws = self.draw(images.shape[0], images.shape[1], images.shape[2],
-                              num_recordings(audio_arrays))
-        # under a mesh, this rank's block of the global draws
-        d = shard_batch({k: torch.as_tensor(draws[k], device=self.device)
-                         for k in DRAW_KEYS}, self.mesh)
-        self._mark("start")
-        rays = generate_rays(cam_arrays, d["cam"], d["px"], d["py"])
-        gt_rgb = images[d["cam"], d["py"], d["px"]]
-        batch = resolve_audio_batch(audio_arrays, d["rec"], d["t"])
-        if batch["data"].shape[0] != d["rec"].shape[0]:
-            raise ValueError(
-                f"a streamed batch of {batch['data'].shape[0]} STFT slices "
-                f"for a step of {d['rec'].shape[0]} (a rank's block comes "
-                f"from StreamingAudioSampler(mesh=...))")
-        active = self.step > tcfg.start_step_audio
-        self.resnet.set_update_stats(active)
+        with request("train.step"):
+            with span("train.vision_forward"):
+                images = image_arrays["images"]
+                if draws is None:
+                    draws = self.draw(images.shape[0], images.shape[1],
+                                      images.shape[2], num_recordings(audio_arrays))
+                # under a mesh, this rank's block of the global draws
+                d = shard_batch({k: torch.as_tensor(draws[k], device=self.device)
+                                 for k in DRAW_KEYS}, self.mesh)
+                rays = generate_rays(cam_arrays, d["cam"], d["px"], d["py"])
+                gt_rgb = images[d["cam"], d["py"], d["px"]]
+                batch = resolve_audio_batch(audio_arrays, d["rec"], d["t"])
+                if batch["data"].shape[0] != d["rec"].shape[0]:
+                    raise ValueError(
+                        f"a streamed batch of {batch['data'].shape[0]} STFT slices "
+                        f"for a step of {d['rec'].shape[0]} (a rank's block comes "
+                        f"from StreamingAudioSampler(mesh=...))")
+                active = self.step > tcfg.start_step_audio
+                self.resnet.set_update_stats(active)
 
-        vout = self.vision_model(
-            rays, train=True, anneal=self.anneal(),
-            jitter=[d[k].to(torch.float32).reshape(d[k].shape[0], -1)
-                    for k in ("u_init", "u_pdf0", "u_pdf1")])
-        losses = self.vision_model.loss(vout, gt_rgb, self.mesh)
-        self._mark("vision_forward")
-        # this rank's block of the cursor batch, then every rank's
-        n_bake = tcfg.grid_bake_cells_per_step
-        lo, hi = block_range(n_bake, self.mesh)
-        fresh = all_gather_batch(compute_fresh_cells(
-            self.vision_model.query_density_rgb, self.cursor + lo, self.cells,
-            self.vision_aabb, hi - lo, self.view_dirs), self.mesh, n=n_bake)
-        if self.grid_folded is not None:
-            # the flat grid is bookkeeping; the live slab is spliced into
-            # the folded state, which is not written again before backward
-            grid, cursor = bake_cells(self.grid, self.cursor, fresh.detach())
-            slab = bake_cells_folded(self.grid_folded, self.cursor, fresh,
-                                     self.cells, self.grid_res)
-            vol, stem_args = self.grid_folded, {
-                "bake_slab": (*slab, self.stem_wgrad_kernel)}
-        else:
-            grid, cursor = bake_cells(self.grid, self.cursor, fresh)
-            vol, stem_args = grid_to_volume(grid, self.grid_res), {}
-        self._mark("bake")
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.mixed):
-            feat = self.resnet(vol, mesh=self.mesh, **stem_args)[0]
-            self._mark("resnet_forward")
-            aout = self.audio_model(batch, self.audio_aabb,
-                                    grid_feature=feat.float())
-        # the masked losses still backpropagate (zeros): every group steps
-        mask = 1.0 if active else 0.0
-        for k, v in self.audio_model.loss(aout.float(), batch["data"],
-                                          self.mesh).items():
-            losses[k] = v * mask
-        total = sum(losses.values())
-        self._mark("audio_forward")
+                vout = self.vision_model(
+                    rays, train=True, anneal=self.anneal(),
+                    jitter=[d[k].to(torch.float32).reshape(d[k].shape[0], -1)
+                            for k in ("u_init", "u_pdf0", "u_pdf1")])
+                losses = self.vision_model.loss(vout, gt_rgb, self.mesh)
+            with span("train.bake"):
+                # this rank's block of the cursor batch, then every rank's
+                n_bake = tcfg.grid_bake_cells_per_step
+                lo, hi = block_range(n_bake, self.mesh)
+                fresh = all_gather_batch(compute_fresh_cells(
+                    self.vision_model.query_density_rgb, self.cursor + lo, self.cells,
+                    self.vision_aabb, hi - lo, self.view_dirs), self.mesh, n=n_bake)
+                if self.grid_folded is not None:
+                    # the flat grid is bookkeeping; the live slab is spliced into
+                    # the folded state, which is not written again before backward
+                    grid, cursor = bake_cells(self.grid, self.cursor, fresh.detach())
+                    slab = bake_cells_folded(self.grid_folded, self.cursor, fresh,
+                                             self.cells, self.grid_res)
+                    vol, stem_args = self.grid_folded, {
+                        "bake_slab": (*slab, self.stem_wgrad_kernel)}
+                else:
+                    grid, cursor = bake_cells(self.grid, self.cursor, fresh)
+                    vol, stem_args = grid_to_volume(grid, self.grid_res), {}
+            with span("train.resnet_forward"), self._autocast():
+                feat = self.resnet(vol, mesh=self.mesh, **stem_args)[0]
+            with span("train.audio_forward"):
+                with self._autocast():
+                    aout = self.audio_model(batch, self.audio_aabb,
+                                            grid_feature=feat.float())
+                # the masked losses still backpropagate (zeros): every group steps
+                mask = 1.0 if active else 0.0
+                for k, v in self.audio_model.loss(aout.float(), batch["data"],
+                                                  self.mesh).items():
+                    losses[k] = v * mask
+                total = sum(losses.values())
 
-        for opt in self.optimizers.values():
-            opt.opt.zero_grad(set_to_none=True)
-        total.backward()
-        self._mark("backward")
-        if self.mesh is not None:
-            average_gradients([p for opt in self.optimizers.values()
-                               for p in opt.params], self.mesh,
-                              sharded_params(self))
-            self._mark("all_reduce")
-        lrs = {"lr_fields": self.optimizers["fields"].lr,
-               "lr_audio_fields": self.optimizers["audio_fields"].lr}
-        for opt in self.optimizers.values():
-            opt.step()
-        self._mark("optimizers")
-
-        # grid_folded already holds the fresh cells: no refold
-        self._grid, self.cursor = grid.detach(), cursor
-        self.step += 1
+            with span("train.backward"):
+                for opt in self.optimizers.values():
+                    opt.opt.zero_grad(set_to_none=True)
+                total.backward()
+            if self.mesh is not None:
+                with span("train.all_reduce"):
+                    average_gradients([p for opt in self.optimizers.values()
+                                       for p in opt.params], self.mesh,
+                                      sharded_params(self))
+            with span("train.optimizers"):
+                lrs = {"lr_fields": self.optimizers["fields"].lr,
+                       "lr_audio_fields": self.optimizers["audio_fields"].lr}
+                for opt in self.optimizers.values():
+                    opt.step()
+                # grid_folded already holds the fresh cells: no refold
+                self._grid, self.cursor = grid.detach(), cursor
+                self.step += 1
         values = torch.stack([v.detach().float()
                               for v in (*losses.values(), total)]).tolist()
         metrics = dict(zip((*losses, "total_loss"), values))
@@ -579,15 +603,17 @@ class JointPipeline:
         autocast (call inside _eval_mode); the s2d stem folds the flat grid,
         as the reference's eval paths do. Under a data mesh, with `split`
         (every rank calling), the ResNet runs split by depth over the
-        ranks; without it, whole on the calling rank alone."""
-        with self._autocast():
+        ranks; without it, whole on the calling rank alone (span
+        rir.grid_feature, counter rir.grid_features)."""
+        with span("rir.grid_feature"), self._autocast():
+            count("rir.grid_features")
             return self.resnet(grid_to_volume(self.grid, self.grid_res),
                                mesh=self.mesh if split else None)[0].float()
 
     def _render_log(self, feat, mic, src, rot) -> torch.Tensor:
         with self._autocast():
-            return self.audio_model.render_rirs_batch(
-                mic, src, rot, self.audio_aabb, grid_feature=feat)
+            return render_field(self.audio_model, self.audio_aabb, feat,
+                                mic, src, rot)
 
     def render_rirs(self, mic, src, rot) -> torch.Tensor:
         """(N, 3) poses and orientations -> (N, C, F, T) log-magnitudes
@@ -603,7 +629,7 @@ class JointPipeline:
                 "model axis")
         with self._eval_mode():
             return self._render_log(self._grid_feature_eval(split=False),
-                                    *_as_f32(self.device, mic, src, rot))
+                                    mic, src, rot)
 
     def eval_draws(self, n_cams: int, height: int, width: int,
                    n_rec: int) -> dict:

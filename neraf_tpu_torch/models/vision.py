@@ -37,6 +37,7 @@ from neraf_tpu_torch.ops.samplers import (
     uniform_spacing_bins,
 )
 from neraf_tpu_torch.parallel.sharding import global_mean
+from neraf_tpu_torch.utils.profiling import span
 
 
 class VisionModel(nn.Module):
@@ -79,51 +80,57 @@ class VisionModel(nn.Module):
         train: `jitter` is the three samplers' uniforms (u_init, u_pdf0,
         u_pdf1), each (R, 1), or (R, S + 1) for a sampler of S samples
         without use_single_jitter; use_average_appearance defaults to
-        `not train`."""
+        `not train`. Spans: vision.sampler (the camera correction, the
+        uniform bins, each PDF resampling and the samples of each set of
+        bins), vision.proposal (a proposal field and its weights),
+        vision.field (the main field), vision.render (the renderers)."""
         cfg = self.config
         origins, directions = rays["origins"], rays["directions"]
         cam_idx = rays["camera_indices"]
         R = origins.shape[0]
         if use_average_appearance is None:
             use_average_appearance = not train
-        if train:
-            origins, directions = apply_camera_opt(self.camera_opt, cam_idx,
-                                                   origins, directions)
-        else:
+        if not train:
             jitter, anneal = (None, None, None), 1.0
-        near = torch.full((R,), self.near, device=origins.device)
-        far = torch.full((R,), self.far, device=origins.device)
-
         num_p0, num_p1 = cfg.num_proposal_samples
-        bins = uniform_spacing_bins(R, num_p0, origins.device, jitter[0])
+        with span("vision.sampler"):
+            if train:
+                origins, directions = apply_camera_opt(self.camera_opt, cam_idx,
+                                                       origins, directions)
+            near = torch.full((R,), self.near, device=origins.device)
+            far = torch.full((R,), self.far, device=origins.device)
+            bins = uniform_spacing_bins(R, num_p0, origins.device, jitter[0])
+            s = bins_to_samples(bins, origins, directions, near, far)
         weights_list, spacing_list = [], []
         for level, n_next in ((0, num_p1), (1, cfg.num_nerf_samples)):
-            s = bins_to_samples(bins, origins, directions, near, far)
-            w = render_weights(self.proposal(level)(s["positions"]), s["deltas"])
+            with span("vision.proposal"):
+                w = render_weights(self.proposal(level)(s["positions"]), s["deltas"])
             weights_list.append(w)
             spacing_list.append((s["spacing_starts"], s["spacing_ends"]))
-            # proposals learn only through the interlevel loss
-            w_s = w.detach() ** anneal if train else w
-            bins = pdf_spacing_bins(bins, w_s, n_next, jitter=jitter[level + 1])
+            with span("vision.sampler"):
+                # proposals learn only through the interlevel loss
+                w_s = w.detach() ** anneal if train else w
+                bins = pdf_spacing_bins(bins, w_s, n_next, jitter=jitter[level + 1])
+                s = bins_to_samples(bins, origins, directions, near, far)
 
-        sf = bins_to_samples(bins, origins, directions, near, far)
-        dirs_b = directions[:, None, :].expand(sf["positions"].shape)
-        cam_b = cam_idx[:, None].expand(sf["positions"].shape[:-1])
-        out = self.field(sf["positions"], dirs_b, cam_b,
-                         use_average_appearance=use_average_appearance)
-        w = render_weights(out["density"], sf["deltas"])
-        weights_list.append(w)
-        spacing_list.append((sf["spacing_starts"], sf["spacing_ends"]))
-
-        rgb = render_rgb(out["rgb"], w, background_color=cfg.background_color)
-        return {
-            "rgb": rgb.clamp(0.0, 1.0),  # reference NeRAF_model.py:67
-            "accumulation": render_accumulation(w),
-            "depth": render_depth(w, sf["mids"]),
-            "expected_depth": render_depth(w, sf["mids"], method="expected"),
-            "weights_list": weights_list,
-            "spacing_list": spacing_list,
-        }
+        with span("vision.field"):
+            dirs_b = directions[:, None, :].expand(s["positions"].shape)
+            cam_b = cam_idx[:, None].expand(s["positions"].shape[:-1])
+            out = self.field(s["positions"], dirs_b, cam_b,
+                             use_average_appearance=use_average_appearance)
+        with span("vision.render"):
+            w = render_weights(out["density"], s["deltas"])
+            weights_list.append(w)
+            spacing_list.append((s["spacing_starts"], s["spacing_ends"]))
+            rgb = render_rgb(out["rgb"], w, background_color=cfg.background_color)
+            return {
+                "rgb": rgb.clamp(0.0, 1.0),  # reference NeRAF_model.py:67
+                "accumulation": render_accumulation(w),
+                "depth": render_depth(w, s["mids"]),
+                "expected_depth": render_depth(w, s["mids"], method="expected"),
+                "weights_list": weights_list,
+                "spacing_list": spacing_list,
+            }
 
     def loss(self, outputs: dict, gt_rgb: torch.Tensor, mesh=None) -> dict:
         """rgb MSE, interlevel (each proposal level against the final

@@ -42,9 +42,10 @@ import torch.nn.functional as F
 
 from neraf_tpu_torch.ops.stem_wgrad import fold_weight, stem_wgrad, unfold_weight
 from neraf_tpu_torch.parallel.depth_split import local_window
+from neraf_tpu_torch.utils.profiling import span
 
-# torch.profiler ranges around the forward and the backward, which a trace
-# of the joint step reads to name the stem's device kernels
+# spans (utils/profiling.py) around the forward and the backward, which a
+# trace of the joint step reads to name the stem's device kernels
 PROFILE_FORWARD = "stem_conv_baked.forward"
 PROFILE_BACKWARD = "stem_conv_baked.backward"
 
@@ -86,7 +87,7 @@ class StemConvBaked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, nf, slab, d0, h0, ch_off, weight, use_kernel, planes):
-        with torch.profiler.record_function(PROFILE_FORWARD):
+        with span(PROFILE_FORWARD):
             wp = fold_weight(weight)
             pad, g0 = 1, 0
             if planes is not None:
@@ -104,7 +105,7 @@ class StemConvBaked(torch.autograd.Function):
         slab_shape, d0, h0, ch_off, use_kernel, g0, windowed = ctx.geo
         pad = (0, 1, 1) if windowed else (1,) * 3
         d_slab = dw = None
-        with torch.profiler.record_function(PROFILE_BACKWARD):
+        with span(PROFILE_BACKWARD):
             if ctx.needs_input_grad[1]:
                 d_slab = slab_input_grad(g, wp, slab_shape, d0, h0, ch_off,
                                          g0)

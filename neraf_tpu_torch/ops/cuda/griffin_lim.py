@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from neraf_tpu_torch.dsp.stft import _padded_window_np, _wsq_np
+from neraf_tpu_torch.utils.profiling import count
 
-LAUNCHES = 0  # kernel launches since the last reset; chip_smoke.py reads it
 
 # H100 (sm_90): the dynamic shared memory a block may opt in to (228 KB an SM
 # less the 1 KB the driver reserves beside each resident block). The
@@ -96,7 +96,6 @@ def griffin_lim_cuda(
     length: int | None = None,
 ) -> torch.Tensor:
     """(..., F, T) f32 magnitudes + complex64 unit phasors -> (..., length)."""
-    global LAUNCHES
     win_length = n_fft if win_length is None else win_length
     F, T = mag.shape[-2:]
     length = hop_length * (T - 1) if length is None else length
@@ -151,5 +150,5 @@ def griffin_lim_cuda(
             mag_t.data_ptr(), out.data_ptr(), M, T, n_fft, hop_length,
             length, n_iter, momentum / (1.0 + momentum), *plan, stream)
     build.check(lib, err, "griffin_lim kernel launch")
-    LAUNCHES += 1
+    count("kernel.griffin_lim")
     return out.reshape(*lead, length)

@@ -27,9 +27,8 @@ import functools
 import torch
 
 from neraf_tpu_torch.ops.hashgrid import HashGridSpec, hash_encoding_plain
+from neraf_tpu_torch.utils.profiling import count
 
-FWD_LAUNCHES = 0  # forward kernel launches since the last reset (chip_smoke.py)
-BWD_LAUNCHES = 0  # backward kernel launches since the last reset
 MAX_LEVELS = 32
 FEATURES = (2, 4)
 
@@ -69,7 +68,6 @@ def _stream(device: torch.device) -> int:
 
 def _forward(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec):
     """One forward launch: x (N, 3) f32 contiguous -> (N, L*F) f32."""
-    global FWD_LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     lib = build.load()
@@ -84,7 +82,7 @@ def _forward(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec):
             spec.features_per_level, spec.log2_hashmap_size, res, dense,
             _stream(x.device))
     build.check(lib, err, "hash encoding kernel launch")
-    FWD_LAUNCHES += 1
+    count("kernel.hash_fwd")
     return out
 
 
@@ -94,7 +92,6 @@ def hash_encoding_bwd_cuda(table: torch.Tensor, x: torch.Tensor,
     """The backward for the output cotangent g (N, L*F) f32 -> the dense
     table gradient (L, T, F) f32 (atomic order) or None, and dx (N, 3) f32
     or None."""
-    global BWD_LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     _check(table, x, spec)
@@ -120,7 +117,7 @@ def hash_encoding_bwd_cuda(table: torch.Tensor, x: torch.Tensor,
             spec.features_per_level, spec.log2_hashmap_size, res, dense,
             _stream(dev))
     build.check(lib, err, "hash encoding backward launch")
-    BWD_LAUNCHES += 1
+    count("kernel.hash_bwd")
     return d_table, dx
 
 

@@ -35,13 +35,13 @@ from neraf_tpu_torch.ops.pe_mlp import (
     tile_layers,
     unpack_layers,
 )
+from neraf_tpu_torch.utils.profiling import count
 
-LAUNCHES = 0  # forward kernel launches since the last reset (chip_smoke.py)
-# backward calls since the last reset: each call launches n_hidden + 3
-# device kernels (the row-tile kernel, one dW kernel per layer, the
-# reduction of the dW slices and db partials), counted one by one by
-# chip_smoke.py's profiler pass
-BWD_LAUNCHES = 0
+# counters (utils/profiling.py): kernel.pe_mlp_fwd, a forward launch;
+# kernel.pe_mlp_bwd, a backward call, which launches n_hidden + 3 device
+# kernels (the row-tile kernel, one dW kernel per layer, the reduction of
+# the dW slices and db partials), counted one by one by chip_smoke.py's
+# profiler pass
 MAX_FREQUENCIES = 10  # 6F + 3 <= 64
 MAX_OUT = 32
 ROW_TILE = 128  # rows of a bf16 kernel block's tile (two warpgroups of 64)
@@ -110,7 +110,6 @@ def _stream(device: torch.device) -> int:
 
 def _forward(x, w, b, dims, num_frequencies, min_exp, max_exp, dtype):
     """One forward launch on packed weights -> (N, O) f32."""
-    global LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     lib = build.load()
@@ -127,7 +126,7 @@ def _forward(x, w, b, dims, num_frequencies, min_exp, max_exp, dtype):
             row_tile_blocks(n, _sms(x.device.index or 0)),
             int(dtype == torch.bfloat16), _stream(x.device))
     build.check(lib, err, "pe_mlp kernel launch")
-    LAUNCHES += 1
+    count("kernel.pe_mlp_fwd")
     return out
 
 
@@ -136,7 +135,6 @@ def pe_mlp_bwd_cuda(x, g, w, b, dims, num_frequencies, min_exp, max_exp,
     """The backward on packed weights (_pack's): x (N, 3) f32, the output
     cotangent g (N, O) f32 -> dx (N, 3) f32 or None, and the packed dW and
     db (f32, the layout of pack_layers) or None."""
-    global BWD_LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     lib = build.load()
@@ -175,7 +173,7 @@ def pe_mlp_bwd_cuda(x, g, w, b, dims, num_frequencies, min_exp, max_exp,
             dims["out_dim"], op, slices, blocks,
             int(dtype == torch.bfloat16), _stream(dev))
     build.check(lib, err, "pe_mlp backward launch")
-    BWD_LAUNCHES += 1
+    count("kernel.pe_mlp_bwd")
     if out is None:
         return dx, None
     return dx, (out[:n_w], out[n_w:])

@@ -9,12 +9,12 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py)
+from neraf_tpu_torch.utils.profiling import count
+
 
 
 def shifted_value_concat_cuda(x: torch.Tensor, t: int) -> torch.Tensor:
     """x (M, ROWS, HOP) f32 on the card, t <= ROWS - 1 -> (M, t, 2 HOP)."""
-    global LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     if x.device.type != "cuda":
@@ -37,5 +37,5 @@ def shifted_value_concat_cuda(x: torch.Tensor, t: int) -> torch.Tensor:
             x.data_ptr(), out.data_ptr(), m, rows, t, hop,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "shifted concat kernel launch")
-    LAUNCHES += 1
+    count("kernel.shifted_concat")
     return out

@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py)
+from neraf_tpu_torch.utils.profiling import count
+
 CIN_PAD = 8  # the kernel's input channels
 COUT = 64  # the stem's output channels
 
@@ -74,7 +75,6 @@ def stem_wgrad_cuda(xf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     f32 -> dW (64, cin, 5, 5, 5) f32: one call of the kernel's three
     launches (the split copy unfolding xf, the split-K product over
     launch_plan's slices of the output bricks, and the reduction)."""
-    global LAUNCHES
     from neraf_tpu_torch.ops.cuda import build
 
     _check(xf, g)
@@ -97,5 +97,5 @@ def stem_wgrad_cuda(xf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             out.data_ptr(), D, H, W, cin, D, H, W, slices, int(bf16),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "stem weight-gradient kernel launch")
-    LAUNCHES += 1
+    count("kernel.stem_wgrad")
     return out.view(COUT, CIN_PAD, 5, 5, 5)[:, :cin]

@@ -29,6 +29,7 @@ from neraf_tpu_torch.fields.nerfacto import NerfactoField
 from neraf_tpu_torch.models.vision import VisionModel
 from neraf_tpu_torch.ops import hashgrid
 from neraf_tpu_torch.ops.cuda import hash_encoding as hash_cuda
+from neraf_tpu_torch.utils.profiling import counters
 
 T = torch.from_numpy
 # (levels, log2 table rows, base res, max res, features): the tiny grid
@@ -157,18 +158,20 @@ def test_hash_encoding_kernel_matches_plain_on_card(L, lt, base, top, F):
     ref = hashgrid.hash_encoding_plain(ref_t, ref_x, spec)
     (ref * T(g).cuda()).sum().backward()
     tt, xx = T(table).cuda().requires_grad_(), T(x).cuda().requires_grad_()
-    fwd, bwd = hash_cuda.FWD_LAUNCHES, hash_cuda.BWD_LAUNCHES
+    launches = lambda: (counters().get("kernel.hash_fwd", 0),
+                        counters().get("kernel.hash_bwd", 0))
+    fwd, bwd = launches()
     out = hashgrid.hash_encoding(tt, xx, spec)
     (out * T(g).cuda()).sum().backward()
     torch.cuda.synchronize()
-    assert (hash_cuda.FWD_LAUNCHES, hash_cuda.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    assert launches() == (fwd + 1, bwd + 1)
     for got, want, tol in ((out, ref, 1e-6), (tt.grad, ref_t.grad, 1e-5),
                            (xx.grad, ref_x.grad, 1e-5)):
         err = float((got - want).detach().abs().max())
         assert err <= tol * float(want.detach().abs().max())
     with torch.no_grad():
         hashgrid.hash_encoding(tt, xx, spec)
-    assert hash_cuda.FWD_LAUNCHES == fwd + 2
+    assert launches()[0] == fwd + 2
 
 
 # ------------------------------------------------------------ field, model

@@ -28,6 +28,7 @@ from neraf_tpu_torch.ops.pe_mlp import (
     tile_layers,
     unpack_layers,
 )
+from neraf_tpu_torch.utils.profiling import counters
 
 CASES = [(6, 32, 2, 1), (4, 24, 4, 8)]  # (F, H, hidden layers, O)
 # the two field architectures of the training step: proposal, main field
@@ -77,10 +78,10 @@ def test_pe_mlp_matches_jax_interpret_and_reference(F, H, L, O):
     n = 300  # not a multiple of the JAX block: its padding is exercised
     x = rng.rand(n, 3).astype(np.float32)
     params = _rand_params(rng, F, H, L, O)
-    before = pe_mlp_cuda_mod.LAUNCHES
+    before = counters().get("kernel.pe_mlp_fwd", 0)
     out = pe_mlp(torch.from_numpy(x), _torch_layers(params), F, 0.0, 8.0,
                  torch.float32)
-    assert pe_mlp_cuda_mod.LAUNCHES == before  # a CPU tensor: plain version
+    assert counters().get("kernel.pe_mlp_fwd", 0) == before  # a CPU tensor: plain version
     assert out.shape == (n, O) and out.dtype == torch.float32
     jparams = [(jnp.asarray(w), jnp.asarray(b)) for w, b in params]
     ref_kernel = np.asarray(jpe_mlp(jnp.asarray(x), jparams, F, 0.0, 8.0,
@@ -175,10 +176,10 @@ def test_pe_mlp_kernel_matches_plain_on_card(F, H, L, O):
                        F, dtype=torch.float64)
     peak = float(ref.abs().max())
     layers = _torch_layers(params, "cuda")
-    before = pe_mlp_cuda_mod.LAUNCHES
+    before = counters().get("kernel.pe_mlp_fwd", 0)
     out = pe_mlp(x, layers, F, dtype=torch.float32)
     torch.cuda.synchronize()
-    assert pe_mlp_cuda_mod.LAUNCHES == before + 1
+    assert counters().get("kernel.pe_mlp_fwd", 0) == before + 1
     excess = ((out.double() - ref).abs() - 2e-4 * ref.abs()).max()
     assert float(excess) <= 2e-5 * peak
     out16 = pe_mlp(x, layers, F, dtype=torch.bfloat16)
@@ -350,10 +351,10 @@ def test_pe_mlp_backward_kernel_matches_plain_on_card(F, H, L, O):
         xs = x.clone().requires_grad_()
         ps = [(w.clone().requires_grad_(), b.clone().requires_grad_())
               for w, b in layers]
-        before = pe_mlp_cuda_mod.BWD_LAUNCHES
+        before = counters().get("kernel.pe_mlp_bwd", 0)
         pe_mlp(xs, ps, F, dtype=dtype).backward(g)
         torch.cuda.synchronize()
-        assert pe_mlp_cuda_mod.BWD_LAUNCHES == before + 1
+        assert counters().get("kernel.pe_mlp_bwd", 0) == before + 1
         return flat(xs.grad, [(w.grad, b.grad) for w, b in ps])
 
     def rel(a, b):

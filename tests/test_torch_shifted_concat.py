@@ -16,6 +16,7 @@ from jax.experimental import pallas as pl
 
 from neraf_tpu_torch.ops import shifted_concat as sc
 from neraf_tpu_torch.ops.cuda import shifted_concat as sc_cuda
+from neraf_tpu_torch.utils.profiling import counters
 
 SHAPES = [(8, 19, 128, 16), (8, 19, 256, 16), (1024, 79, 128, 78),
           (3, 7, 5, 6)]  # (M, ROWS, HOP, t); the last takes the scalar path
@@ -62,10 +63,10 @@ def test_shifted_concat_kernel_matches_plain_on_card(m, rows, hop, t):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
     x = torch.randn((m, rows, hop), generator=torch.Generator().manual_seed(m)).cuda()
-    n = sc_cuda.LAUNCHES
+    n = counters().get("kernel.shifted_concat", 0)
     got = sc.shifted_value_concat(x, t)
     torch.cuda.synchronize()
-    assert sc_cuda.LAUNCHES == n + 1
+    assert counters().get("kernel.shifted_concat", 0) == n + 1
     assert torch.equal(got, sc.shifted_value_concat_plain(x, t))
     with pytest.raises(ValueError, match="rows"):
         sc.shifted_value_concat(x, rows)

@@ -35,6 +35,7 @@ from neraf_tpu_torch.models.resnet3d import ResNet3D
 from neraf_tpu_torch.ops import stem_wgrad as sw
 from neraf_tpu_torch.ops.baked_stem import stem_conv_baked
 from neraf_tpu_torch.ops.cuda import stem_wgrad as sw_cuda
+from neraf_tpu_torch.utils.profiling import counters
 
 CIN = 7
 
@@ -298,11 +299,11 @@ def test_stem_wgrad_kernel_matches_plain_on_card(shape, dtype, cin):
         xt = F.pad(xt, (0, 1))
     xf = fold_volume(xt)
     gt = torch.from_numpy(g).cuda().to(dtype)
-    n = sw_cuda.LAUNCHES
+    n = counters().get("kernel.stem_wgrad", 0)
     got = sw.stem_wgrad(xf, gt)
     again = sw.stem_wgrad(xf, gt)
     torch.cuda.synchronize()
-    assert sw_cuda.LAUNCHES == n + 2 and got.dtype == torch.float32
+    assert counters().get("kernel.stem_wgrad", 0) == n + 2 and got.dtype == torch.float32
     assert got.shape == (64, cin, 5, 5, 5) and torch.equal(got, again)
     want = sw.stem_wgrad_unfold(sw.stem_wgrad_folded_plain(xf.double(),
                                                            gt.double()))
@@ -333,11 +334,11 @@ def test_stem_conv_runs_the_kernel_on_card():
     nf = fold_volume(torch.from_numpy(grid).cuda())
     slab, d0, h0, ch = folded_slab(ft, cursor, torch.from_numpy(
         cell_centers(R)).cuda(), R, torch.float32)
-    n = sw_cuda.LAUNCHES
+    n = counters().get("kernel.stem_wgrad", 0)
     out = stem_conv_baked(nf, slab, d0, h0, ch, wt, True)
     out.backward(gt)
     torch.cuda.synchronize()
-    assert sw_cuda.LAUNCHES == n + 1
+    assert counters().get("kernel.stem_wgrad", 0) == n + 1
     flat = torch.from_numpy(grid).cuda().double().reshape(-1, CIN)
     vol = torch.cat([flat[:cursor], torch.cat([fr, flat[cursor:cursor + B, 4:]],
                                               -1), flat[cursor + B:]])

@@ -486,18 +486,28 @@ def test_generate_vision_without_habitat_raises(tmp_path):
 
 # --------------------------------------------------------------- profiling
 def test_profiling_trace_and_section_timer(tmp_path):
-    from neraf_tpu.utils.profiling import SectionTimer as JSectionTimer
-    from neraf_tpu_torch.utils.profiling import SectionTimer, trace
+    """trace() writes the Chrome trace, one line a span recorded in the
+    block (the spans nested, a request's id on its children) and what each
+    counter counted in it; the section timings are the spans' host ms."""
+    from neraf_tpu_torch.utils import profiling
 
-    with trace(tmp_path / "prof") as prof:
-        torch.ones(64).cumsum(0)
+    profiling.count("test.before")
+    with profiling.trace(tmp_path / "prof") as prof:
+        with profiling.request("test.request"):
+            for name in ("a", "b", "a"):
+                with profiling.span(name):
+                    torch.ones(64).cumsum(0)
+                    profiling.count("test.sections")
     assert prof.key_averages()
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert events["traceEvents"]
-    timers = (SectionTimer(), JSectionTimer())
-    for t in timers:
-        for name in ("a", "b", "a"):
-            with t.section(name):
-                pass
-    assert [sorted(t.summary()) for t in timers] == [["a_ms", "b_ms"]] * 2
-    assert timers[0].counts == timers[1].counts == {"a": 2, "b": 1}
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert {"neraf.test.request", "neraf.a", "neraf.b"} <= names
+    lines = (tmp_path / "prof" / "spans.jsonl").read_text().splitlines()
+    recs = [json.loads(line) for line in lines]
+    assert sorted(r["name"] for r in recs) == ["a", "a", "b", "test.request"]
+    top = next(r for r in recs if r["name"] == "test.request")
+    assert all(r["parent"] == top["id"] and r["request"] == top["request"]
+               for r in recs if r is not top)
+    assert all(0 <= r["host_ms"] <= top["host_ms"] for r in recs)
+    counted = json.loads((tmp_path / "prof" / "counters.json").read_text())
+    assert counted == {"test.sections": 3}
