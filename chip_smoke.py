@@ -22,12 +22,17 @@ Phases, each fatal on failure:
   6. the fused PE+MLP kernel against pe_mlp_plain on the card, in bf16 and
      f32, at the proposal-0 shape (8,388,608 rows, 39 -> 128 -> 128 -> 1)
      and the main field's (1,572,864 rows, 63 -> 256 x 4 -> 16), timed in
-     turns with the plain chain beside its bound and its share of it;
+     turns with the plain chain beside its bound and its share of it; then
+     the colour-branch kernel (ops/cuda/field_head.py) on the main field's
+     head (63 -> 64 x 3 -> 3) against field_head_plain in bf16, at a render
+     chunk (32,768 rays x 48 samples) and a bake batch (73,728 rows, S 1),
+     timed the same way;
   7. the full-width vision slice: a 512 x 512 synthetic SoundSpaces view
      (hfov 90 degrees, 8 chunks of 32,768 rays) through render_image three
      times (the first pays the cold start) and a second view once, then
      evaluate_vision over both views, with the launch counters read around
-     the run; then a per-chunk breakdown of one more image;
+     the run (3 pe_mlp and 1 field_head launches a chunk); then a
+     per-chunk breakdown of one more image;
   8. the tiny vision slice in float32 on the card against the CPU;
   9. the PE+MLP forward and backward kernels against pe_mlp_plain and its
      autograd on the card, bf16 and f32, at the four shapes one joint train
@@ -66,7 +71,7 @@ Phases, each fatal on failure:
      forward's L2 sector requests counted from the points (also alone:
      scripts/hash_check.py);
  13. the full-width hash render (VisionPipeline with encoding="hash") as
-     phase 7: 1 hash forward and 2 pe_mlp launches a chunk;
+     phase 7: 1 hash forward, 2 pe_mlp and 1 field_head launches a chunk;
  14. the full-width hash joint step as phase 10: 2 hash forward + 2 hash
      backward and 2 + 2 pe_mlp launches a step, the table changed, the
      hash kernels' device time a step, and the table's zeroed gradient and
@@ -298,6 +303,12 @@ PE_F32_RTOL, PE_F32_ATOL = 2e-4, 2e-5
 # up to 2^20 rows).
 PE_BWD_BF16_REL_L2, PE_BWD_F32_REL, PE_BWD_CLEAR = 0.15, 1e-4, 1e-4
 RGB_ABS_TOL = 1e-4  # tiny vision slice, f32, card vs CPU
+# The colour-branch kernel against field_head_plain on the same inputs
+# (tests/test_torch_field_head.py's bounds): the kernel rounds where the
+# plain chain's dense rounds, so they differ by the order of the f32 sums,
+# which flips a bf16 rounding in a few rows: one bf16 step at the max, and
+# no farther from the float32 chain than the bf16 chain beyond that step.
+FH_BF16_STEP = 2.0 ** -8
 # Tiny joint step, f32, card (f32 kernels) against the CPU (plain chains,
 # the fields in float64), each step from the same state. Losses 1e-4
 # relative, the interlevel and distortion terms also 1e-4 of the total
@@ -548,6 +559,69 @@ def pe_mlp_check(torch, dev, name, layers, F, n, seed):
     return row
 
 
+def field_head_check(torch, dev, field, rays, S, seed) -> dict:
+    """Phase 6's colour-branch kernel (ops/cuda/field_head.py) on the
+    field's head at `rays` directions of S samples each (average
+    appearance, the render's) against field_head_plain on the card: within
+    one bf16 step of the plain bf16 chain and no farther from the float32
+    chain than it beyond that step (tests/test_torch_field_head.py's
+    bounds); both timed in turns (plain, kernel, kernel, plain) beside the
+    bound of the unpadded head's products and the bytes read and written."""
+    from neraf_tpu_torch.ops.cuda.field_head import field_head_cuda
+    from neraf_tpu_torch.ops.cuda.pe_mlp import weights_fixed
+    from neraf_tpu_torch.ops.field_head import field_head_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    G = field.config.geo_feat_dim
+    d = torch.nn.functional.normalize(
+        torch.randn((rays, 3), generator=gen, device=dev), dim=-1)
+    base = torch.randn((rays, S, 1 + G), generator=gen, device=dev)
+    d, cam = d[:, None].expand(rays, S, 3), torch.zeros(
+        (rays, 1), dtype=torch.int64, device=dev).expand(rays, S)
+    geo = base.to(torch.bfloat16)[..., 1:]  # the base output's view
+    table, layers = field.appearance.weight.detach(), [
+        (w.detach(), b.detach()) for w, b in field.head_layers()]
+    plain = lambda dtype=torch.bfloat16: field_head_plain(
+        d, geo, cam, table, layers, True, dtype)
+    n = rays * S
+    # the kernel as a render calls it: its weights packed once a scope
+    with torch.inference_mode(), weights_fixed():
+        kern = lambda: field_head_cuda(d, geo, cam, table, layers, True)
+        got, p16, p32 = (f().double() for f in (
+            kern, plain, lambda: plain(torch.float32)))
+        err = float((got - p16).abs().max())
+        errs = {"max_abs_err": err,
+                "vs_f32": float((got - p32).abs().max()),
+                "plain_bf16_vs_f32": float((p16 - p32).abs().max())}
+        reps = 5
+        p1, k1, k2, p2 = (cuda_ms(torch, f, reps)
+                          for f in (plain, kern, kern, plain))
+    ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+    b_ms, b_by = field_head_bound_ms(layers, G, rays, S)
+    print(f"field_head {n} rows (S {S}): {json.dumps(errs)}; kernel "
+          f"{ms_k:.4f} ms [{k1:.4f}, {k2:.4f}] plain {ms_p:.4f} ms [{p1:.4f}, "
+          f"{p2:.4f}]; bound {b_ms:.4f} ms ({b_by}), kernel at "
+          f"{b_ms / ms_k:.1%} of it", flush=True)
+    if not (err <= FH_BF16_STEP
+            and errs["vs_f32"] <= errs["plain_bf16_vs_f32"] + FH_BF16_STEP):
+        fail(f"field_head kernel disagrees with plain at {n} rows, S {S}: "
+             f"{errs}")
+    torch.cuda.empty_cache()
+    return {"rows": n, "S": S, **errs, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def field_head_bound_ms(layers, G: int, rays: int, S: int) -> tuple:
+    """The colour branch's least time on rays x S rows, bf16: the unpadded
+    head's products (2 in out a layer a row) at the bf16 peak, or the bytes
+    at the memory rate, the larger: G geo features read and the rgb
+    written a row, a direction (3 f32) read a ray."""
+    n = rays * S
+    flops = 2.0 * n * sum(w.shape[0] * w.shape[1] for w, _ in layers)
+    nbytes = n * (G + layers[-1][0].shape[0]) * 2 + rays * 12
+    return bound_ms(flops, nbytes)
+
+
 def pe_mlp_flops(dims_in, F, n):
     """Multiply-adds x 2 of one pe_mlp forward: (K0, H, L, O) layer chain."""
     k0, h, n_hidden, o = dims_in
@@ -793,7 +867,7 @@ def check_metrics(metrics, what):
 KERNEL_COUNTERS = {"pe_fwd": "kernel.pe_mlp_fwd", "pe_bwd": "kernel.pe_mlp_bwd",
                    "hash_fwd": "kernel.hash_fwd", "hash_bwd": "kernel.hash_bwd",
                    "stem": "kernel.stem_wgrad", "concat": "kernel.shifted_concat",
-                   "gl": "kernel.griffin_lim"}
+                   "gl": "kernel.griffin_lim", "fh": "kernel.field_head"}
 
 
 def reset_counts() -> None:
@@ -2118,14 +2192,16 @@ def eval_phase(torch, dev) -> dict:
     # eval_loss_dict at full width
     losses, counts, dt = counted(
         torch, "eval_loss_dict",
-        lambda: pipe.eval_loss_dict(cams, audio, images), {"pe_fwd": 3})
+        lambda: pipe.eval_loss_dict(cams, audio, images),
+        {"pe_fwd": 3, "fh": 1})
     if set(losses) != LOSS_KEYS | {"audio_mag"} or not all(
             np.isfinite(v) for v in losses.values()):
         fail(f"eval_loss_dict: {losses}")
     print(f"eval_loss_dict ({pipe.config.vision_data.eval_rays_per_batch} "
           f"rays, {pipe.config.audio_data.batch_size} slices): {dt * 1e3:.2f}"
           f" ms, launches {counts}; {json.dumps(losses)}", flush=True)
-    res["eval_loss_dict"] = {"pe_launches": counts["pe_fwd"], "ms": dt * 1e3}
+    res["eval_loss_dict"] = {"pe_launches": counts["pe_fwd"],
+                             "fh_launches": counts["fh"], "ms": dt * 1e3}
 
     # eval_image: one 512 x 512 view and one RIR
     H, W = images["images"].shape[1:3]
@@ -2136,7 +2212,7 @@ def eval_phase(torch, dev) -> dict:
         torch, "eval_image",
         lambda: pipe.eval_image(cams, 0, images["images"][0].cpu().numpy(),
                                 eval_audio_item=item),
-        {"pe_fwd": 3 * n_img_chunks})
+        {"pe_fwd": 3 * n_img_chunks, "fh": n_img_chunks})
     shapes = {k: v.shape for k, v in imgs.items()}
     want = {"img": (H, W, 3), "depth": (H, W), "accumulation": (H, W),
             "grid": (pipe.grid_res, pipe.grid_res, 3),
@@ -2151,20 +2227,22 @@ def eval_phase(torch, dev) -> dict:
           f"{dt * 1e3:.2f} ms, launches {counts}; psnr {metrics['psnr']:.4f} "
           f"ssim {metrics['ssim']:.4f} audio_mag {metrics['audio_mag']:.4f}; "
           f"images {shapes}", flush=True)
-    res["eval_image"] = {"pe_launches": counts["pe_fwd"], "ms": dt * 1e3}
+    res["eval_image"] = {"pe_launches": counts["pe_fwd"],
+                         "fh_launches": counts["fh"], "ms": dt * 1e3}
 
     # query_grid_full over every cell
     n_cells, batch = pipe.cells.shape[0], 4096
     grid, counts, dt = counted(
         torch, "query_grid_full", lambda: pipe.query_grid_full(batch),
-        {"pe_fwd": n_cells // batch})
+        {"pe_fwd": n_cells // batch, "fh": n_cells // batch})
     if not (bool(torch.isfinite(grid).all()) and bool((grid[:, :3] > 0).all())
             and bool(((grid[:, 3] >= 0) & (grid[:, 3] <= 1)).all())
             and torch.equal(grid[:, 4:], pipe.grid[:, 4:])):
         fail("query_grid_full: a cell not written, or the coordinates moved")
     print(f"query_grid_full: {n_cells} cells in {n_cells // batch} batches of "
           f"{batch}: {dt:.3f} s, launches {counts}", flush=True)
-    res["query_grid_full"] = {"pe_launches": counts["pe_fwd"], "s": dt}
+    res["query_grid_full"] = {"pe_launches": counts["pe_fwd"],
+                              "fh_launches": counts["fh"], "s": dt}
 
     after = train_state(torch, pipe)
     moved = [k for k in before if not torch.equal(before[k], after[k])]
@@ -2340,7 +2418,7 @@ def cli_phase(torch, dev, tmp) -> dict:
     # (8 RIRs, one chunk) at step 8
     run1 = tmp / "run1"
     want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
-            "pe_bwd": 4 * CLI_STEPS, "gl": 1}
+            "pe_bwd": 4 * CLI_STEPS, "gl": 1, "fh": 2 + 2 + n_eval}
     trainer, counts["train"], wall = counted(
         torch, "cli train", lambda: cli_train.main(
             base + ["--run-dir", str(run1)]), want)
@@ -2405,7 +2483,8 @@ def cli_phase(torch, dev, tmp) -> dict:
     # differences (cuDNN's and the atomics' summation order)
     (tmp / "from4").mkdir()
     shutil.copy(step4, tmp / "from4" / step4.name)
-    want = {"pe_fwd": 4 * 4 + 3 + 3 + 3 * n_eval, "pe_bwd": 4 * 4, "gl": 1}
+    want = {"pe_fwd": 4 * 4 + 3 + 3 + 3 * n_eval, "pe_bwd": 4 * 4, "gl": 1,
+            "fh": 1 + 1 + n_eval}
     name8, walls = "step-000000008.pt", []
     for run in ("run2", "run2b"):
         _, counts["resume"], wall = counted(
@@ -2431,7 +2510,7 @@ def cli_phase(torch, dev, tmp) -> dict:
         torch, "cli evaluate", lambda: cli_evaluate.main(
             ["--load-config", str(run1 / "config.yml"),
              "--output-path", str(out_json)]),
-        {"pe_fwd": 3 * n_eval, "gl": 2})
+        {"pe_fwd": 3 * n_eval, "gl": 2, "fh": n_eval})
     saved = json.loads(out_json.read_text())
     if set(saved) != {"experiment_name", "method_name", "results"} or \
             set(saved["results"]) != HOST_EVAL_KEYS | VISION_EVAL_KEYS or \
@@ -2582,10 +2661,11 @@ def viewer_requests(torch, tmp, run) -> dict:
         wavfile.write(buf, fs_in, dry_wav(SERVE_DRY_S, fs_in, 1))
         reqs = [("index", "/", None, "text/html", {}),
                 *((f"render_128_{k}", f"/render?theta={0.8 * k:.1f}&phi=0.3"
-                   "&radius=2&w=128&h=128", None, "image/png", {"pe_fwd": 3})
+                   "&radius=2&w=128&h=128", None, "image/png",
+                   {"pe_fwd": 3, "fh": 1})
                   for k in range(3)),
                 ("render_512", "/render?theta=0.4&phi=0.2&radius=2&w=512&h=512",
-                 None, "image/png", {"pe_fwd": 24}),
+                 None, "image/png", {"pe_fwd": 24, "fh": 8}),
                 ("rir_0", f"/rir?{at(0.3)}", None, "audio/wav", {"gl": 1}),
                 ("rir_1", f"/rir?{at(0.6)}", None, "audio/wav", {"gl": 1}),
                 ("rir_source", f"/rir?{at(0.3)}&{src}", None, "audio/wav",
@@ -2750,7 +2830,7 @@ def live_viewer_run(torch, tmp, argv, n_eval, run1, spread) -> dict:
 
     run4 = tmp / "run4"
     want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval + 3,
-            "pe_bwd": 4 * CLI_STEPS, "gl": 1 + 1}
+            "pe_bwd": 4 * CLI_STEPS, "gl": 1 + 1, "fh": 2 + 2 + n_eval + 1}
     thread = threading.Thread(target=client, daemon=True)
     cli_train.serve = capture
     try:
@@ -2769,7 +2849,7 @@ def live_viewer_run(torch, tmp, argv, n_eval, run1, spread) -> dict:
     run5 = tmp / "run5"
     counted(torch, "cli train", lambda: cli_train.main(
         argv + ["--run-dir", str(run5)]), {**want, "pe_fwd": want["pe_fwd"] - 3,
-                                          "gl": 1})
+                                          "gl": 1, "fh": want["fh"] - 1})
     load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
     name8 = "step-000000008.pt"
     ref8 = load(run1 / "neraf_models" / name8)
@@ -2847,7 +2927,7 @@ def serving_phase(torch, dev, tmp, argv, n_eval, spread) -> dict:
     run1, res = tmp / "run1", {}
     # cli.render, fourier: 3 pe_mlp launches a 4,096-ray view (one chunk)
     res["render"] = render_cli_check(torch, dev, tmp, run1, "cli render",
-                                     {"pe_fwd": 3 * n_eval})
+                                     {"pe_fwd": 3 * n_eval, "fh": n_eval})
     # a 2-step hash run, then cli.render on it: 1 hash + 2 pe_mlp a chunk
     hrun = tmp / "hash_run"
     _, counts, wall = counted(torch, "cli train, hash", lambda: cli_train.main(
@@ -2859,7 +2939,7 @@ def serving_phase(torch, dev, tmp, argv, n_eval, spread) -> dict:
     res["train_hash"] = {"wall_s": wall, "launches": counts}
     res["render_hash"] = render_cli_check(
         torch, dev, tmp, hrun, "cli render, hash",
-        {"pe_fwd": 2 * n_eval, "hash_fwd": n_eval})
+        {"pe_fwd": 2 * n_eval, "hash_fwd": n_eval, "fh": n_eval})
 
     # cli.loudness at 48 x 48: 2,304 RIRs in one sweep, no GL, no pe_mlp
     out_dir = tmp / "loudness"
@@ -3182,7 +3262,7 @@ def stream_cli_check(torch, tmp, argv, n_eval) -> dict:
     try:
         run = tmp / "run_stream"
         want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
-                "pe_bwd": 4 * CLI_STEPS, "gl": 1}
+                "pe_bwd": 4 * CLI_STEPS, "gl": 1, "fh": 2 + 2 + n_eval}
         trainer, counts["stream_train"], wall = counted(
             torch, "cli train --streaming on", lambda: cli_train.main(
                 argv + ["--streaming", "on", "--run-dir", str(run)]), want)
@@ -3283,7 +3363,7 @@ def lpips_check(torch, dev, tmp, run1, n_eval) -> dict:
         results, counts, wall = counted(
             torch, "cli evaluate with lpips", lambda: cli_evaluate.main(
                 ["--load-config", str(run1 / "config.yml")]),
-            {"pe_fwd": 3 * n_eval, "gl": 2})
+            {"pe_fwd": 3 * n_eval, "gl": 2, "fh": n_eval})
     finally:
         if old is None:
             os.environ.pop("NERAF_LPIPS_WEIGHTS")
@@ -3464,7 +3544,7 @@ def raf_phase(torch, dev, tmp) -> dict:
     run = tmp / "raf_run"
     gl_sweep = -(-RAF_TEST // 512)
     want = {"pe_fwd": 4 * CLI_STEPS + 2 * 3 + 2 * 3 + 3 * n_eval,
-            "pe_bwd": 4 * CLI_STEPS, "gl": gl_sweep}
+            "pe_bwd": 4 * CLI_STEPS, "gl": gl_sweep, "fh": 2 + 2 + n_eval}
     torch.cuda.reset_peak_memory_stats()
     trainer, counts_train, wall = counted(
         torch, "raf cli train", lambda: cli_train.main(
@@ -3512,7 +3592,7 @@ def raf_phase(torch, dev, tmp) -> dict:
         torch, "raf cli evaluate", lambda: cli_evaluate.main(
             ["--load-config", str(run / "config.yml"),
              "--output-path", str(out_json)]),
-        {"pe_fwd": 3 * n_eval, "gl": 2 * gl_sweep})
+        {"pe_fwd": 3 * n_eval, "gl": 2 * gl_sweep, "fh": n_eval})
     saved = json.loads(out_json.read_text())
     if set(saved["results"]) != RAF_EVAL_KEYS | VISION_EVAL_KEYS or \
             not finite_record(saved["results"]):
@@ -4222,7 +4302,7 @@ def mesh_gates(r0, rest, variants=MESH_VARIANTS, sweep: bool = True,
     ranks = [r0, *rest]
     bad = []
     want0 = {"pe_fwd": 4, "pe_bwd": 4, "hash_fwd": 0, "hash_bwd": 0,
-             "stem": 0, "concat": 0, "gl": 0}
+             "stem": 0, "concat": 0, "gl": 0, "fh": 0}
     report = {}
     for variant, gate, _ in variants:
         want = {**want0, "stem": int(gate)}
@@ -4911,6 +4991,14 @@ def main() -> int:
             torch, dev, "main_field", vmodel.field.base_layers(),
             vcfg.num_frequencies, chunk * vcfg.num_nerf_samples, 2),
     }
+    # the colour branch's kernel on the main field's head: a render
+    # chunk's rows, and a bake batch's (4,096 cells x 18 directions)
+    fh_rows = {
+        "render_chunk": field_head_check(torch, dev, vmodel.field, chunk,
+                                         vcfg.num_nerf_samples, 3),
+        "bake_batch": field_head_check(torch, dev, vmodel.field, 4096 * 18,
+                                       1, 4),
+    }
 
     # phase 7: the full-width vision slice through render_image and
     # evaluate_vision
@@ -4925,10 +5013,11 @@ def main() -> int:
           f"{n_chunks} chunks of {chunk} rays", flush=True)
     vis = render_phase(torch, vpipe, arrays, H, W, "vision")
     vis_launches = vis["launches"]["pe_mlp"]
-    if vis_launches != 3 * n_chunks * vis["n_images"] or any(
-            v for k, v in vis["launches"].items() if k != "pe_mlp"):
-        fail(f"vision path: launches {vis['launches']}, expected pe_mlp "
-             f"{3 * n_chunks * vis['n_images']} and no other")
+    want = {k: 0 for k in vis["launches"]}
+    want.update({"pe_mlp": 3 * n_chunks * vis["n_images"],
+                 "fh": n_chunks * vis["n_images"]})
+    if vis["launches"] != want:
+        fail(f"vision path: launches {vis['launches']}, expected {want}")
     parts, n_timed = chunk_breakdown(torch, vpipe, arrays, H, W)
     print(f"vision breakdown, mean of {n_timed} chunks (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
@@ -5018,7 +5107,8 @@ def main() -> int:
     hvis = render_phase(torch, hvpipe, arrays, H, W, "hash vision")
     n_img = hvis["n_images"]
     want = {k: 0 for k in hvis["launches"]}
-    want.update({"pe_mlp": 2 * n_chunks * n_img, "hash_fwd": n_chunks * n_img})
+    want.update({"pe_mlp": 2 * n_chunks * n_img, "hash_fwd": n_chunks * n_img,
+                 "fh": n_chunks * n_img})
     if hvis["launches"] != want:
         fail(f"hash vision path: launches {hvis['launches']}, expected {want}")
     parts, n_timed = chunk_breakdown(torch, hvpipe, arrays, H, W)
@@ -5312,7 +5402,22 @@ def main() -> int:
         "launches": concat["launches"], "max_abs_err": 0.0,
         "ms": concat["ms"], "plain_ms": concat["plain_ms"],
         "bound_ms": concat["bound_ms"], "bound_by": "bytes",
-        "library_ms": concat["plain_ms"]}]}))
+        "library_ms": concat["plain_ms"]}, {
+        "name": "field_head", "route": "cuda",
+        "source": "neraf_tpu_torch/csrc/field_head.cu",
+        # no TPU kernel: a fusion the port adds (XLA fuses the chain in the
+        # JAX package); "launches" are phase 7's render path's
+        "replaces": None,
+        "launches": vis["launches"]["fh"],
+        **{k: fh_rows["render_chunk"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "shapes": fh_rows,
+        "train_step_launches": joint["fh"],
+        "hash_render_launches": hvis["launches"]["fh"],
+        "eval_launches": {k: evals[k]["fh_launches"] for k in (
+            "eval_loss_dict", "eval_image", "query_grid_full")},
+        "cli_launches": cli_launches("fh"),
+        "serving_launches": serving_launches("fh")}]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -63,6 +63,7 @@ from neraf_tpu_torch.models.grid import (
 )
 from neraf_tpu_torch.models.resnet3d import ResNet3D
 from neraf_tpu_torch.models.vision import VisionModel
+from neraf_tpu_torch.ops.cuda.pe_mlp import weights_fixed
 from neraf_tpu_torch.parallel.sharding import (
     all_gather_batch,
     apply_param_shardings,
@@ -218,10 +219,12 @@ class VisionPipeline:
         last chunk is ragged) -> rgb (H, W, 3), depth and accumulation
         (H, W), on the pipeline's device. Spans: image.request; each chunk
         image.chunk, its pixels' rays image.rays; the parts put together
-        image.assemble. Counters image.requests, image.rays, image.chunks."""
+        image.assemble. Counters image.requests, image.rays, image.chunks.
+        The chunks share the weights: the kernels pack them once an image
+        (weights_fixed)."""
         chunk = self.config.vision_model.eval_num_rays_per_chunk
         n = height * width
-        with request("image.request"):
+        with request("image.request"), weights_fixed():
             count("image.requests")
             count("image.rays", n)
             parts = []
@@ -745,14 +748,15 @@ class JointPipeline:
 
     def query_grid_full(self, batch_size: int = 4096) -> torch.Tensor:
         """Every cell of the grid baked from the radiance field, the bake
-        cursor run over all of them without gradients -> a new (N_cells, 7)
+        cursor run over all of them without gradients (the kernels pack
+        the weights once a sweep: weights_fixed) -> a new (N_cells, 7)
         grid; the pipeline's own grid is not touched."""
         n = self.cells.shape[0]
         if n % batch_size:
             raise ValueError(f"batch_size={batch_size} must divide the "
                              f"{n} cells")
         grid = self.grid.clone()
-        with self._eval_mode():
+        with self._eval_mode(), weights_fixed():
             for cursor in range(0, n, batch_size):
                 grid[cursor:cursor + batch_size, :4] = compute_fresh_cells(
                     self.vision_model.query_density_rgb, cursor, self.cells,

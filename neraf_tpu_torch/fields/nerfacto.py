@@ -12,8 +12,11 @@ ops/hashgrid.py::hash_encoding, then a 2 x hidden_dim ReLU chain of `dense`
 layers, as the JAX field runs it with XLA). The proposal fields are fourier
 only. On a card pe_mlp and hash_encoding are the CUDA kernels, on both
 contraction modes (the JAX package keeps its Pallas kernel off the
-contract=False bake path for a TPU layout reason). Parameters are kept in
-float32 and each layer computes in the field's dtype, as flax's Dense does.
+contract=False bake path for a TPU layout reason). The colour branch
+(ops/field_head.py) is one CUDA kernel on a card when nothing records a
+gradient and the field computes in bf16, else the plain chain. Parameters
+are kept in float32 and each layer computes in the field's dtype, as
+flax's Dense does.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from torch import nn
 from neraf_tpu_torch.configs.config import VisionModelConfig
 from neraf_tpu_torch.fields.acoustic import lecun_normal_
 from neraf_tpu_torch.ops.contraction import contract_to_unit
-from neraf_tpu_torch.ops.encodings import SH_DIM, sh_encoding
+from neraf_tpu_torch.ops.encodings import SH_DIM
+from neraf_tpu_torch.ops.field_head import field_head
 from neraf_tpu_torch.ops.hashgrid import HashGridSpec, hash_encoding, init_hash_table
 from neraf_tpu_torch.ops.pe_mlp import dense, pe_mlp
 
@@ -155,21 +159,18 @@ class NerfactoField(nn.Module):
             density = density * selector[..., None]
         return density, h[..., 1:]
 
+    def head_layers(self):
+        return [(lin.weight, lin.bias) for lin in (*self.mlp_head, self.head_out)]
+
     def rgb_from_features(self, directions: torch.Tensor, geo: torch.Tensor,
                           camera_indices: torch.Tensor,
                           use_average_appearance: bool = False) -> torch.Tensor:
-        """directions (..., 3) unit vectors, camera_indices (...,) ints."""
-        d_enc = sh_encoding((directions + 1.0) / 2.0)
-        if use_average_appearance:
-            emb = self.appearance.weight.mean(dim=0).expand(
-                *geo.shape[:-1], self.appearance.embedding_dim)
-        else:
-            emb = self.appearance(camera_indices)
-        h = torch.cat([d_enc, geo.to(torch.float32), emb], dim=-1)
-        for lin in self.mlp_head:
-            h = torch.relu(dense(h, lin.weight, lin.bias, self.dtype))
-        out = self.head_out
-        return torch.sigmoid(dense(h, out.weight, out.bias, self.dtype))
+        """directions (..., 3) unit vectors, camera_indices (...,) ints
+        (ops/field_head.py: the kernel when nothing records a gradient on
+        a bf16 field on a card, else the plain chain)."""
+        return field_head(directions, geo, camera_indices,
+                          self.appearance.weight, self.head_layers(),
+                          use_average_appearance, self.dtype)
 
     def forward(self, positions, directions, camera_indices,
                 contract: bool = True, use_average_appearance: bool = False):

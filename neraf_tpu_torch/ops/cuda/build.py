@@ -109,6 +109,8 @@ def load() -> ctypes.CDLL:
     lib.neraf_stem_wgrad_launch.restype = ci
     lib.neraf_shifted_concat_launch.argtypes = [vp] * 2 + [ci] * 4 + [vp]
     lib.neraf_shifted_concat_launch.restype = ci
+    lib.neraf_field_head_launch.argtypes = [vp] * 7 + [ci] * 10 + [vp]
+    lib.neraf_field_head_launch.restype = ci
     lib.neraf_cuda_error_string.argtypes = [ci]
     lib.neraf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,14 +17,19 @@ for checks in f32.
 With gradients enabled and anything requiring one, ``pe_mlp_cuda`` runs
 through PeMlpFunction: the forward kernel, then the backward kernel on the
 weights packed once in the forward; it keeps only x and the packed weights,
-no activation. Otherwise (no_grad, inference_mode) it is one forward launch.
-A CPU tensor takes the plain version (ops/pe_mlp.py::pe_mlp_plain); a CUDA
-tensor launches the kernels or raises.
+no activation. Otherwise (no_grad, inference_mode) it is one forward launch;
+inside a `weights_fixed()` scope its weights are packed once a scope
+(`cached`: packing takes ~25 launches, and an image's chunks call each
+chain on the same weights). A CPU tensor takes the plain version
+(ops/pe_mlp.py::pe_mlp_plain); a CUDA tensor launches the kernels or
+raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -79,6 +84,40 @@ def _pack(layers, num_frequencies: int, dtype: torch.dtype):
     return w, b, dims
 
 
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def weights_fixed():
+    """A scope over which the caller holds the weights fixed, as an image's
+    chunks or a bake sweep's batches do: inside it the no-grad kernel
+    wrappers pack each chain's weights once (`cached`). Its store is the
+    calling thread's, shared by nested scopes, and dropped when the outer
+    one ends. (An in-place update has no reliable trace to key on: the
+    fused Adam step leaves a tensor's version counter as it was.)"""
+    outer = getattr(_SCOPE, "store", None)
+    if outer is None:
+        _SCOPE.store = {}
+    try:
+        yield
+    finally:
+        if outer is None:
+            _SCOPE.store = None
+
+
+def cached(what, tensors, make):
+    """make(), once for `what` and these tensors inside a weights_fixed()
+    scope; outside one, anew every call."""
+    store = getattr(_SCOPE, "store", None)
+    if store is None:
+        return make()
+    key = (what, tuple(id(t) for t in tensors))
+    kept = store.get(key)
+    if kept is None or not all(a is b for a, b in zip(kept[0], tensors)):
+        kept = store[key] = (list(tensors), make())
+    return kept[1]
+
+
 def packed_sizes(dims: dict) -> tuple:
     """(weights, biases) of pack_layers' layout: the gradient's sizes."""
     k0p, hp, op, L = dims["k0p"], dims["hp"], dims["op"], dims["n_hidden"]
@@ -104,6 +143,15 @@ def dw_slices(n: int, hp: int, sms: int) -> int:
     return max(1, min(-(-sms // m_tiles), steps))
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(num_frequencies: int, min_exp: float, max_exp: float,
+                 device: torch.device) -> torch.Tensor:
+    """nerf_frequencies, made once a device (a forward launch reads them by
+    address)."""
+    with torch.inference_mode(False):
+        return nerf_frequencies(num_frequencies, min_exp, max_exp, device)
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -117,7 +165,7 @@ def _forward(x, w, b, dims, num_frequencies, min_exp, max_exp, dtype):
     out = torch.empty((n, dims["out_dim"]), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    freqs = nerf_frequencies(num_frequencies, min_exp, max_exp, x.device)
+    freqs = _frequencies(num_frequencies, min_exp, max_exp, x.device)
     with torch.cuda.device(x.device):
         err = lib.neraf_pe_mlp_launch(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), freqs.data_ptr(),
@@ -221,5 +269,6 @@ def pe_mlp_cuda(x: torch.Tensor, layers, num_frequencies: int = 6,
                                     or any(p.requires_grad for p in params)):
         return PeMlpFunction.apply(x, num_frequencies, min_exp, max_exp,
                                    dtype, *params)
-    w, b, dims = _pack(layers, num_frequencies, dtype)
+    w, b, dims = cached(("pe_mlp", num_frequencies, dtype), params,
+                        lambda: _pack(layers, num_frequencies, dtype))
     return _forward(x, w, b, dims, num_frequencies, min_exp, max_exp, dtype)

@@ -82,12 +82,6 @@ def _ceil(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _padded(t: torch.Tensor, shape) -> torch.Tensor:
-    out = t.new_zeros(shape)
-    out[tuple(slice(0, s) for s in t.shape)] = t
-    return out
-
-
 def pack_layers(layers, num_frequencies: int, dtype: torch.dtype):
     """The kernel's form of `layers` (the counterpart of the Pallas
     kernel's _prep): every weight zero-padded, the hidden width to one of
@@ -97,9 +91,26 @@ def pack_layers(layers, num_frequencies: int, dtype: torch.dtype):
     adjacent columns is one angle's sincos. Returns the weights flattened
     into one `dtype` buffer, the biases into one float32 buffer, and the
     dims (k0p, hp, op, n_hidden, out_dim)."""
-    if len(layers) < 2:
-        raise ValueError("pe_mlp needs at least one hidden layer")
     F = num_frequencies
+
+    def interleaved(w0, hp, k0p):
+        w_sin, w_cos, w_x = split_first_layer(w0, F)
+        first = w0.new_zeros((hp, k0p))
+        first[:w0.shape[0], 0:6 * F:2] = w_sin
+        first[:w0.shape[0], 1:6 * F:2] = w_cos
+        first[:w0.shape[0], 6 * F:6 * F + 3] = w_x
+        return first
+
+    return pack_chain(layers, _ceil(6 * F + 3, 16), interleaved, dtype)
+
+
+def pack_chain(layers, k0p: int, first_layer, dtype: torch.dtype):
+    """pack_layers' padding for a ReLU chain whose layer 0 takes k0p
+    (padded) inputs: first_layer(w0, hp, k0p) gives layer 0's (hp, k0p)
+    weight in the kernel's column order; the other layers and the biases
+    are zero-padded as pack_layers says."""
+    if len(layers) < 2:
+        raise ValueError("the chain needs at least one hidden layer")
     w0, b0 = layers[0]
     hidden = w0.shape[0]
     for w, _ in layers[1:-1]:
@@ -112,22 +123,25 @@ def pack_layers(layers, num_frequencies: int, dtype: torch.dtype):
     fits = [h for h in KERNEL_HIDDEN_WIDTHS if h >= hidden]
     if not fits:
         raise ValueError(f"hidden width {hidden} > {KERNEL_HIDDEN_WIDTHS[-1]}")
-    hp, k0p, op = fits[0], _ceil(6 * F + 3, 16), _ceil(wo.shape[0], 8)
+    hp, op = fits[0], _ceil(wo.shape[0], 8)
 
-    w_sin, w_cos, w_x = split_first_layer(w0, F)
-    first = w0.new_zeros((hp, k0p))
-    first[:hidden, 0:6 * F:2] = w_sin
-    first[:hidden, 1:6 * F:2] = w_cos
-    first[:hidden, 6 * F:6 * F + 3] = w_x
-    weights = [first] + [_padded(w, (hp, hp)) for w, _ in layers[1:-1]]
-    weights.append(_padded(wo, (op, hp)))
-    biases = ([_padded(b0, (hp,))] + [_padded(b, (hp,)) for _, b in layers[1:-1]]
-              + [_padded(bo, (op,))])
+    weights = [first_layer(w0, hp, k0p)]
+    weights += [padded(w, (hp, hp)) for w, _ in layers[1:-1]]
+    weights.append(padded(wo, (op, hp)))
+    biases = ([padded(b0, (hp,))] + [padded(b, (hp,)) for _, b in layers[1:-1]]
+              + [padded(bo, (op,))])
     w_flat = torch.cat([w.reshape(-1) for w in weights]).to(dtype).contiguous()
     b_flat = torch.cat(biases).to(torch.float32).contiguous()
     dims = dict(k0p=k0p, hp=hp, op=op, n_hidden=len(layers) - 1,
                 out_dim=wo.shape[0])
     return w_flat, b_flat, dims
+
+
+def padded(t: torch.Tensor, shape) -> torch.Tensor:
+    """t zero-padded at the end of each dimension to `shape`."""
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, s) for s in t.shape)] = t
+    return out
 
 
 def chunk_rows(hp: int) -> int:
@@ -151,7 +165,7 @@ def tile_layers(w_flat: torch.Tensor, dims: dict) -> torch.Tensor:
         w = w_flat[off:off + rows * cols].reshape(rows, cols)
         off += rows * cols
         if last:
-            w = _padded(w, (_ceil(op, 16), cols))
+            w = padded(w, (_ceil(op, 16), cols))
         r = w.shape[0] if last else chunk_rows(hp)
         out.append(w.reshape(-1, r // 8, 8, cols // 8, 8)
                    .permute(0, 3, 1, 2, 4).reshape(-1))
