@@ -241,7 +241,19 @@ Phases, each fatal on failure:
      field shard across its data column after every step; then
      parallel/dryrun.py::dryrun_multichip(4) on card 0 over gloo, and over
      NCCL one card a rank where the machine has 4 cards (else it prints
-     that it was skipped).
+     that it was skipped);
+ 28. (after phase 13) NeRAF's published radiance model,
+     engine/factory.py::nerfacto_model_config (two hash proposal fields of
+     5 x 2 with 2^17 rows, max_res 128 and 256; the 16 x 2 main grid; base
+     32 -> 64 -> 16, head 63 -> 64 x 2 -> 3) at full width: the hash
+     kernels against the plain version at its three grids and a render
+     chunk's rows (8,388,608, 3,145,728 and 1,572,864) as phase 12 checks
+     them; the colour kernel on its head (2 hidden layers) at a render
+     chunk's rows and a bake batch's as phase 6 checks it; a 512 x 512 view through render_image as phase 13 (3 hash
+     forward launches and 1 field_head launch a chunk, no PE+MLP) and its
+     chunk breakdown; the full-width joint step on it as phase 14 (4 hash
+     forward and 4 hash backward launches a step). Alone: a script that
+     calls build.load() then chip_smoke.nerfacto_phase(torch, dev).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -568,7 +580,7 @@ def field_head_check(torch, dev, field, rays, S, seed) -> dict:
     bounds); both timed in turns (plain, kernel, kernel, plain) beside the
     bound of the unpadded head's products and the bytes read and written."""
     from neraf_tpu_torch.ops.cuda.field_head import field_head_cuda
-    from neraf_tpu_torch.ops.cuda.pe_mlp import weights_fixed
+    from neraf_tpu_torch.utils.weight_cache import weights_fixed
     from neraf_tpu_torch.ops.field_head import field_head_plain
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1601,6 +1613,73 @@ def hash_phase(torch, dev, hvpipe, arrays, H, W) -> dict:
             torch, dev, f"{name} (the path's points)", spec, None, seed,
             need_dx=name != "bake", x=x)
     return rows
+
+
+def nerfacto_phase(torch, dev) -> dict:
+    """Phase 28: NeRAF's published radiance model at full width
+    (factory.nerfacto_model_config: two hash proposal fields of 5 x 2, the
+    16 x 2 main grid, the published depths). The hash kernels against the
+    plain version at its three grids and a render chunk's rows (a proposal
+    field's 32,768 x 256 and 32,768 x 96, the main field's 32,768 x 48);
+    the colour kernel on its head (2 hidden layers) at a render chunk's
+    rows and a bake batch's (S 1), as phase 6 checks it; a 512 x 512 view through render_phase, gated at 3 hash forward
+    launches and one colour-kernel launch a chunk and no PE+MLP, with the
+    chunk's breakdown; then the full-width joint step on it, gated at 4
+    hash forward and 4 backward launches a step (both proposals, the main
+    field, the bake)."""
+    from neraf_tpu_torch.configs.config import ExperimentConfig
+    from neraf_tpu_torch.data.vision_data import camera_arrays, synthetic_cameras
+    from neraf_tpu_torch.engine import factory
+
+    vcfg = factory.nerfacto_model_config()
+    cfg = ExperimentConfig(dataset="SoundSpaces")
+    cfg.vision_model = vcfg
+    vpipe = factory.build_vision_pipeline(device=dev, seed=0, config=cfg)
+    model = vpipe.vision_model
+    rays = vcfg.eval_num_rays_per_chunk
+    rows = {f"proposal_{k}": hash_check(torch, dev, f"nerfacto proposal {k}",
+                                        prop.hash.spec, rays * n, 30 + k)
+            for k, (prop, n) in enumerate(zip(model.proposal_networks,
+                                              vcfg.num_proposal_samples))}
+    rows["main"] = hash_check(torch, dev, "nerfacto main field",
+                              model.field.hash.spec,
+                              rays * vcfg.num_nerf_samples, 32)
+    # the colour kernel on this head (2 hidden layers), at phase 6's bounds
+    fh = {"render_chunk": field_head_check(torch, dev, model.field, rays,
+                                           vcfg.num_nerf_samples, 33),
+          "bake_batch": field_head_check(torch, dev, model.field, 4096 * 18,
+                                         1, 34)}
+    H = W = 512
+    arrays = camera_arrays(synthetic_cameras(8, H, W, hfov_deg=90.0, seed=0), dev)
+    n_chunks = -(-H * W // rays)
+    print(f"nerfacto vision: full-width model (proposals "
+          f"{[p.hash.spec.resolutions().tolist() for p in model.proposal_networks]}"
+          f", main grid L{vcfg.num_levels} x F{vcfg.features_per_level}, base "
+          f"{vcfg.hidden_layers} x {vcfg.hidden_dim}, head "
+          f"{vcfg.hidden_layers_color} x {vcfg.hidden_dim_color}, "
+          f"{model.field.dtype}), {H} x {W} view, {n_chunks} chunks of {rays} "
+          f"rays", flush=True)
+    vis = render_phase(torch, vpipe, arrays, H, W, "nerfacto vision")
+    want = {k: 0 for k in vis["launches"]}
+    want.update({"hash_fwd": 3 * n_chunks * vis["n_images"],
+                 "fh": n_chunks * vis["n_images"]})
+    if vis["launches"] != want:
+        fail(f"nerfacto vision path: launches {vis['launches']}, expected {want}")
+    parts, n_timed = chunk_breakdown(torch, vpipe, arrays, H, W)
+    print(f"nerfacto vision breakdown, mean of {n_timed} chunks (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    del vpipe, model
+    torch.cuda.empty_cache()
+    jcfg = factory.joint_config()
+    jcfg.vision_model = vcfg
+    jpipe = factory.build_joint_pipeline(grid_res=128, device=dev, seed=0,
+                                         config=jcfg)
+    joint = joint_step_phase(torch, jpipe, {"hash_fwd": 4, "hash_bwd": 4},
+                             what="nerfacto joint step", stem=False)
+    del jpipe
+    torch.cuda.empty_cache()
+    return {"hash": rows, "field_head": fh, "render": vis, "breakdown": parts,
+            "joint": joint}
 
 
 def render_phase(torch, vpipe, arrays, H, W, what: str) -> dict:
@@ -5117,6 +5196,9 @@ def main() -> int:
     del hvpipe, hmodel
     torch.cuda.empty_cache()
 
+    # phase 28: NeRAF's published radiance model, hash proposal fields
+    nerfacto = nerfacto_phase(torch, dev)
+
     # phase 14: the full-width hash joint step
     hjpipe = build_joint_pipeline(grid_res=128, tiny=False, device=dev,
                                   seed=0, encoding="hash")
@@ -5351,6 +5433,13 @@ def main() -> int:
         "plain_ms": h_r["fwd_plain_ms"], "bound_ms": h_r["fwd_bound_ms"],
         "bound_by": h_r["fwd_bound_by"], "library_ms": None,
         "train_step_launches": hjoint["hash_fwd"], **h_sets,
+        "nerfacto": {
+            "render_launches": nerfacto["render"]["launches"]["hash_fwd"],
+            "train_step_launches": nerfacto["joint"]["hash_fwd"],
+            "shapes": {k: {"rows": r["rows"], "max_abs_err": r["max_abs_err"]["forward"],
+                           "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
+                           "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"]}
+                       for k, r in nerfacto["hash"].items()}},
         "serving_launches": serving_launches("hash_fwd"),
         "train_step_device_kernels": {
             "hash_encoding_fwd_kernel":
@@ -5364,6 +5453,12 @@ def main() -> int:
         "plain_ms": h_t["bwd_plain_ms"], "bound_ms": h_t["bwd_bound_ms"],
         "bound_by": h_t["bwd_bound_by"], "library_ms": None,
         **h_sets, "table_costs": costs,
+        "nerfacto": {
+            "train_step_launches": nerfacto["joint"]["hash_bwd"],
+            "shapes": {k: {"rows": r["rows"], "max_abs_err": r["max_abs_err"]["d_table"],
+                           "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+                           "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"]}
+                       for k, r in nerfacto["hash"].items()}},
         "serving_launches": serving_launches("hash_bwd"),
         "train_step_device_kernels": {
             k: hjoint["kernels"][k] for k in (
@@ -5414,6 +5509,11 @@ def main() -> int:
         "library_ms": None, "shapes": fh_rows,
         "train_step_launches": joint["fh"],
         "hash_render_launches": hvis["launches"]["fh"],
+        # Nerfacto's head, 2 hidden layers: its render's launches and rows
+        "nerfacto": {"launches": nerfacto["render"]["launches"]["fh"],
+                     "shapes": {k: {c: r[c] for c in (
+                         "rows", "S", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by")} for k, r in nerfacto["field_head"].items()}},
         "eval_launches": {k: evals[k]["fh_launches"] for k in (
             "eval_loss_dict", "eval_image", "query_grid_full")},
         "cli_launches": cli_launches("fh"),

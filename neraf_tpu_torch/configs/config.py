@@ -2,7 +2,9 @@
 
 The same plain-dataclass tree with the same defaults, so one configuration
 means the same model in both packages (tests/test_torch_train.py compares
-the two field by field):
+the two field by field), plus VisionModelConfig's port-only fields
+(PORT_ONLY_VISION: the hash proposal fields and the fields' depths), whose
+defaults are the JAX package's model:
 
 1. dataclass defaults (per-component configs below),
 2. the experiment header resolved by `default_config(dataset, scene)`:
@@ -11,10 +13,10 @@ the two field by field):
 3. the environment variables ``NeRAF_dataset`` and ``NeRAF_scene``.
 
 A run's configuration is saved as config.yml and loaded back
-(``save_config`` / ``load_config``): the same file as the JAX package's,
-read and written by configs/yaml_subset.py (PyYAML is not a dependency of
-the port). ``apply_overrides`` applies the CLI's dotted-path ``--set``
-values.
+(``save_config`` / ``load_config``): the same file as the JAX package's
+while the port-only fields hold their defaults, read and written by
+configs/yaml_subset.py (PyYAML is not a dependency of the port).
+``apply_overrides`` applies the CLI's dotted-path ``--set`` values.
 """
 
 from __future__ import annotations
@@ -83,8 +85,19 @@ class AudioModelConfig:
 class VisionModelConfig:
     """Nerfacto-class radiance model. The main field's encoding is
     "fourier" or "hash" (the multiresolution hash grid, ported with its CUDA
-    kernels); the proposal fields are fourier only. hash_grad_mode is kept
-    so configurations compare equal and has no effect in the port."""
+    kernels); the proposal fields' is "fourier" (F 6, 2 x 128) or "hash"
+    (nerfstudio's HashMLPDensityField: a grid of the proposal_* sizes, one
+    max_res a proposal, then one ReLU layer of proposal_hidden_dim).
+    hash_grad_mode is kept so configurations compare equal and has no
+    effect in the port.
+
+    The fields after camera_opt_mode are the port's alone (the JAX package
+    has no hash proposal field that builds, and fixed depths); their
+    defaults are the JAX package's model, and save_config leaves each out
+    while it holds its default (PORT_ONLY_VISION). hidden_layers and
+    hidden_layers_color count ReLU layers, where nerfstudio's
+    base_mlp_num_layers and num_layers_color count linear ones: Nerfacto's
+    published field has 1 and 2."""
 
     encoding: str = "fourier"  # "fourier" | "hash"
     num_frequencies: int = 10
@@ -113,6 +126,20 @@ class VisionModelConfig:
     eval_num_rays_per_chunk: int = 1 << 15
     background_color: str = "last_sample"
     camera_opt_mode: str = "SO3xR3"
+    hidden_layers: int = 2  # the hash main field's base MLP, hidden_dim wide
+    hidden_layers_color: int = 3  # the colour head, hidden_dim_color wide
+    proposal_num_levels: int = 5
+    proposal_features_per_level: int = 2
+    proposal_log2_hashmap_size: int = 17
+    proposal_base_res: int = 16
+    proposal_max_res: tuple = (128, 256)
+    proposal_hidden_dim: int = 16
+
+
+# VisionModelConfig's fields that the JAX package's lacks
+PORT_ONLY_VISION = ("hidden_layers", "hidden_layers_color", "proposal_num_levels",
+                    "proposal_features_per_level", "proposal_log2_hashmap_size",
+                    "proposal_base_res", "proposal_max_res", "proposal_hidden_dim")
 
 
 @dataclass
@@ -315,8 +342,15 @@ def apply_overrides(cfg: ExperimentConfig,
 
 
 def save_config(cfg: ExperimentConfig, path: str | Path) -> None:
+    """config.yml: every field, but a port-only one that holds its default,
+    so that a configuration the JAX package can express is its file."""
+    d = _to_dict(cfg)
+    defaults = _to_dict(VisionModelConfig())
+    for name in PORT_ONLY_VISION:
+        if d["vision_model"][name] == defaults[name]:
+            del d["vision_model"][name]
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(yaml_subset.dump(_to_dict(cfg)))
+    Path(path).write_text(yaml_subset.dump(d))
 
 
 def load_config(path: str | Path) -> ExperimentConfig:

@@ -16,6 +16,10 @@ encoding="hash" puts the main field on the hash grid, as the JAX CLI's
 levels x 4 features, 2^19 rows a level, resolutions 16-2048, base MLP 2 x
 64); tiny: 4 levels x 2 features, 2^10 rows, resolutions 4-32 (two dense
 levels, two hashed), base MLP 2 x 16. The proposals stay fourier.
+nerfacto_model_config() is NeRAF's published radiance model, nerfstudio's
+Nerfacto, with hash proposal fields (the port's alone: the JAX package
+cannot build them); build_vision_pipeline and build_joint_pipeline take it
+through `config`.
 The joint train step trains both: full as __graft_entry__ and bench.py
 (4096 rays, 2048 STFT slices and 4096 grid cells a step, audio from step
 2001); tiny with 64 rays, 32 slices and 256 cells a step, audio from step 2.
@@ -87,6 +91,26 @@ def vision_model_config(tiny: bool = False,
         log2_hashmap_size=10, base_res=4, max_res=32, hidden_dim=16)
 
 
+def nerfacto_model_config(tiny: bool = False) -> VisionModelConfig:
+    """NeRAF's radiance model as published (NeRAF_config.py:94-98 on
+    nerfstudio's NerfactoModelConfig): the main field a hash grid of 16
+    levels x 2 features, 2^19 rows a level, resolutions 16-2048, base MLP
+    32 -> 64 -> 16, colour head 63 -> 64 -> 64 -> 3; two hash proposal
+    fields (HashMLPDensityField) of 5 levels x 2, 2^17 rows, resolutions
+    16-128 and 16-256, MLP 10 -> 16 -> 1. tiny: the tiny fields' widths
+    and samples at the same depths, the main grid 4 x 2, 2^10 rows, 4-32,
+    the proposals 3 x 2, 2^8 rows, 4-16 and 4-32, hidden 8 (a dense
+    level and hashed ones in each grid)."""
+    cfg = vision_model_config(tiny, "hash")
+    cfg = dataclasses.replace(cfg, proposal_encoding="hash", hidden_layers=1,
+                              hidden_layers_color=2)
+    if not tiny:
+        return dataclasses.replace(cfg, num_levels=16, features_per_level=2)
+    return dataclasses.replace(
+        cfg, proposal_num_levels=3, proposal_log2_hashmap_size=8,
+        proposal_base_res=4, proposal_max_res=(16, 32), proposal_hidden_dim=8)
+
+
 def audio_model_config(tiny: bool = False) -> AudioModelConfig:
     if tiny:
         return AudioModelConfig(
@@ -141,13 +165,19 @@ def build_render_pipeline(grid_res: int = 128, tiny: bool = False,
 def build_vision_pipeline(tiny: bool = False, device="cuda", seed: int = 0,
                           mixed_precision: bool | None = None,
                           params: dict | None = None,
-                          encoding: str = "fourier") -> VisionPipeline:
+                          encoding: str = "fourier",
+                          config: ExperimentConfig | None = None) -> VisionPipeline:
     """A VisionPipeline with weights from `seed` (flax's initialisers from a
     CPU torch.Generator), or bridged from a JAX train state's `params`
     (proposal_networks and fields). mixed_precision None keeps the config's
-    default (bf16); encoding is the main field's, "fourier" or "hash"."""
-    cfg = ExperimentConfig(dataset="SoundSpaces")
-    cfg.vision_model = vision_model_config(tiny, encoding)
+    default (bf16); encoding is the main field's, "fourier" or "hash".
+    `config` replaces the configuration with vision_model_config(tiny,
+    encoding)."""
+    if config is None:
+        cfg = ExperimentConfig(dataset="SoundSpaces")
+        cfg.vision_model = vision_model_config(tiny, encoding)
+    else:
+        cfg = copy.deepcopy(config)
     if mixed_precision is not None:
         cfg.trainer.mixed_precision = mixed_precision
     dtype = torch.bfloat16 if cfg.trainer.mixed_precision else torch.float32

@@ -63,7 +63,6 @@ from neraf_tpu_torch.models.grid import (
 )
 from neraf_tpu_torch.models.resnet3d import ResNet3D
 from neraf_tpu_torch.models.vision import VisionModel
-from neraf_tpu_torch.ops.cuda.pe_mlp import weights_fixed
 from neraf_tpu_torch.parallel.sharding import (
     all_gather_batch,
     apply_param_shardings,
@@ -74,6 +73,7 @@ from neraf_tpu_torch.parallel.sharding import (
     sharded_params,
 )
 from neraf_tpu_torch.utils.profiling import count, request, span
+from neraf_tpu_torch.utils.weight_cache import weights_fixed
 from neraf_tpu_torch.viz.panels import grid_top_view, stft_comparison_panel
 
 # the JAX package's explicit LPIPS skip marker (engine/pipeline.py:43-71)
@@ -219,7 +219,8 @@ class VisionPipeline:
         last chunk is ragged) -> rgb (H, W, 3), depth and accumulation
         (H, W), on the pipeline's device. Spans: image.request; each chunk
         image.chunk, its pixels' rays image.rays; the parts put together
-        image.assemble. Counters image.requests, image.rays, image.chunks.
+        image.assemble. Counters image.requests, image.rays, image.chunks,
+        image.proposal_points (the samples the proposal fields took).
         The chunks share the weights: the kernels pack them once an image
         (weights_fixed)."""
         chunk = self.config.vision_model.eval_num_rays_per_chunk
@@ -237,6 +238,8 @@ class VisionPipeline:
                         rays = generate_rays(cam_arrays, torch.full_like(px, cam_index),
                                              px, py)
                     out = self.render_rays(rays, use_average_appearance)
+                    count("image.proposal_points",
+                          sum(w.numel() for w in out["weights_list"][:-1]))
                     parts.append([out[k] for k in ("rgb", "depth", "accumulation")])
             with span("image.assemble"):
                 rgb, depth, acc = (torch.cat(p) for p in zip(*parts))

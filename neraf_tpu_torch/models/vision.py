@@ -21,8 +21,13 @@ import torch
 from torch import nn
 
 from neraf_tpu_torch.configs.config import VisionModelConfig
-from neraf_tpu_torch.fields.nerfacto import NerfactoField, ProposalDensityField
+from neraf_tpu_torch.fields.nerfacto import (
+    HashDensityField,
+    NerfactoField,
+    ProposalDensityField,
+)
 from neraf_tpu_torch.models.camera_opt import apply_camera_opt
+from neraf_tpu_torch.ops.hashgrid import HashGridSpec
 from neraf_tpu_torch.ops.render import (
     distortion_loss,
     interlevel_loss,
@@ -40,6 +45,30 @@ from neraf_tpu_torch.parallel.sharding import global_mean
 from neraf_tpu_torch.utils.profiling import span
 
 
+def _proposals(config: VisionModelConfig, dtype: torch.dtype) -> list:
+    """The two proposal fields: fourier, or hash grids of the proposal_*
+    sizes with one max_res each (the JAX package's ProposalFieldSpec
+    defaults, which it cannot build: 'ProposalFieldSpec' has no
+    'hash_grad_mode')."""
+    density = config.average_init_density
+    if config.proposal_encoding == "fourier":
+        return [ProposalDensityField(average_init_density=density, dtype=dtype)
+                for _ in range(2)]
+    if config.proposal_encoding != "hash":
+        raise ValueError(f"proposal_encoding={config.proposal_encoding!r}: "
+                         "'fourier' or 'hash'")
+    if len(config.proposal_max_res) != 2:
+        raise ValueError(f"proposal_max_res={config.proposal_max_res!r}: one "
+                         "max_res for each of the two proposal fields")
+    return [HashDensityField(
+        HashGridSpec(num_levels=config.proposal_num_levels,
+                     features_per_level=config.proposal_features_per_level,
+                     log2_hashmap_size=config.proposal_log2_hashmap_size,
+                     base_res=config.proposal_base_res, max_res=max_res),
+        config.proposal_hidden_dim, density, dtype)
+        for max_res in config.proposal_max_res]
+
+
 class VisionModel(nn.Module):
     """The two proposal fields and the main field, with the ray marcher."""
 
@@ -47,22 +76,14 @@ class VisionModel(nn.Module):
                  near: float = 0.05, far: float = 1000.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.proposal_encoding != "fourier":
-            raise NotImplementedError(
-                f"proposal_encoding={config.proposal_encoding!r}: the "
-                "proposal fields are fourier only, as the JAX package's "
-                "hash proposal field raises AttributeError "
-                "('ProposalFieldSpec' has no 'hash_grad_mode')")
         self.config = config
         self.near, self.far = near, far
         self.field = NerfactoField(config, num_cameras, dtype)
-        self.proposal_networks = nn.ModuleList(
-            ProposalDensityField(average_init_density=config.average_init_density,
-                                 dtype=dtype) for _ in range(2))
+        self.proposal_networks = nn.ModuleList(_proposals(config, dtype))
         # SO3xR3 corrections [omega, translation] per camera, zero-initialised
         self.camera_opt = nn.Parameter(torch.zeros(num_cameras, 6))
 
-    def proposal(self, level: int) -> ProposalDensityField:
+    def proposal(self, level: int) -> nn.Module:
         return self.proposal_networks[level]
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -82,7 +103,9 @@ class VisionModel(nn.Module):
         without use_single_jitter; use_average_appearance defaults to
         `not train`. Spans: vision.sampler (the camera correction, the
         uniform bins, each PDF resampling and the samples of each set of
-        bins), vision.proposal (a proposal field and its weights),
+        bins), vision.proposal (a proposal field and its weights; a hash
+        proposal field's vision.proposal_encoding and vision.proposal_mlp
+        under it),
         vision.field (the main field), vision.render (the renderers)."""
         cfg = self.config
         origins, directions = rays["origins"], rays["directions"]

@@ -13,7 +13,7 @@ on a bf16 field. The directions and camera indices may be expands over the
 samples of a ray (stride 0 along the last row dimension, as
 VisionModel.forward passes them): the kernel then reads one direction and
 camera for every S rows. Inside a weights_fixed() scope
-(ops/cuda/pe_mlp.py) the packed head and the averaged appearance row are
+(utils/weight_cache.py) the packed head and the averaged appearance row are
 made once a scope: a render calls the kernel once a chunk on the same
 weights.
 """
@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import torch
 
-from neraf_tpu_torch.ops.cuda.pe_mlp import _sms, cached, row_tile_blocks
+from neraf_tpu_torch.ops.cuda.pe_mlp import _sms, row_tile_blocks
 from neraf_tpu_torch.ops.field_head import pack_head
 from neraf_tpu_torch.ops.pe_mlp import tile_layers
 from neraf_tpu_torch.utils.profiling import count
+from neraf_tpu_torch.utils.weight_cache import cached
 
 # counter (utils/profiling.py): kernel.field_head, a launch
 MAX_OUT = 16

@@ -18,18 +18,16 @@ With gradients enabled and anything requiring one, ``pe_mlp_cuda`` runs
 through PeMlpFunction: the forward kernel, then the backward kernel on the
 weights packed once in the forward; it keeps only x and the packed weights,
 no activation. Otherwise (no_grad, inference_mode) it is one forward launch;
-inside a `weights_fixed()` scope its weights are packed once a scope
-(`cached`: packing takes ~25 launches, and an image's chunks call each
-chain on the same weights). A CPU tensor takes the plain version
+inside a `weights_fixed()` scope (utils/weight_cache.py) its weights are
+packed once a scope (`cached`: packing takes ~25 launches, and an image's
+chunks call each chain on the same weights). A CPU tensor takes the plain version
 (ops/pe_mlp.py::pe_mlp_plain); a CUDA tensor launches the kernels or
 raises.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import threading
 
 import torch
 
@@ -41,6 +39,7 @@ from neraf_tpu_torch.ops.pe_mlp import (
     unpack_layers,
 )
 from neraf_tpu_torch.utils.profiling import count
+from neraf_tpu_torch.utils.weight_cache import cached
 
 # counters (utils/profiling.py): kernel.pe_mlp_fwd, a forward launch;
 # kernel.pe_mlp_bwd, a backward call, which launches n_hidden + 3 device
@@ -82,40 +81,6 @@ def _pack(layers, num_frequencies: int, dtype: torch.dtype):
     if dtype == torch.bfloat16:
         w = tile_layers(w, dims)
     return w, b, dims
-
-
-_SCOPE = threading.local()
-
-
-@contextlib.contextmanager
-def weights_fixed():
-    """A scope over which the caller holds the weights fixed, as an image's
-    chunks or a bake sweep's batches do: inside it the no-grad kernel
-    wrappers pack each chain's weights once (`cached`). Its store is the
-    calling thread's, shared by nested scopes, and dropped when the outer
-    one ends. (An in-place update has no reliable trace to key on: the
-    fused Adam step leaves a tensor's version counter as it was.)"""
-    outer = getattr(_SCOPE, "store", None)
-    if outer is None:
-        _SCOPE.store = {}
-    try:
-        yield
-    finally:
-        if outer is None:
-            _SCOPE.store = None
-
-
-def cached(what, tensors, make):
-    """make(), once for `what` and these tensors inside a weights_fixed()
-    scope; outside one, anew every call."""
-    store = getattr(_SCOPE, "store", None)
-    if store is None:
-        return make()
-    key = (what, tuple(id(t) for t in tensors))
-    kept = store.get(key)
-    if kept is None or not all(a is b for a, b in zip(kept[0], tensors)):
-        kept = store[key] = (list(tensors), make())
-    return kept[1]
 
 
 def packed_sizes(dims: dict) -> tuple:

@@ -102,10 +102,24 @@ def _remove_tmp_path(request):
         shutil.rmtree(path, ignore_errors=True)
 
 
+def _shared_fields(c, path) -> list:
+    """c's field names but the port's own vision fields
+    (pconfig.PORT_ONLY_VISION), which hold their defaults, the JAX
+    package's model."""
+    names = [f.name for f in dataclasses.fields(c)]
+    if not isinstance(c, pconfig.VisionModelConfig):
+        return names
+    default = pconfig.VisionModelConfig()
+    for n in pconfig.PORT_ONLY_VISION:
+        assert getattr(c, n) == getattr(default, n), (path, n)
+    return [n for n in names if n not in pconfig.PORT_ONLY_VISION]
+
+
 def _same_config(a, b, path="cfg"):
+    """One package's config and the other's, field by field."""
     if dataclasses.is_dataclass(b):
-        names = [f.name for f in dataclasses.fields(b)]
-        assert [f.name for f in dataclasses.fields(a)] == names, path
+        names = _shared_fields(b, path)
+        assert _shared_fields(a, path) == names, path
         for n in names:
             _same_config(getattr(a, n), getattr(b, n), f"{path}.{n}")
     else:

@@ -37,27 +37,30 @@ from neraf_tpu_torch.data import loader, vision_data
 from neraf_tpu_torch.engine import factory
 from neraf_tpu_torch.fields.nerfacto import NerfactoField
 from neraf_tpu_torch.ops.cuda import field_head as head_cuda
-from neraf_tpu_torch.ops.cuda.pe_mlp import cached, weights_fixed
 from neraf_tpu_torch.ops.encodings import sh_encoding
 from neraf_tpu_torch.ops.field_head import field_head_plain, pack_head
 from neraf_tpu_torch.ops.pe_mlp import dense, tile_layers
 from neraf_tpu_torch.utils.profiling import counters
+from neraf_tpu_torch.utils.weight_cache import cached, weights_fixed
 
 STEP = 2.0 ** -8
 RENDER_RAYS, SAMPLES = 32768, 48  # a render chunk: 1,572,864 rows
 RAGGED = 3 * 128 + 37
-# (geo, appearance, hidden): the serving head (63 -> 64 x 3 -> 3) and the
-# tests' and CLI's tiny one (27 -> 16 x 3 -> 3)
-WIDTHS = {"serving": (15, 32, 64), "tiny": (7, 4, 16)}
+# (geo, appearance, hidden, hidden layers): the serving head (63 -> 64 x 3
+# -> 3), the tests' and CLI's tiny one (27 -> 16 x 3 -> 3) and Nerfacto's
+# published head (63 -> 64 x 2 -> 3)
+WIDTHS = {"serving": (15, 32, 64, 3), "tiny": (7, 4, 16, 3),
+          "nerfacto": (15, 32, 64, 2)}
 
 
 def _field(widths, dtype, seed=0, bias_std=0.1, weight_gain=1.0):
     """A NerfactoField with the head of `widths`, its own initialisers
     (weights scaled by weight_gain) and normal(0, bias_std) head biases."""
-    G, E, hc = WIDTHS[widths]
+    G, E, hc, depth = WIDTHS[widths]
     cfg = VisionModelConfig(geo_feat_dim=G, appearance_embed_dim=E,
-                            hidden_dim_color=hc, base_mlp_width=16,
-                            base_mlp_layers=1, num_frequencies=2)
+                            hidden_dim_color=hc, hidden_layers_color=depth,
+                            base_mlp_width=16, base_mlp_layers=1,
+                            num_frequencies=2)
     field = NerfactoField(cfg, num_cameras=8, dtype=dtype)
     gen = torch.Generator().manual_seed(seed)
     field.reset_parameters(gen)
@@ -147,13 +150,13 @@ def test_pack_head_round_trips(widths):
     wrapper's packing is tile_layers of pack_head, bit for bit."""
     field = _field(widths, torch.float32)
     layers = field.head_layers()
-    G, E, hc = WIDTHS[widths]
+    G, E, hc, depth = WIDTHS[widths]
     w, b, dims = pack_head(layers, torch.float32)
     k_in = 16 + G + E
-    assert dims == dict(k0p=-(-k_in // 16) * 16, hp=hc, op=8, n_hidden=3,
+    assert dims == dict(k0p=-(-k_in // 16) * 16, hp=hc, op=8, n_hidden=depth,
                         out_dim=3)
-    assert w.numel() == hc * dims["k0p"] + 2 * hc * hc + 8 * hc
-    assert b.numel() == 3 * hc + 8
+    assert w.numel() == hc * dims["k0p"] + (depth - 1) * hc * hc + 8 * hc
+    assert b.numel() == depth * hc + 8
     first = w[:hc * dims["k0p"]].reshape(hc, dims["k0p"])
     assert torch.equal(first[:, k_in:], torch.zeros_like(first[:, k_in:]))
     for (gw, gb), (rw, rb) in zip(_unpack_head(w, b, dims, k_in, hc), layers):
@@ -292,7 +295,8 @@ def _three_ways(field, n, S, average, seed):
 @pytest.mark.parametrize("average", [True, False], ids=["average", "camera"])
 def test_field_head_kernel_matches_plain_on_card(average, S, rows, widths):
     """The kernel against the plain chain at a render chunk's 1,572,864 rows
-    and at 3 x 128 + 37: one bf16 step of the bf16 chain at the max, and no
+    and at 3 x 128 + 37, for each head (3 hidden layers, and Nerfacto's 2):
+    one bf16 step of the bf16 chain at the max, and no
     farther from the float32 chain than the bf16 chain, beyond that step
     (module docstring)."""
     got, plain16, plain32 = _three_ways(_field(widths, torch.bfloat16), rows,

@@ -24,6 +24,7 @@ import torch
 
 from neraf_tpu.ops import hashgrid as jhashgrid
 from neraf_tpu_torch.bridge import load_vision_params
+from neraf_tpu_torch.configs import config as tconfig
 from neraf_tpu_torch.engine import factory
 from neraf_tpu_torch.fields.nerfacto import NerfactoField
 from neraf_tpu_torch.models.vision import VisionModel
@@ -278,7 +279,7 @@ def test_bridge_hash_tree_is_strict(models):
 # ---------------------------------------------------------------- factory
 
 
-def test_hash_configs_and_refusals():
+def test_hash_configs_and_refusals(tmp_path):
     from neraf_tpu.models.vision import VisionModel as JVisionModel
 
     full = factory.vision_model_config(encoding="hash")
@@ -291,13 +292,30 @@ def test_hash_configs_and_refusals():
         factory.vision_model_config(encoding="grid")
     with pytest.raises(ValueError, match="fourier"):
         NerfactoField(dataclasses.replace(full, encoding="grid"))
-    # the reference cannot build a hash proposal field; the port refuses it
-    bad = dataclasses.replace(factory.vision_model_config(True, "hash"),
-                              proposal_encoding="hash")
+    # the JAX package cannot build a hash proposal field; the port builds
+    # nerfstudio's HashMLPDensityField, one max_res a field
+    props = dataclasses.replace(factory.vision_model_config(True, "hash"),
+                                proposal_encoding="hash")
     with pytest.raises(AttributeError, match="hash_grad_mode"):
-        JVisionModel(config=bad, num_cameras=2).init(jax.random.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="hash_grad_mode"):
-        VisionModel(bad, num_cameras=2)
+        JVisionModel(config=props, num_cameras=2).init(jax.random.PRNGKey(0))
+    model = VisionModel(props, num_cameras=2)
+    assert [p.hash.spec for p in model.proposal_networks] == [
+        hashgrid.HashGridSpec(num_levels=5, features_per_level=2,
+                              log2_hashmap_size=17, base_res=16, max_res=r)
+        for r in (128, 256)]
+    assert [tuple(p.mlp[0].weight.shape) for p in model.proposal_networks] == [(16, 10)] * 2
+    with pytest.raises(ValueError, match="proposal_encoding"):
+        VisionModel(dataclasses.replace(props, proposal_encoding="grid"))
+    # the published model's fields survive a config.yml round trip, and
+    # the defaults leave the file the JAX package's
+    cfg = tconfig.ExperimentConfig(dataset="SoundSpaces")
+    cfg.vision_model = factory.nerfacto_model_config()
+    tconfig.save_config(cfg, tmp_path / "config.yml")
+    back = tconfig.load_config(tmp_path / "config.yml").vision_model
+    assert back == cfg.vision_model and back.proposal_max_res == (128, 256)
+    assert (back.hidden_layers, back.hidden_layers_color) == (1, 2)
+    tconfig.save_config(tconfig.ExperimentConfig(), tmp_path / "default.yml")
+    assert "proposal_max_res" not in (tmp_path / "default.yml").read_text()
 
 
 def test_hash_pipelines_build_and_train_the_table():

@@ -1,7 +1,8 @@
 """The port's tracer (neraf_tpu_torch/utils/profiling.py) on the CPU, at the
 tiny sizes: the spans of a RIR request, an image and a train step under
 torch.profiler, nested as named and covering every aten op of the request;
-a request's id on each of its spans; nothing recorded and nothing
+a request's id on each of its spans; a hash proposal field's spans under
+vision.proposal; nothing recorded and nothing
 allocated while nothing records; the serving paths' counters; and the
 benchmark's readers of the spans and counters (portbench/metrics)."""
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from neraf_tpu_torch.configs.config import ExperimentConfig
 from neraf_tpu_torch.data import loader, vision_data
 from neraf_tpu_torch.engine import factory
 from neraf_tpu_torch.utils import profiling
@@ -47,6 +49,15 @@ def vision_pipe():
                                          mixed_precision=False)
     pipe.config.vision_model.eval_num_rays_per_chunk = 16
     return pipe
+
+
+@pytest.fixture(scope="module")
+def nerfacto_pipe():
+    """The tiny published model: hash proposal fields."""
+    cfg = ExperimentConfig(dataset="SoundSpaces")
+    cfg.vision_model = factory.nerfacto_model_config(tiny=True)
+    cfg.vision_model.eval_num_rays_per_chunk = 16
+    return factory.build_vision_pipeline(device="cpu", mixed_precision=False, config=cfg)
 
 
 def _profiled(fn):
@@ -120,6 +131,42 @@ def test_image_request_spans(vision_pipe):
     assert names.count("image.assemble") == 1
 
 
+PROPOSAL_PARTS = ("vision.proposal_encoding", "vision.proposal_mlp")
+
+
+def test_hash_proposal_spans(vision_pipe, nerfacto_pipe):
+    """A hash proposal field's grid and its layers are spans under each
+    vision.proposal (2 chunks x 2 fields), the gathers under the one and
+    the layers and trunc_exp under the other; the fourier proposals have
+    neither."""
+    P = profiling.PREFIX
+    events, recs = _profiled(lambda: nerfacto_pipe.render_image(_cams(), 0, H, W))
+    names = [r["name"] for r in recs]
+    for part in PROPOSAL_PARTS:
+        assert names.count(part) == names.count("vision.proposal") == 4
+        ranges = [e for e in events if e.name == P + part]
+        assert len(ranges) == 4
+        assert all(e.cpu_parent.name == P + "vision.proposal" for e in ranges)
+    under = {p: {e.name for e in events if P + p in _ancestors(e)} for p in PROPOSAL_PARTS}
+    assert "aten::index_select" in under["vision.proposal_encoding"]  # the grid's gathers
+    assert {"aten::relu", "aten::exp"} <= under["vision.proposal_mlp"]
+    assert not under["vision.proposal_encoding"] & {"aten::relu", "aten::exp"}
+    events, recs = _profiled(lambda: vision_pipe.render_image(_cams(), 0, H, W))
+    assert not {r["name"] for r in recs} & set(PROPOSAL_PARTS)
+    assert not any(e.name in {P + p for p in PROPOSAL_PARTS} for e in events)
+
+
+def test_proposal_points_counter(nerfacto_pipe):
+    """image.proposal_points: rays x (n0 + n1) a chunk."""
+    n0, n1 = nerfacto_pipe.config.vision_model.num_proposal_samples
+    profiling.reset_counters()
+    nerfacto_pipe.render_image(_cams(), 0, 4, 4)  # one chunk of 16 rays
+    assert profiling.counters()["image.proposal_points"] == 16 * (n0 + n1)
+    nerfacto_pipe.render_image(_cams(), 0, H, W)
+    assert profiling.counters()["image.proposal_points"] == (16 + H * W) * (n0 + n1)
+    profiling.reset_counters()
+
+
 def test_train_step_spans():
     rng = np.random.default_rng(3)
     cams = vision_data.camera_arrays(vision_data.synthetic_cameras(8, H, W), "cpu")
@@ -170,9 +217,11 @@ def test_serving_counters(rir_pipe, vision_pipe):
     rir_pipe.render_waveforms(*_poses(n=3))
     vision_pipe.render_image(_cams(), 0, H, W)
     T = rir_pipe.audio_model.config.max_len
+    n0, n1 = vision_pipe.config.vision_model.num_proposal_samples
     assert profiling.counters() == {
         "rir.requests": 1, "rir.grid_features": 1, "rir.rirs": 3, "rir.frames": 3 * T,
-        "image.requests": 1, "image.rays": H * W, "image.chunks": 2}
+        "image.requests": 1, "image.rays": H * W, "image.chunks": 2,
+        "image.proposal_points": H * W * (n0 + n1)}
     profiling.reset_counters()
     assert profiling.counters() == {}
 
@@ -195,6 +244,8 @@ RIR, IMAGE = {"rirs": 512, "flops": 1.0}, {"pixels": 64, "flops": 1.0}
     ("proposal_ms.image", IMAGE, "vision.proposal"),
     ("field_ms.image", IMAGE, "vision.field"),
     ("render_ms.image", IMAGE, "vision.render"),
+    ("proposal_encoding_ms.image", IMAGE, "vision.proposal_encoding"),
+    ("proposal_mlp_ms.image", IMAGE, "vision.proposal_mlp"),
 ])
 def test_span_readers(metric, work, span):
     read = bench.metric_reader(metric).read
@@ -219,6 +270,29 @@ def test_host_ms_reader(metric, work, span):
     want = np.mean([r["host_ms"] for r in profiling.spans()][-2:])
     assert got == pytest.approx(want)
     assert read(_record(work)) is None
+
+
+def test_proposal_hash_roofline_reader():
+    """% of proposal_hash_bound_ms, held to the points the program counted
+    an image (image.proposal_points / image.requests against the unit's
+    proposal_points), in the device ms an image under
+    vision.proposal_encoding; None without the bound (a fourier
+    configuration), the span or the counters (a program without hash
+    proposals)."""
+    read = bench.metric_reader("proposal_hash_roofline.image").read
+    work = {**IMAGE, "proposal_hash_bound_ms": 0.5, "proposal_points": 100}
+    span = {"neraf.vision.proposal_encoding": 8.0}  # 2 ms an image
+    profiling.reset_counters()
+    assert read(_record(work, span)) is None
+    profiling.count("image.requests", 3)
+    profiling.count("image.proposal_points", 300)
+    assert read(_record(work, span)) == 25.0
+    profiling.count("image.proposal_points", 300)  # twice the points an image
+    assert read(_record(work, span)) == 50.0
+    assert read(_record(IMAGE, span)) is None
+    assert read(_record(work, {"aten::mm": 3.0})) is None
+    assert read(_record(work)) is None
+    profiling.reset_counters()
 
 
 def test_resnet_runs_reader():
